@@ -1,0 +1,49 @@
+"""Shared utilities: seed mixing, pow2 bucketing, device resolution."""
+from __future__ import annotations
+
+import torch
+
+_MASK64 = (1 << 64) - 1
+
+
+def mix_seeds(*vals: int) -> int:
+    """Splitmix64-style hash of a seed path → 31-bit PRNG seed.
+
+    Per-node seeds in the ND tree are derived by chaining this over
+    (seed, node path, level).  Affine formulas like ``seed * 31`` or
+    ``seed * 101 + lvl`` collapse at ``seed=0`` (every node at a level
+    reuses the identical noise stream); a full-avalanche mix does not.
+    """
+    h = 0
+    for v in vals:
+        h = (h + int(v) + 0x9E3779B97F4A7C15) & _MASK64
+        h ^= h >> 30
+        h = (h * 0xBF58476D1CE4E5B9) & _MASK64
+        h ^= h >> 27
+        h = (h * 0x94D049BB133111EB) & _MASK64
+        h ^= h >> 31
+    return h & 0x7FFFFFFF
+
+
+def pow2(x: int, lo: int = 64) -> int:
+    v = lo
+    while v < x:
+        v *= 2
+    return v
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the card unless told otherwise.
+
+    ``None`` means ``"cuda"``.  Asking for CUDA on a host without a card
+    raises instead of quietly running on the CPU; the CPU is used only
+    when the caller names it.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch path on the host")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev

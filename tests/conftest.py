@@ -39,6 +39,10 @@ def pytest_configure(config):
         "markers",
         "slow: full-size dnd/gather-free case (skipped by default; the CI "
         "spmd job runs them with --runslow)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card (the PyTorch port's kernels); skipped "
+        "on hosts without one")
 
 
 def pytest_collection_modifyitems(config, items):
