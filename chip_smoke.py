@@ -9,25 +9,40 @@ Phases, each of which must pass:
    ``nvcc`` per source, all at once) and print the build time;
 2. the threefry PRNG on the card equals the PRNG on the CPU for the
    ordering's key and shape sequence;
-3. each kernel equals its plain PyTorch version on the card, exactly, at
-   the main path's shapes (the altr4-scale band of ``grid3d(30, 30, 30)``,
-   dummy lanes included, and FM on the whole graph at ``n_pad`` 32768),
-   with CUDA-event times of both;
+3. each kernel equals its plain PyTorch version on the card at the paths'
+   shapes, with CUDA-event times of both (the gain and ELL kernels also
+   through their C entries alone, without the wrappers' checks and host
+   syncs): exactly for the FM, gain and
+   BFS kernels (the altr4-scale band of ``grid3d(30, 30, 30)``, dummy lanes
+   included, and the whole graph at ``n_pad`` 32768), where the hoisted
+   pass loop must also equal the fused kernel and ``torch.sparse.mm``
+   must equal the gains; within 1e-5 (float32), 5e-2 (bfloat16) and 1e-4
+   (diffusion) for the ELL kernels, up to ``grid3d(100, 100, 100)``, and
+   exactly for the bfloat16 SpMV's rounding of each product.  The ELL
+   entries ``ops.spmv`` / ``ops.diffuse`` are then driven once at that
+   size with their launch counts set to 0 just before and read just after;
 4. ``nested_dissection(grid3d(12, 12, 12), seed=0, nproc=4)`` gives the
-   same permutation on the card as on the CPU;
+   same permutation fused on the card, fused on the CPU, hoisted on the
+   card and hoisted on the CPU; the plain gains (``REPRO_FM_GAIN=jnp``)
+   and the oracle (``REPRO_FM_MODE=oracle``) raise on the card;
 5. the main path: ``nested_dissection(grid3d(30, 30, 30), seed=0,
    nproc=8)`` on the card, with the kernel launch counts set to 0 just
    before and read just after; both kernels must have launched;
-6. a ``{"kernels": [...]}`` line with each kernel's launches, error, times
-   and bound, the card's name and power limit, and as the last line
-   ``{"ok": true, "device": {...}}``.
+6. the hoisted path at the same width (``REPRO_FM_MODE=hoisted``): the
+   same permutation as phase 5, the gain and move-loop kernels launched
+   and the fused kernel not;
+7. a ``{"kernels": [...]}`` line with each kernel's launches, error, times,
+   bound and library time, the card's name and power limit, and as the
+   last line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without that last line.  Imports neither jax
 nor the reference package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -61,6 +76,21 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def entry_ms(source: str, entry: str, *args, reps: int = 50) -> float:
+    """Mean CUDA-event time of a kernel's C entry alone: the launch without
+    its wrapper's checks, allocations and host syncs (tensors are passed
+    as pointers, in the entry's order; outputs are overwritten)."""
+    import torch
+    from repro_torch.kernels import build
+    fn = getattr(build.load(source), entry)
+    vals = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        build.check(fn(*vals, stream), entry)
+    return cuda_ms(launch, reps)
+
+
 def once_ms(fn):
     """CUDA-event time of one run of ``fn()`` and its result (for runs of
     many seconds, where a warm-up would double the cost)."""
@@ -73,6 +103,36 @@ def once_ms(fn):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1), out
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time for ``nbytes`` moved once and ``ops`` operations."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S
+    return dict(bytes=nbytes, ops=ops, bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+@contextlib.contextmanager
+def env(**values):
+    """Set (or, for None, unset) environment variables; restore after."""
+    old = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def max_err(a, b) -> float:
+    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
 
 def plane_problem(side: int = 30):
@@ -152,9 +212,10 @@ def _bfs_case(nbr, src, width=3) -> dict:
 
 def _fm_case(works) -> dict:
     """``fm_fused_multi`` on the card against ``fm_fused_plain`` fed by the
-    same keys, with the balance slack and the noise formed on the CPU."""
+    same keys, with the balance slack and the noise formed on the CPU; the
+    hoisted pass loop (gain kernel + move-loop kernel) against both."""
     import torch
-    from repro_torch.core.fm import pack_fm_bucket
+    from repro_torch.core.fm import fm_refine_multi, pack_fm_bucket
     from repro_torch.kernels import fm_fused as ff
     assert len({w.bucket_key() for w in works}) == 1
     passes, pos_only = works[0].passes, works[0].pos_only
@@ -168,12 +229,18 @@ def _fm_case(works) -> dict:
             noise.cuda(), eps_abs.cuda(), t["max_moves"], t["n_pert"])
     plain_ms, want = once_ms(lambda: ff.fm_fused_plain(
         *args, passes=passes, pos_only=pos_only))
-    err = max(float((got[0].int() - want[0].int()).abs().max()),
-              float((got[1] - want[1]).abs().max()),
-              float((got[2] - want[2]).abs().max()))
+    err = max(max_err(g, w) for g, w in zip(got, want))
     if err != 0 or not all(torch.equal(a, b) for a, b in zip(got, want)):
         raise AssertionError(f"fm_fused_multi differs from its plain version "
                              f"at {tuple(t['nbr'].shape)}: max |diff| {err}")
+    # the hoisted pass loop: per pass the gain kernel and the move loop
+    hoisted_ms = cuda_ms(lambda: fm_refine_multi(
+        **t, passes=passes, pos_only=pos_only, gain_mode="pallas"), reps=3)
+    hoisted = fm_refine_multi(**t, passes=passes, pos_only=pos_only,
+                              gain_mode="pallas")
+    if not all(torch.equal(a, b) for a, b in zip(hoisted, want)):
+        raise AssertionError("the hoisted pass loop differs from "
+                             "fm_fused_multi and fm_fused_plain")
     # the kernel alone: its time, and its tally of the work the moves needed
 
     def kernel():
@@ -185,21 +252,113 @@ def _fm_case(works) -> dict:
     L = t["lane_work"].shape[0]
     W, n, d = t["nbr"].shape
     steps, ops, noise_reads = (int(x) for x in res[3].sum(0))
+    real_ids = int((t["nbr"] >= 0).sum())
     # each input read once: the tiles' real ids, the lanes' state, the
     # noise entries the moves scored; each output written once
-    nbytes = 4 * int((t["nbr"] >= 0).sum()) + L * n * (4 + 1 + 1 + 1) + \
+    nbytes = 4 * real_ids + L * n * (4 + 1 + 1 + 1) + \
         4 * noise_reads + L * (4 * 4 + 4 + 4)
-    bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S)
-    return dict(shape=[L, n, d], works=W, lanes_real=sum(counts),
-                steps=steps, ops=ops, noise_reads=noise_reads, bytes=nbytes,
-                state_bytes=ff.state_bytes(n, d), ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=bound_ms,
-                bound_by="bytes" if nbytes / HBM_BYTES_PER_S >=
-                ops / SCALAR_OPS_PER_S else "operations")
+    out = dict(shape=[L, n, d], works=W, lanes_real=sum(counts),
+               steps=steps, noise_reads=noise_reads,
+               state_bytes=ff.state_bytes(n, d), ms=ms, plain_ms=plain_ms,
+               hoisted_ms=hoisted_ms, max_abs_err=err,
+               **bound(nbytes, ops))
+    out["move_loop"] = _move_loop_case(args, pos_only)
+    return out
+
+
+def _move_loop_case(args, pos_only) -> dict:
+    """The first pass of the hoisted path: ``fm_move_loop``'s kernel
+    against its plain version, with the gains from the gain kernel."""
+    import torch
+    from repro_torch.kernels import band_batch as bb
+    from repro_torch.kernels import fm_fused as ff
+    nbr, lane_work, vw, parts, locked, noise, eps_abs, max_moves, n_pert = \
+        args
+    pulled0, pulled1 = bb.sep_gain_multi_kernel(nbr, lane_work, vw, parts)
+    bws = (vw * (parts == 2)).sum(1)
+    bimb = ((vw * (parts == 0)).sum(1) - (vw * (parts == 1)).sum(1)).abs()
+    pass_args = (nbr, lane_work, vw, parts, locked, pulled0, pulled1,
+                 noise[:, 0].contiguous(), n_pert, eps_abs, max_moves, bws,
+                 bimb)
+    plain_ms, want = once_ms(lambda: ff.fm_move_loop_plain(
+        *pass_args, pos_only=pos_only))
+
+    def kernel():
+        return ff.fm_move_loop_kernel(*pass_args, pos_only=pos_only)
+    ms = cuda_ms(kernel, reps=3)
+    res = kernel()
+    err = max(max_err(g, w) for g, w in zip(res[:3], want))
+    if err != 0 or not all(torch.equal(a, b) for a, b in zip(res[:3], want)):
+        raise AssertionError(f"fm_move_loop differs from its plain version: "
+                             f"max |diff| {err}")
+    L, n = parts.shape
+    steps, ops, noise_reads = (int(x) for x in res[3].sum(0))
+    # each input read once: the lanes' weights, states, locks and pulled
+    # weights, the noise entries scored; each output written once
+    nbytes = L * n * (4 + 1 + 1 + 8 + 1) + 4 * noise_reads + L * 4 * 5
+    return dict(steps=steps, noise_reads=noise_reads, ms=ms,
+                plain_ms=plain_ms, max_abs_err=err, **bound(nbytes, ops))
+
+
+def _lanes_csr(nbr, lane_work):
+    """The lanes' ELL tiles as one block-diagonal CSR matrix (L·n, L·n):
+    an entry counts the slots of row v that name u (duplicates summed)."""
+    import torch
+    W, n, d = nbr.shape
+    L = lane_work.shape[0]
+    tiles = nbr.index_select(0, lane_work.long())
+    valid = tiles >= 0
+    base = (torch.arange(L, device=nbr.device) * n)[:, None, None]
+    rows = (base + torch.arange(n, device=nbr.device)[None, :, None]
+            ).expand(L, n, d)[valid]
+    cols = (tiles.long() + base)[valid]
+    coo = torch.sparse_coo_tensor(
+        torch.stack([rows, cols]), torch.ones_like(cols, dtype=torch.float32),
+        (L * n, L * n)).coalesce()
+    return coo.to_sparse_csr()
+
+
+def _gain_case(nbr, lane_work, vwgt, part) -> dict:
+    """``sep_gain_multi`` on the card against its plain version and
+    against ``torch.sparse.mm`` of the tiles with the side weights."""
+    import torch
+    from repro_torch.kernels import band_batch as bb
+    args = (nbr, lane_work, vwgt, part)
+    got = bb.sep_gain_multi_kernel(*args)
+    want = bb.sep_gain_multi_plain(*args)
+    err = max(max_err(g, w) for g, w in zip(got, want))
+    if err != 0 or not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"sep_gain_multi differs from its plain version "
+                             f"at {tuple(nbr.shape)}: max |diff| {err}")
+    L, n = part.shape
+    ms = entry_ms("sep_gain", "sep_gain_launch", *args,
+                  *(torch.empty_like(g) for g in got), L, n, nbr.shape[2])
+    call_ms = cuda_ms(lambda: bb.sep_gain_multi_kernel(*args), reps=20)
+    plain_ms = cuda_ms(lambda: bb.sep_gain_multi_plain(*args), reps=3)
+    A = _lanes_csr(nbr, lane_work)
+    Y = torch.stack([vwgt * (part == 1), vwgt * (part == 0)], dim=-1) \
+        .reshape(L * n, 2)
+    library_ms = cuda_ms(lambda: torch.sparse.mm(A, Y), reps=20)
+    lib = torch.sparse.mm(A, Y).reshape(L, n, 2)
+    lib_err = max(max_err(lib[..., 0], got[0]), max_err(lib[..., 1], got[1]))
+    if lib_err != 0:
+        raise AssertionError(f"torch.sparse.mm differs from sep_gain_multi: "
+                             f"max |diff| {lib_err}")
+    tile_ids = (nbr >= 0).sum((1, 2))
+    slots = int(tile_ids.index_select(0, lane_work.long()).sum())
+    # the tiles' real ids once, each lane's part and vwgt once, the two
+    # outputs once; a compare and an add per real slot of every lane
+    nbytes = 4 * int(tile_ids.sum()) + L * n * (1 + 4) + 2 * 4 * L * n
+    return dict(shape=[L, n, nbr.shape[2]], tiles=nbr.shape[0], ms=ms,
+                call_ms=call_ms, plain_ms=plain_ms, library_ms=library_ms,
+                max_abs_err=err,
+                library_err=lib_err, **bound(nbytes, 2 * slots))
 
 
 def phase_kernels() -> dict:
     import numpy as np
-    from repro_torch.core.fm import FMWork
+    import torch
+    from repro_torch.core.fm import FMWork, pack_fm_bucket
     from repro_torch.util import pow2
     g, part, band, bpart, locked = plane_problem(30)
     nbr_g, _ = g.to_ell()
@@ -234,62 +393,271 @@ def phase_kernels() -> dict:
     out["fm_band"] = _fm_case(works)
     if out["fm_band"]["shape"] != [8, 8192, 1024]:
         raise AssertionError(f"band bucket is {out['fm_band']['shape']}")
-    log(f"phase 3 fm_fused_multi == plain: band {out['fm_band']}")
+    log(f"phase 3 fm_fused_multi == plain == hoisted: band {out['fm_band']}")
     # fm on the whole graph: n_pad 32768, the largest the main path pads to
     whole = [FMWork(nbr=nbr_g, vwgt=g.vwgt, part=part,
                     locked=np.zeros(g.n, bool), seed=9, k_inst=2,
                     eps_frac=0.12, passes=3, n_pert=8)]
     out["fm_whole"] = _fm_case(whole)
-    log(f"phase 3 fm_fused_multi == plain: whole graph {out['fm_whole']}")
+    log(f"phase 3 fm_fused_multi == plain == hoisted: whole graph "
+        f"{out['fm_whole']}")
+
+    # gains: the band bucket's lanes on its two works' tiles ...
+    host, _ = pack_fm_bucket(works)
+    t = {k: v.cuda() for k, v in host.items()}
+    out["gain_band"] = _gain_case(t["nbr"], t["lane_work"],
+                                  t["vwgt"].float(), t["parts"])
+    log(f"phase 3 sep_gain_multi == plain == sparse.mm: band "
+        f"{out['gain_band']}")
+    # ... and two lanes on the whole graph's tile (2, 32768, 8)
+    n_g = pow2(g.n)
+    vw1 = np.zeros((2, n_g), np.float32)
+    vw1[:, :g.n] = g.vwgt
+    pt1 = np.full((2, n_g), 3, np.int8)
+    pt1[:, :g.n] = part
+    pt1[1, :g.n][rng.random(g.n) < 0.1] = 2
+    out["gain_whole"] = _gain_case(
+        torch.from_numpy(nb1).cuda(),
+        torch.zeros(2, dtype=torch.int32).cuda(),
+        torch.from_numpy(vw1).cuda(), torch.from_numpy(pt1).cuda())
+    log(f"phase 3 sep_gain_multi == plain == sparse.mm: whole graph "
+        f"{out['gain_whole']}")
     return out
+
+
+def _ell_inputs(nbr, seed: int):
+    """Card tensors of one ELL case: ids, values, |values|, x, injection."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    n, d = nbr.shape
+    val = rng.standard_normal((n, d)).astype(np.float32)
+    x = rng.standard_normal(n).astype(np.float32)
+    x[::97] = 0.0                                       # sign(0) = 0
+    inj = np.zeros(n, np.float32)
+    inj[:3], inj[-3:] = 0.5, -0.5
+    return [torch.from_numpy(a).cuda()
+            for a in (nbr, val, np.abs(val), x, inj)]
+
+
+def _ell_case(name: str, nbr) -> dict:
+    """``ell_spmv`` (float32, bfloat16) and ``diffusion_step`` on the card
+    against their plain versions; SpMV against ``torch.sparse.mm``."""
+    import torch
+    from repro_torch.kernels import diffusion as df
+    from repro_torch.kernels import ell_spmv as sp
+    ids, val, wgt, x, inj = _ell_inputs(nbr, seed=len(nbr))
+    n, d = nbr.shape
+    valid = int((ids >= 0).sum())
+    # spmv, float32: within 1e-5 of the plain version (sums in another order)
+    got, want = sp.ell_spmv_kernel(ids, val, x), sp.ell_spmv_plain(ids, val, x)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    err = max_err(got, want)
+    ms = entry_ms("ell_spmv", "ell_spmv_launch", ids, val, x,
+                  torch.empty_like(x), n, d, 0)
+    call_ms = cuda_ms(lambda: sp.ell_spmv_kernel(ids, val, x), reps=20)
+    plain_ms = cuda_ms(lambda: sp.ell_spmv_plain(ids, val, x), reps=5)
+    # bfloat16: within 5e-2
+    vb, xb = val.to(torch.bfloat16), x.to(torch.bfloat16)
+    got_b = sp.ell_spmv_kernel(ids, vb, xb)
+    torch.testing.assert_close(got_b.float(), sp.ell_spmv_plain(
+        ids, vb, xb).float(), rtol=5e-2, atol=5e-2)
+    err_b = max_err(got_b, sp.ell_spmv_plain(ids, vb, xb))
+    # the library call: the ELL matrix as CSR times x
+    rows = torch.arange(n, device=ids.device)[:, None].expand(n, d)[ids >= 0]
+    A = torch.sparse_coo_tensor(
+        torch.stack([rows, ids[ids >= 0].long()]), val[ids >= 0],
+        (n, n)).coalesce().to_sparse_csr()
+    library_ms = cuda_ms(lambda: torch.sparse.mm(A, x[:, None]), reps=20)
+    library_err = max_err(torch.sparse.mm(A, x[:, None])[:, 0], want)
+    # ids and values of the real slots, x and y once; a multiply and an add
+    spmv = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, max_abs_err=err,
+                bf16_max_abs_err=err_b, library_ms=library_ms,
+                library_err=library_err,
+                **bound(8 * valid + 4 * n + 4 * n, 2 * valid))
+    # diffusion: one step timed, three steps within 1e-4
+    step_ms = entry_ms("diffusion", "diffusion_launch", ids, wgt, x, inj,
+                       torch.empty_like(x), n, d, 0.25, 0.25 * 0.1)
+    step_call_ms = cuda_ms(lambda: df.diffusion_step_kernel(
+        ids, wgt, x, inj), reps=20)
+    step_plain_ms = cuda_ms(lambda: df.diffusion_step_plain(
+        ids, wgt, x, inj), reps=5)
+    yk = yp = x
+    for _ in range(3):
+        yk = df.diffusion_step_kernel(ids, wgt, yk, inj)
+        yp = df.diffusion_step_plain(ids, wgt, yp, inj)
+    torch.testing.assert_close(yk, yp, rtol=1e-4, atol=1e-4)
+    # one step: ids and values of the real slots, x, inj and y once; per
+    # slot a multiply and two adds, per row eight operations
+    diff = dict(ms=step_ms, call_ms=step_call_ms, plain_ms=step_plain_ms,
+                max_abs_err=max_err(yk, yp),
+                **bound(8 * valid + 3 * 4 * n, 3 * valid + 8 * n))
+    return dict(name=name, shape=[n, d], spmv=spmv, diffusion=diff)
+
+
+def phase_ell() -> dict:
+    """The ELL kernels at the reference bench's shapes and two graphs,
+    then the public entries driven once at the largest."""
+    import numpy as np
+    import torch
+    from repro_torch.graphs.generators import grid3d
+    from repro_torch.kernels import diffusion, ell_spmv, ops
+    # bfloat16 rounds each product before the float32 sum, exactly: rows
+    # whose exact sum is 2^-14 and whose sum of rounded products is 0
+    nb = torch.tensor([[0, 1, -1]] * 2, dtype=torch.int32, device="cuda")
+    vb = torch.tensor([[1.0 + 2 ** -7, -1.0, 5.0]] * 2, device="cuda")
+    xb = torch.tensor([1.0 + 2 ** -7, 1.0 + 2 ** -6], device="cuda")
+    rounded = ell_spmv.ell_spmv_kernel(nb, vb.to(torch.bfloat16),
+                                       xb.to(torch.bfloat16)).tolist()
+    exact = ell_spmv.ell_spmv_kernel(nb, vb, xb).tolist()
+    if rounded != [0.0, 0.0] or exact != [2 ** -14] * 2:
+        raise AssertionError(f"ell_spmv's bfloat16 rounding: {rounded}, "
+                             f"float32 {exact}")
+    cases = []
+    for n, d in ((4096, 8), (16384, 16)):               # kernel_bench shapes
+        rng = np.random.default_rng(n + d)
+        nbr = rng.integers(0, n, (n, d)).astype(np.int32)
+        nbr[rng.random((n, d)) < 0.3] = -1
+        cases.append(_ell_case(f"random({n},{d})", nbr))
+    for side in (30, 100):
+        nbr, _ = grid3d(side, side, side).to_ell(8)
+        cases.append(_ell_case(f"grid3d({side},{side},{side})", nbr))
+    for c in cases:
+        log(f"phase 3 ell_spmv / diffusion_step == plain: {c}")
+    # the public entries at grid3d(100, 100, 100), counted
+    ids, val, wgt, x, inj = _ell_inputs(nbr, seed=1)
+    torch.cuda.synchronize()
+    ell_spmv.launches = diffusion.launches = 0
+    y = ops.spmv(ids, val, x)
+    z = ops.diffuse(ids, wgt, x, inj, steps=3)
+    torch.cuda.synchronize()
+    launches = {"ell_spmv": ell_spmv.launches,
+                "diffusion_step": diffusion.launches}
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"the ELL entries skipped a kernel: {launches}")
+    torch.testing.assert_close(y, ell_spmv.ell_spmv_plain(ids, val, x),
+                               rtol=1e-5, atol=1e-5)
+    zp = x
+    for _ in range(3):
+        zp = diffusion.diffusion_step_plain(ids, wgt, zp, inj)
+    torch.testing.assert_close(z, zp, rtol=1e-4, atol=1e-4)
+    if not (bool(torch.isfinite(y).all()) and bool(torch.isfinite(z).all())):
+        raise AssertionError("the ELL entries returned non-finite values")
+    log(f"phase 3 ops.spmv + ops.diffuse(steps=3) at grid3d(100,100,100): "
+        f"launches {launches}")
+    return dict(cases=cases, launches=launches)
 
 
 def phase_small_parity() -> None:
     import numpy as np
     from repro_torch.core.nd import nested_dissection
     from repro_torch.graphs.generators import grid3d
+    from repro_torch.kernels import band_batch, fm_fused
     g = grid3d(12, 12, 12)
-    t0 = time.perf_counter()
-    p_gpu = nested_dissection(g, seed=0, nproc=4, device="cuda")
-    t1 = time.perf_counter()
-    p_cpu = nested_dissection(g, seed=0, nproc=4, device="cpu")
-    t2 = time.perf_counter()
-    if not np.array_equal(p_gpu, p_cpu):
-        raise AssertionError("grid3d(12,12,12): card and cpu permutations "
-                             "differ")
-    log(f"phase 4 grid3d(12,12,12) nproc=4: card == cpu permutation "
-        f"(card {t1 - t0:.1f} s, cpu {t2 - t1:.1f} s)")
+    secs = {}
+
+    def run(name, device):
+        t0 = time.perf_counter()
+        perm = nested_dissection(g, seed=0, nproc=4, device=device)
+        secs[name] = round(time.perf_counter() - t0, 1)
+        return perm
+
+    with env(REPRO_FM_MODE=None, REPRO_FM_GAIN=None):
+        p_gpu = run("fused card", "cuda")
+        perms = {"fused cpu": run("fused cpu", "cpu")}
+    with env(REPRO_FM_MODE="hoisted", REPRO_FM_GAIN="pallas"):
+        band_batch.gain_launches = fm_fused.move_loop_launches = 0
+        fm_fused.launches = 0
+        perms["hoisted card"] = run("hoisted card", "cuda")
+        if fm_fused.launches or not fm_fused.move_loop_launches or \
+                not band_batch.gain_launches:
+            raise AssertionError(
+                f"hoisted: launches fused {fm_fused.launches}, move loop "
+                f"{fm_fused.move_loop_launches}, gains "
+                f"{band_batch.gain_launches}")
+    with env(REPRO_FM_MODE="hoisted", REPRO_FM_GAIN=None):
+        perms["hoisted cpu"] = run("hoisted cpu", "cpu")
+    for name, perm in perms.items():
+        if not np.array_equal(p_gpu, perm):
+            raise AssertionError(f"grid3d(12,12,12): the fused card "
+                                 f"permutation differs from {name}")
+    # the plain gains and the oracle have no kernel: on the card they must
+    # raise, not run plain torch there
+    refused = []
+    for mode, gain in (("hoisted", "jnp"), ("oracle", None)):
+        with env(REPRO_FM_MODE=mode, REPRO_FM_GAIN=gain):
+            try:
+                nested_dissection(g, seed=0, nproc=4, device="cuda")
+            except ValueError:
+                refused.append(f"{mode}/{gain}")
+                continue
+        raise AssertionError(f"REPRO_FM_MODE={mode} REPRO_FM_GAIN={gain} "
+                             f"ran on the card without a kernel")
+    log(f"phase 4 grid3d(12,12,12) nproc=4: fused card == fused cpu == "
+        f"hoisted card == hoisted cpu permutation; refused on the card: "
+        f"{refused}; seconds {secs}")
 
 
-def phase_main() -> dict:
+def _ordering(phase: str, counters: dict) -> dict:
+    """One full-size ordering of grid3d(30, 30, 30) at nproc 8 on the card,
+    with the launch counts of ``counters`` (name → (module, attribute))
+    set to 0 just before and read just after."""
     import numpy as np
     import torch
     from repro_torch.core.nd import nested_dissection
     from repro_torch.graphs.generators import grid3d
-    from repro_torch.kernels import band_batch, fm_fused
     from repro_torch.sparse.symbolic import nnz_opc
     g = grid3d(30, 30, 30)
     stage_s = {}
     torch.cuda.synchronize()
-    band_batch.launches = 0
-    fm_fused.launches = 0
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
     t0 = time.perf_counter()
     perm = nested_dissection(g, seed=0, nproc=8, device="cuda",
                              stage_s=stage_s)
     wall = time.perf_counter() - t0
-    launches = {"bfs_multi": band_batch.launches,
-                "fm_fused_multi": fm_fused.launches}
+    launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
     if not np.array_equal(np.sort(perm), np.arange(g.n)):
-        raise AssertionError("main path: not a permutation")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"main path skipped a kernel: {launches}")
+        raise AssertionError(f"{phase}: not a permutation")
     nnz, opc = nnz_opc(g, perm)
     stages = {k: stage_s.get(k, 0.0) for k in ("match", "bfs", "fm")}
     stages["host"] = wall - sum(stages.values())
     res = {"graph": "grid3d(30,30,30)", "n": g.n, "m": g.m, "nproc": 8,
            "seed": 0, "wall_s": wall, "stage_s": stages,
            "launches": launches, "nnz": nnz, "opc": opc}
-    log(f"phase 5 main path: {json.dumps(res)}")
+    log(f"{phase}: {json.dumps(res)}")
+    res["perm"] = perm
+    return res
+
+
+def phase_main() -> dict:
+    from repro_torch.kernels import band_batch, fm_fused
+    with env(REPRO_FM_MODE=None, REPRO_FM_GAIN=None):
+        res = _ordering("phase 5 main path", {
+            "bfs_multi": (band_batch, "launches"),
+            "fm_fused_multi": (fm_fused, "launches")})
+    if min(res["launches"].values()) <= 0:
+        raise AssertionError(f"main path skipped a kernel: {res['launches']}")
+    return res
+
+
+def phase_hoisted(fused: dict) -> dict:
+    import numpy as np
+    from repro_torch.kernels import band_batch, fm_fused
+    with env(REPRO_FM_MODE="hoisted", REPRO_FM_GAIN=None):
+        res = _ordering("phase 6 hoisted path", {
+            "bfs_multi": (band_batch, "launches"),
+            "sep_gain_multi": (band_batch, "gain_launches"),
+            "fm_move_loop": (fm_fused, "move_loop_launches"),
+            "fm_fused_multi": (fm_fused, "launches")})
+    n = res["launches"]
+    if n["sep_gain_multi"] <= 0 or n["fm_move_loop"] <= 0 or \
+            n["fm_fused_multi"] != 0:
+        raise AssertionError(f"hoisted path: launches {n}")
+    if not np.array_equal(res["perm"], fused["perm"]):
+        raise AssertionError("hoisted path: the permutation differs from "
+                             "the fused one")
+    log("phase 6 hoisted path: same permutation (and OPC) as phase 5")
     return res
 
 
@@ -322,28 +690,47 @@ def main() -> int:
     phase_build()
     phase_prng()
     kern = phase_kernels()
+    ell = phase_ell()
     phase_small_parity()
     main_run = phase_main()
+    hoisted = phase_hoisted(main_run)
     src = "src/repro_torch/kernels/csrc"
+    big = ell["cases"][-1]                      # grid3d(100, 100, 100)
+
+    def row(name, source, replaces, launches, case, err, library_ms):
+        return {"name": name, "route": "cuda", "source": f"{src}/{source}",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": case["ms"],
+                "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
+                "bound_by": case["bound_by"], "library_ms": library_ms}
     rows = [
-        {"name": "bfs_multi", "route": "cuda", "source": f"{src}/bfs_multi.cu",
-         "replaces": "src/repro/kernels/band_batch.py:49",
-         "launches": main_run["launches"]["bfs_multi"],
-         "max_abs_err": max(kern["bfs_root"]["max_abs_err"],
-                            kern["bfs_band"]["max_abs_err"]),
-         "ms": kern["bfs_root"]["ms"],
-         "plain_ms": kern["bfs_root"]["plain_ms"],
-         "bound_ms": kern["bfs_root"]["bound_ms"],
-         "bound_by": kern["bfs_root"]["bound_by"], "library_ms": None},
-        {"name": "fm_fused_multi", "route": "cuda",
-         "source": f"{src}/fm_fused.cu",
-         "replaces": "src/repro/kernels/fm_fused.py:209",
-         "launches": main_run["launches"]["fm_fused_multi"],
-         "max_abs_err": max(kern["fm_band"]["max_abs_err"],
-                            kern["fm_whole"]["max_abs_err"]),
-         "ms": kern["fm_band"]["ms"], "plain_ms": kern["fm_band"]["plain_ms"],
-         "bound_ms": kern["fm_band"]["bound_ms"],
-         "bound_by": kern["fm_band"]["bound_by"], "library_ms": None},
+        row("bfs_multi", "bfs_multi.cu", "src/repro/kernels/band_batch.py:49",
+            main_run["launches"]["bfs_multi"], kern["bfs_root"],
+            max(kern["bfs_root"]["max_abs_err"],
+                kern["bfs_band"]["max_abs_err"]), None),
+        row("fm_fused_multi", "fm_fused.cu",
+            "src/repro/kernels/fm_fused.py:209",
+            main_run["launches"]["fm_fused_multi"], kern["fm_band"],
+            max(kern["fm_band"]["max_abs_err"],
+                kern["fm_whole"]["max_abs_err"]), None),
+        row("sep_gain_multi", "sep_gain.cu",
+            "src/repro/kernels/band_batch.py:88",
+            hoisted["launches"]["sep_gain_multi"], kern["gain_band"],
+            max(kern["gain_band"]["max_abs_err"],
+                kern["gain_whole"]["max_abs_err"]),
+            kern["gain_band"]["library_ms"]),
+        row("fm_move_loop", "fm_fused.cu", "src/repro/kernels/fm_fused.py:48",
+            hoisted["launches"]["fm_move_loop"], kern["fm_band"]["move_loop"],
+            max(kern["fm_band"]["move_loop"]["max_abs_err"],
+                kern["fm_whole"]["move_loop"]["max_abs_err"]), None),
+        row("ell_spmv", "ell_spmv.cu", "src/repro/kernels/ell_spmv.py:36",
+            ell["launches"]["ell_spmv"], big["spmv"],
+            max(c["spmv"]["max_abs_err"] for c in ell["cases"]),
+            big["spmv"]["library_ms"]),
+        row("diffusion_step", "diffusion.cu",
+            "src/repro/kernels/diffusion.py:44",
+            ell["launches"]["diffusion_step"], big["diffusion"],
+            max(c["diffusion"]["max_abs_err"] for c in ell["cases"]), None),
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

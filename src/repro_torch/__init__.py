@@ -2,9 +2,13 @@
 
 Host nested dissection (``core.nd.nested_dissection``) with its device
 works on one NVIDIA H100: heavy-edge matching as batched torch ops, and
-hand-written CUDA kernels for the band distance sweep
-(``kernels.band_batch``) and the fused FM pass loop (``kernels.fm_fused``).
-Module names follow ``repro``'s so each counterpart is easy to find.
+hand-written CUDA kernels for every Pallas kernel of the reference: the
+band distance sweep and the FM gains (``kernels.band_batch``), the fused
+FM pass loop and the hoisted path's one-pass move loop
+(``kernels.fm_fused``), the ELL SpMV (``kernels.ell_spmv``) and the
+diffusion step (``kernels.diffusion``).  ``kernels.ops`` holds the public
+batched entries and the ``REPRO_FM_MODE`` switch.  Module names follow
+``repro``'s so each counterpart is easy to find.
 
 Entry points take a ``device`` argument that defaults to ``"cuda"`` and
 raise when no card is present, unless the caller asks for ``"cpu"``;

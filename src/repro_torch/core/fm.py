@@ -10,14 +10,21 @@ The paper's *multi-sequential* refinement runs independent FM instances
 on copies of the band graph, each from a perturbed start; here every
 instance is a *lane*.  ``execute_fm_works`` pads each work to its
 power-of-two ELL bucket and runs every work of a bucket as one
-``kernels.fm_fused.fm_fused_multi`` call (the CUDA kernel on the card).
-A work's lanes share one ELL tile.  Per-lane results are independent of
-batch composition, so bucketed execution equals one-work-at-a-time
-execution bit for bit.
+``kernels.ops.fm_refine_batch`` call.  ``REPRO_FM_MODE`` picks the path:
+the fused pass loop (``kernels.fm_fused.fm_fused_multi``, one CUDA kernel
+per bucket, the default), the hoisted pass loop of this module
+(``fm_refine_multi``: per pass, the gains from
+``kernels.band_batch.sep_gain_multi`` and one ``fm_move_loop``), or the
+independent oracle, which is plain torch and so runs only on the CPU.  The
+three return the same bits.  A work's lanes
+share one ELL tile.  Per-lane results are independent of batch
+composition, so bucketed execution equals one-work-at-a-time execution
+bit for bit.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from collections import defaultdict
 from typing import List, Optional, Sequence, Tuple
 
@@ -25,8 +32,12 @@ import numpy as np
 import torch
 
 from repro_torch import prng
-from repro_torch.kernels.fm_fused import fm_fused_multi
+from repro_torch.kernels import ops
+from repro_torch.kernels.band_batch import sep_gain_multi
+from repro_torch.kernels.fm_fused import fm_move_loop, fm_noise
 from repro_torch.util import pow2 as _pow2, resolve_device
+
+GAIN_MODES = ("pallas", "jnp")
 
 
 def fm_lane_count(nproc: int, cap: int, fold_dup: bool,
@@ -42,6 +53,62 @@ def fm_lane_count(nproc: int, cap: int, fold_dup: bool,
         return 1
     k = int(np.clip(nproc, 1, cap)) if fold_dup else 1
     return max(k, 2)
+
+
+def gain_mode_default(device=None) -> str:
+    """FM gain-recompute backend: REPRO_FM_GAIN=pallas|jnp|auto.
+
+    The reference's names: ``pallas`` is the port's gain kernel (which,
+    like every wrapper, runs its plain version on CPU tensors); ``jnp`` is
+    the plain version, which runs only on the CPU: on CUDA tensors the
+    hoisted path raises rather than give the card's work to plain torch.
+    ``auto`` resolves to ``pallas`` on the card and ``jnp`` on the CPU.
+    """
+    mode = os.environ.get("REPRO_FM_GAIN", "auto")
+    if mode == "auto":
+        return "pallas" if resolve_device(device).type == "cuda" else "jnp"
+    return mode
+
+
+def fm_refine_multi(nbr, lane_work, vwgt, parts, locked, keys, eps_frac,
+                    max_moves, n_pert, passes: int = 3,
+                    pos_only: bool = False, gain_mode: str | None = None):
+    """The hoisted pass loop: FM over a flat lane axis, pass by pass.
+
+    Shapes as ``fm_fused_multi``: nbr (W, n, d) int32 tiles with
+    lane_work (L,) int32; vwgt (L, n); parts (L, n) int8; locked (L, n)
+    bool; keys (L, 2); eps_frac (L,) float32; max_moves, n_pert (L,)
+    int32.  Per pass: split the keys and draw the noise, recompute the
+    gains (``sep_gain_multi``), run one ``fm_move_loop``, revert to the
+    best state.  The best separator weight and imbalance carry from pass
+    to pass.  On the card each pass is two kernel launches.  Returns
+    (parts int8, sep_w, imb), the fused kernel's bits.  Raises
+    ``ValueError`` for an unknown ``gain_mode``, and for ``jnp`` on CUDA
+    tensors.
+    """
+    gain_mode = gain_mode or gain_mode_default(nbr.device)
+    if gain_mode not in GAIN_MODES:
+        raise ValueError(f"REPRO_FM_GAIN={gain_mode!r} not in "
+                         "pallas|jnp|auto")
+    if gain_mode == "jnp" and nbr.is_cuda:
+        raise ValueError("REPRO_FM_GAIN=jnp is the plain gains, which run "
+                         "only on the CPU; on the card use pallas or auto")
+    vwgt_f = vwgt.to(torch.float32)
+    eps_abs = eps_frac.to(torch.float32) * vwgt_f.sum(dim=1)
+    noise = fm_noise(keys, nbr.shape[1], passes)        # (L, passes, 2, n)
+    ws = (vwgt_f * (parts == 2)).sum(1)
+    bimb = ((vwgt_f * (parts == 0)).sum(1) -
+            (vwgt_f * (parts == 1)).sum(1)).abs()
+    bpart, bws = parts, ws
+    pert = n_pert                       # perturbation in the first pass only
+    for p in range(passes):
+        pulled0, pulled1 = sep_gain_multi(nbr, lane_work, vwgt_f, bpart)
+        bpart, bws, bimb = fm_move_loop(
+            nbr, lane_work, vwgt_f, bpart, locked, pulled0, pulled1,
+            noise[:, p].contiguous(), pert, eps_abs, max_moves, bws, bimb,
+            pos_only=pos_only)
+        pert = torch.zeros_like(n_pert)
+    return bpart, bws, bimb
 
 
 @dataclasses.dataclass
@@ -132,7 +199,7 @@ def _select_best(w: FMWork, parts: np.ndarray, sep_w: np.ndarray,
 
 
 def pack_fm_bucket(works: Sequence[FMWork]) -> Tuple[dict, List[int]]:
-    """Host tensors of one bucket's ``fm_fused_multi`` call; lanes per work.
+    """Host tensors of one bucket's ``fm_refine_batch`` call; lanes per work.
 
     One ELL tile per work; each work's ``k_inst`` lanes name it through
     ``lane_work``.  Lanes are padded to a multiple of 8 with copies of the
@@ -167,14 +234,23 @@ def pack_fm_bucket(works: Sequence[FMWork]) -> Tuple[dict, List[int]]:
         n_pert=per_lane(lambda ln: ln.n_pert, np.int32)), counts
 
 
-def execute_fm_works(works: Sequence[FMWork], device=None
+def execute_fm_works(works: Sequence[FMWork], device=None, *,
+                     gain_mode: Optional[str] = None,
+                     mode: Optional[str] = None
                      ) -> List[Tuple[np.ndarray, float, float]]:
-    """Run FM works, one ``fm_fused_multi`` call per bucket.
+    """Run FM works, one ``ops.fm_refine_batch`` call per bucket.
 
     Returns, for each work in input order, the best ``(part, sep_w, imb)``
     across its instances — exactly what ``refine_parts`` returns.
+    ``mode`` defaults to ``REPRO_FM_MODE`` (``ops.fm_mode_default``); an
+    explicit ``gain_mode`` without a ``mode`` forces the hoisted path, the
+    only one with a gain backend, as in the reference.
     """
     dev = resolve_device(device)
+    if mode is None:
+        mode = "hoisted" if gain_mode is not None else ops.fm_mode_default()
+    if mode == "hoisted" and gain_mode is None:
+        gain_mode = gain_mode_default(dev)
     results: List[Optional[Tuple[np.ndarray, float, float]]] = \
         [None] * len(works)
     groups = defaultdict(list)
@@ -182,9 +258,9 @@ def execute_fm_works(works: Sequence[FMWork], device=None
         groups[w.bucket_key()].append(i)
     for (_, _, passes, pos_only), idxs in groups.items():
         host, counts = pack_fm_bucket([works[i] for i in idxs])
-        parts, sep_w, imb = fm_fused_multi(
-            **{k: v.to(dev) for k, v in host.items()}, passes=passes,
-            pos_only=pos_only)
+        parts, sep_w, imb = ops.fm_refine_batch(
+            **host, passes=passes, pos_only=pos_only, mode=mode,
+            gain_mode=gain_mode, device=dev)
         parts, sep_w, imb = parts.cpu().numpy(), sep_w.cpu().numpy(), \
             imb.cpu().numpy()
         off = 0

@@ -6,8 +6,9 @@ use into ``build/kernels/`` at the repository root:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
          -shared -Xcompiler -fPIC -o build/kernels/lib<name>-<hash>.so
 
-The file name carries a hash of the source and flags, so an edited source
-is rebuilt and a stale library is never loaded.  ``build_all`` starts one
+The file name carries a hash of the source, the shared ``csrc/*.cuh``
+headers and the flags, so an edited source or header is rebuilt and a
+stale library is never loaded.  ``build_all`` starts one
 ``nvcc`` per source at once.  Nothing is compiled when this module is
 imported; hosts without ``nvcc`` can import it and never call it.
 """
@@ -24,17 +25,22 @@ from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("bfs_multi", "fm_fused")
+SOURCES = ("bfs_multi", "fm_fused", "sep_gain", "ell_spmv", "diffusion")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
 # ctypes signatures of the C entries: every pointer and the stream are
-# c_void_p, every count a c_int; each entry returns cudaGetLastError().
-_P, _I = ctypes.c_void_p, ctypes.c_int
+# c_void_p, every count a c_int, every scalar a c_float; each entry returns
+# cudaGetLastError().
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "bfs_multi": {"bfs_multi_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P]},
-    "fm_fused": {"fm_fused_launch": [_P] * 14 + [_I] * 5 + [_P]},
+    "fm_fused": {"fm_fused_launch": [_P] * 14 + [_I] * 5 + [_P],
+                 "fm_move_loop_launch": [_P] * 18 + [_I] * 4 + [_P]},
+    "sep_gain": {"sep_gain_launch": [_P] * 6 + [_I] * 3 + [_P]},
+    "ell_spmv": {"ell_spmv_launch": [_P] * 4 + [_I] * 3 + [_P]},
+    "diffusion": {"diffusion_launch": [_P] * 5 + [_I] * 2 + [_F] * 2 + [_P]},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -54,6 +60,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{tag[:12]}.so"
 

@@ -16,6 +16,14 @@ plain version and the reference agree bit for bit.
 
 On a CUDA tensor the wrapper launches ``csrc/fm_fused.cu``; on a CPU
 tensor it runs ``fm_fused_plain``.  ``launches`` counts kernel launches.
+
+``fm_move_loop`` is one pass of the same move loop with the pulled weights
+given: the hoisted path (``core.fm.fm_refine_multi``) alternates it with
+``band_batch.sep_gain_multi``.  Its kernel is a second entry of
+``fm_fused.cu`` that shares the move loop with the fused kernel, and its
+plain version ``fm_move_loop_plain`` is the body of ``fm_fused_plain``,
+so the two paths agree by construction.  ``move_loop_launches`` counts its
+launches.
 """
 from __future__ import annotations
 
@@ -25,12 +33,16 @@ import torch
 
 from repro_torch import prng
 from repro_torch.kernels import build
+from repro_torch.kernels.band_batch import check_tensors, check_tiles, \
+    sep_gain_multi_plain
 
 BIG_NOISE = 1e9
 SMALL_NOISE = 1e-3
 
 #: number of times ``fm_fused_multi`` launched the CUDA kernel
 launches = 0
+#: number of times ``fm_move_loop`` launched its CUDA kernel
+move_loop_launches = 0
 
 
 def fm_noise(keys: torch.Tensor, n: int, passes: int) -> torch.Tensor:
@@ -58,6 +70,106 @@ def _sums(vw: torch.Tensor, part: torch.Tensor):
             (vw * (part == 2)).sum(1))
 
 
+def fm_move_loop_plain(nbr, lane_work, vwgt_f, part, locked, pulled0,
+                       pulled1, noise, pert, eps_abs, max_moves, bws, bimb,
+                       pos_only: bool = False
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One pass of moves in torch, batched over lanes, on any device.
+
+    The reference's per-lane ``fm_move_loop`` with the lane axis written
+    out.  Takes the tiles ``nbr`` (W, n, d) with ``lane_work`` (L,),
+    float32 ``vwgt_f`` (L, n), the pass-start state ``part`` (L, n) and
+    its pulled weights ``pulled0/1`` (L, n) float32, bool ``locked``,
+    this pass's ``noise`` (L, 2, n), int32 ``pert`` / ``max_moves`` (L,),
+    float32 ``eps_abs`` and the best so far ``bws`` / ``bimb`` (L,).  A
+    lane takes part in a step while it has budget left and its last move
+    succeeded.  Returns (best part int8, bws, bimb); the inputs are not
+    modified.
+    """
+    L = lane_work.shape[0]
+    n, d = nbr.shape[1:]
+    dev = nbr.device
+    nbr_l = nbr.index_select(0, lane_work.long())           # (L, n, d)
+    valid = nbr_l >= 0
+    nbrs = torch.where(valid, nbr_l, 0).long()
+    vw = vwgt_f
+    part = part.to(torch.int32, copy=True)
+    pulled0, pulled1 = pulled0.clone(), pulled1.clone()
+    lane = torch.arange(L, device=dev)
+    neg_inf = torch.tensor(float("-inf"), device=dev)
+    big = torch.tensor(BIG_NOISE, dtype=torch.float32, device=dev)
+    small = torch.tensor(SMALL_NOISE, dtype=torch.float32, device=dev)
+    max_moves, pert = max_moves.long(), pert.long()
+    w0, w1, ws = _sums(vw, part)
+    bpart, bws, bimb = part.clone(), bws.clone(), bimb.clone()
+    moved = torch.zeros((L, n), dtype=torch.bool, device=dev)
+    alive = torch.ones(L, dtype=torch.bool, device=dev)
+    i = 0
+    while True:
+        act = alive & (i < max_moves)
+        if not bool(act.any()):
+            break
+        gain0, gain1 = vw - pulled0, vw - pulled1
+        imb = (w0 - w1).abs()[:, None]
+        thr = torch.maximum(eps_abs[:, None], imb)
+        feas0 = ((w0[:, None] + vw) - (w1[:, None] - pulled0)).abs() <= thr
+        feas1 = ((w0[:, None] - pulled1) - (w1[:, None] + vw)).abs() <= thr
+        movable = (part == 2) & ~moved & ~locked & act[:, None]
+        ok0, ok1 = movable & feas0, movable & feas1
+        if pos_only:
+            ok0, ok1 = ok0 & (gain0 > 0), ok1 & (gain1 > 0)
+        amp = torch.where(i < pert, big, small)[:, None]
+        s0 = torch.where(ok0, gain0 + noise[:, 0] * amp, neg_inf)
+        s1 = torch.where(ok1, gain1 + noise[:, 1] * amp, neg_inf)
+        scores = torch.cat([s0, s1], dim=1)
+        idx = scores.argmax(dim=1)
+        ok = scores.gather(1, idx[:, None])[:, 0] > neg_inf
+        side = (idx >= n).to(torch.int32)
+        v = idx % n
+        nv, nvalid = nbrs[lane, v], valid[lane, v]             # (L, d)
+        pull = nvalid & (part.gather(1, nv) == (1 - side)[:, None]) \
+            & ok[:, None]
+        pulled_w = torch.where(pull, vw.gather(1, nv), 0.0).sum(1)
+        # the move: pulled vertices join the separator, v joins `side`
+        pl, pj = pull.nonzero(as_tuple=True)
+        part[pl, nv[pl, pj]] = 2
+        part[lane[ok], v[ok]] = side[ok]
+        # v's neighbours: pull toward v's new side grows by vwgt[v]
+        dv_w = vw[lane, v]
+        tl, tj = (nvalid & ok[:, None]).nonzero(as_tuple=True)
+        one = side[tl] == 1
+        pulled0.index_put_((tl[one], nv[tl[one], tj[one]]),
+                           dv_w[tl[one]], accumulate=True)
+        pulled1.index_put_((tl[~one], nv[tl[~one], tj[~one]]),
+                           dv_w[tl[~one]], accumulate=True)
+        # each pulled x's neighbours: pull toward x's old side shrinks
+        x = nv[pl, pj]
+        rows = nbrs[pl, x]                                    # (P, d)
+        rl, rk = (valid[pl, x]).nonzero(as_tuple=True)
+        ul, u = pl[rl], rows[rl, rk]
+        amt = -vw[ul, x[rl]]
+        zero = side[ul] == 0
+        pulled0.index_put_((ul[zero], u[zero]), amt[zero], accumulate=True)
+        pulled1.index_put_((ul[~zero], u[~zero]), amt[~zero],
+                           accumulate=True)
+        dv = torch.where(ok, dv_w, 0.0)
+        w0 = w0 + torch.where(side == 0, dv, 0.0) \
+            - torch.where(side == 1, pulled_w, 0.0)
+        w1 = w1 + torch.where(side == 1, dv, 0.0) \
+            - torch.where(side == 0, pulled_w, 0.0)
+        ws = ws - dv + pulled_w
+        moved[lane[ok], v[ok]] = True
+        imb_new = (w0 - w1).abs()
+        better = act & (ws < bws) & \
+            (imb_new <= torch.maximum(eps_abs, bimb))
+        bpart = torch.where(better[:, None], part, bpart)
+        bws = torch.where(better, ws, bws)
+        bimb = torch.where(better, torch.minimum(imb_new, bimb), bimb)
+        alive = torch.where(act, ok, alive)
+        i += 1
+    return bpart.to(torch.int8), bws, bimb
+
+
 def fm_fused_plain(nbr, lane_work, vwgt_f, parts, locked, noise, eps_abs,
                    max_moves, n_pert, passes: int, pos_only: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -66,122 +178,67 @@ def fm_fused_plain(nbr, lane_work, vwgt_f, parts, locked, noise, eps_abs,
     Takes the kernel's inputs: tiles ``nbr`` (W, n, d) int32 with
     ``lane_work`` (L,), float32 ``vwgt_f`` (L, n), int8 ``parts``, bool
     ``locked``, ``noise`` (L, passes, 2, n) from ``fm_noise``, float32
-    ``eps_abs`` (L,), int32 ``max_moves`` / ``n_pert`` (L,).  Every lane
-    runs its own move loop: a lane takes part in a step while it has
-    budget left and its last move succeeded.  Returns (parts int8,
-    sep_w, imb).
+    ``eps_abs`` (L,), int32 ``max_moves`` / ``n_pert`` (L,).  Per pass:
+    the pulled weights (``sep_gain_multi_plain``), one
+    ``fm_move_loop_plain``, and a revert to the best state.  Returns
+    (parts int8, sep_w, imb).
     """
-    L = lane_work.shape[0]
-    n, d = nbr.shape[1:]
-    dev = nbr.device
-    nbr_l = nbr.index_select(0, lane_work.long())           # (L, n, d)
-    valid = nbr_l >= 0
-    nbrs = torch.where(valid, nbr_l, 0).long()
-    flat = nbrs.reshape(L, n * d)
-    vw = vwgt_f
-    part = parts.to(torch.int32)
-    lane = torch.arange(L, device=dev)
-    neg_inf = torch.tensor(float("-inf"), device=dev)
-    big = torch.tensor(BIG_NOISE, dtype=torch.float32, device=dev)
-    small = torch.tensor(SMALL_NOISE, dtype=torch.float32, device=dev)
-    max_moves = max_moves.long()
-    w0, w1, ws = _sums(vw, part)
-    bpart, bws, bimb = part.clone(), ws.clone(), (w0 - w1).abs()
+    w0, w1, ws = _sums(vwgt_f, parts.to(torch.int32))
+    bpart, bws, bimb = parts, ws, (w0 - w1).abs()
+    no_pert = torch.zeros_like(n_pert)
     for p in range(passes):
-        pert = n_pert.long() if p == 0 else torch.zeros_like(max_moves)
-        pn = part.gather(1, flat).reshape(L, n, d)
-        wn = torch.where(valid, vw.gather(1, flat).reshape(L, n, d), 0.0)
-        pulled0 = (wn * (pn == 1)).sum(2)
-        pulled1 = (wn * (pn == 0)).sum(2)
-        moved = torch.zeros((L, n), dtype=torch.bool, device=dev)
-        alive = torch.ones(L, dtype=torch.bool, device=dev)
-        i = 0
-        while True:
-            act = alive & (i < max_moves)
-            if not bool(act.any()):
-                break
-            gain0, gain1 = vw - pulled0, vw - pulled1
-            imb = (w0 - w1).abs()[:, None]
-            thr = torch.maximum(eps_abs[:, None], imb)
-            feas0 = ((w0[:, None] + vw) - (w1[:, None] - pulled0)).abs() <= thr
-            feas1 = ((w0[:, None] - pulled1) - (w1[:, None] + vw)).abs() <= thr
-            movable = (part == 2) & ~moved & ~locked & act[:, None]
-            ok0, ok1 = movable & feas0, movable & feas1
-            if pos_only:
-                ok0, ok1 = ok0 & (gain0 > 0), ok1 & (gain1 > 0)
-            amp = torch.where(i < pert, big, small)[:, None]
-            s0 = torch.where(ok0, gain0 + noise[:, p, 0] * amp, neg_inf)
-            s1 = torch.where(ok1, gain1 + noise[:, p, 1] * amp, neg_inf)
-            scores = torch.cat([s0, s1], dim=1)
-            idx = scores.argmax(dim=1)
-            ok = scores.gather(1, idx[:, None])[:, 0] > neg_inf
-            side = (idx >= n).to(torch.int32)
-            v = idx % n
-            nv, nvalid = nbrs[lane, v], valid[lane, v]             # (L, d)
-            pull = nvalid & (part.gather(1, nv) == (1 - side)[:, None]) \
-                & ok[:, None]
-            pulled_w = torch.where(pull, vw.gather(1, nv), 0.0).sum(1)
-            # the move: pulled vertices join the separator, v joins `side`
-            pl, pj = pull.nonzero(as_tuple=True)
-            part[pl, nv[pl, pj]] = 2
-            part[lane[ok], v[ok]] = side[ok]
-            # v's neighbours: pull toward v's new side grows by vwgt[v]
-            dv_w = vw[lane, v]
-            tl, tj = (nvalid & ok[:, None]).nonzero(as_tuple=True)
-            one = side[tl] == 1
-            pulled0.index_put_((tl[one], nv[tl[one], tj[one]]),
-                               dv_w[tl[one]], accumulate=True)
-            pulled1.index_put_((tl[~one], nv[tl[~one], tj[~one]]),
-                               dv_w[tl[~one]], accumulate=True)
-            # each pulled x's neighbours: pull toward x's old side shrinks
-            x = nv[pl, pj]
-            rows = nbrs[pl, x]                                    # (P, d)
-            rl, rk = (valid[pl, x]).nonzero(as_tuple=True)
-            ul, u = pl[rl], rows[rl, rk]
-            amt = -vw[ul, x[rl]]
-            zero = side[ul] == 0
-            pulled0.index_put_((ul[zero], u[zero]), amt[zero], accumulate=True)
-            pulled1.index_put_((ul[~zero], u[~zero]), amt[~zero],
-                               accumulate=True)
-            dv = torch.where(ok, dv_w, 0.0)
-            w0 = w0 + torch.where(side == 0, dv, 0.0) \
-                - torch.where(side == 1, pulled_w, 0.0)
-            w1 = w1 + torch.where(side == 1, dv, 0.0) \
-                - torch.where(side == 0, pulled_w, 0.0)
-            ws = ws - dv + pulled_w
-            moved[lane[ok], v[ok]] = True
-            imb_new = (w0 - w1).abs()
-            better = act & (ws < bws) & \
-                (imb_new <= torch.maximum(eps_abs, bimb))
-            bpart = torch.where(better[:, None], part, bpart)
-            bws = torch.where(better, ws, bws)
-            bimb = torch.where(better, torch.minimum(imb_new, bimb), bimb)
-            alive = torch.where(act, ok, alive)
-            i += 1
-        part = bpart.clone()                                  # revert to best
-        w0, w1, ws = _sums(vw, part)
-    return bpart.to(torch.int8), bws, bimb
+        pulled0, pulled1 = sep_gain_multi_plain(nbr, lane_work, vwgt_f, bpart)
+        bpart, bws, bimb = fm_move_loop_plain(
+            nbr, lane_work, vwgt_f, bpart, locked, pulled0, pulled1,
+            noise[:, p], n_pert if p == 0 else no_pert, eps_abs, max_moves,
+            bws, bimb, pos_only)
+    return bpart, bws, bimb
 
 
 def _check(nbr, lane_work, vwgt_f, parts, locked, noise, eps_abs,
            max_moves, n_pert, passes) -> None:
     W, n, d = nbr.shape
     L = lane_work.shape[0]
-    want = {"nbr": (nbr, torch.int32, (W, n, d)),
-            "lane_work": (lane_work, torch.int32, (L,)),
-            "vwgt": (vwgt_f, torch.float32, (L, n)),
-            "parts": (parts, torch.int8, (L, n)),
-            "locked": (locked, torch.bool, (L, n)),
-            "noise": (noise, torch.float32, (L, passes, 2, n)),
-            "eps_abs": (eps_abs, torch.float32, (L,)),
-            "max_moves": (max_moves, torch.int32, (L,)),
-            "n_pert": (n_pert, torch.int32, (L,))}
-    for name, (t, dtype, shape) in want.items():
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"{name}: want {dtype} {shape}, got "
-                             f"{t.dtype} {tuple(t.shape)}")
-        if t.device != nbr.device:
-            raise ValueError(f"{name} is on {t.device}, nbr on {nbr.device}")
+    check_tensors(nbr, {
+        "nbr": (nbr, torch.int32, (W, n, d)),
+        "lane_work": (lane_work, torch.int32, (L,)),
+        "vwgt": (vwgt_f, torch.float32, (L, n)),
+        "parts": (parts, torch.int8, (L, n)),
+        "locked": (locked, torch.bool, (L, n)),
+        "noise": (noise, torch.float32, (L, passes, 2, n)),
+        "eps_abs": (eps_abs, torch.float32, (L,)),
+        "max_moves": (max_moves, torch.int32, (L,)),
+        "n_pert": (n_pert, torch.int32, (L,))})
+
+
+def _check_move_loop(nbr, lane_work, vwgt_f, part, locked, pulled0, pulled1,
+                     noise, pert, eps_abs, max_moves, bws, bimb) -> None:
+    W, n, d = nbr.shape
+    L = lane_work.shape[0]
+    check_tensors(nbr, {
+        "nbr": (nbr, torch.int32, (W, n, d)),
+        "lane_work": (lane_work, torch.int32, (L,)),
+        "vwgt": (vwgt_f, torch.float32, (L, n)),
+        "part": (part, torch.int8, (L, n)),
+        "locked": (locked, torch.bool, (L, n)),
+        "pulled0": (pulled0, torch.float32, (L, n)),
+        "pulled1": (pulled1, torch.float32, (L, n)),
+        "noise": (noise, torch.float32, (L, 2, n)),
+        "pert": (pert, torch.int32, (L,)),
+        "eps_abs": (eps_abs, torch.float32, (L,)),
+        "max_moves": (max_moves, torch.int32, (L,)),
+        "bws": (bws, torch.float32, (L,)),
+        "bimb": (bimb, torch.float32, (L,))})
+
+
+def _lane_outputs(L: int, n: int, d: int, dev):
+    """Kernel outputs (parts, sep_w, imb, tally) and the lanes' scratch."""
+    stride = -(-state_bytes(n, d) // 256) * 256
+    return (torch.empty((L, n), dtype=torch.int8, device=dev),
+            torch.empty(L, dtype=torch.float32, device=dev),
+            torch.empty(L, dtype=torch.float32, device=dev),
+            torch.empty((L, 3), dtype=torch.int64, device=dev),
+            torch.empty(L * stride, dtype=torch.uint8, device=dev))
 
 
 def fm_fused_kernel(nbr, lane_work, vwgt_f, parts, locked, noise, eps_abs,
@@ -196,32 +253,60 @@ def fm_fused_kernel(nbr, lane_work, vwgt_f, parts, locked, noise, eps_abs,
     args = (nbr, lane_work, vwgt_f, parts, locked, noise, eps_abs,
             max_moves, n_pert)
     _check(*args, passes)
-    if nbr.device.type != "cuda":
-        raise ValueError("fm_fused_kernel takes CUDA tensors")
-    lo, hi = int(lane_work.min()), int(lane_work.max())
-    if lo < 0 or hi >= nbr.shape[0]:
-        raise ValueError(f"lane_work spans [{lo}, {hi}], outside the "
-                         f"{nbr.shape[0]} tiles")
+    check_tiles(nbr, lane_work)
     args = tuple(a.contiguous() for a in args)
     L = lane_work.shape[0]
     n, d = nbr.shape[1:]
-    dev = nbr.device
-    out_parts = torch.empty((L, n), dtype=torch.int8, device=dev)
-    sep_w = torch.empty(L, dtype=torch.float32, device=dev)
-    imb = torch.empty(L, dtype=torch.float32, device=dev)
-    stats = torch.empty((L, 3), dtype=torch.int64, device=dev)
-    stride = -(-state_bytes(n, d) // 256) * 256
-    scratch = torch.empty(L * stride, dtype=torch.uint8, device=dev)
+    outs = _lane_outputs(L, n, d, nbr.device)
     lib = build.load("fm_fused")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.fm_fused_launch(*(a.data_ptr() for a in args),
-                              out_parts.data_ptr(), sep_w.data_ptr(),
-                              imb.data_ptr(), stats.data_ptr(),
-                              scratch.data_ptr(), L, n, d,
+    stream = torch.cuda.current_stream(nbr.device).cuda_stream
+    err = lib.fm_fused_launch(*(a.data_ptr() for a in args + outs), L, n, d,
                               int(passes), int(bool(pos_only)), stream)
     build.check(err, "fm_fused")
     launches += 1
-    return out_parts, sep_w, imb, stats
+    return outs[:4]
+
+
+def fm_move_loop_kernel(nbr, lane_work, vwgt_f, part, locked, pulled0,
+                        pulled1, noise, pert, eps_abs, max_moves, bws, bimb,
+                        pos_only: bool = False):
+    """Launch the one-pass CUDA kernel on the current stream (CUDA only).
+
+    Same inputs as ``fm_move_loop_plain``; returns its three outputs and
+    the lanes' tally of the work their moves needed, as ``fm_fused_kernel``.
+    """
+    global move_loop_launches
+    args = (nbr, lane_work, vwgt_f, part, locked, pulled0, pulled1, noise,
+            pert, eps_abs, max_moves, bws, bimb)
+    _check_move_loop(*args)
+    check_tiles(nbr, lane_work)
+    args = tuple(a.contiguous() for a in args)
+    L = lane_work.shape[0]
+    n, d = nbr.shape[1:]
+    outs = _lane_outputs(L, n, d, nbr.device)
+    lib = build.load("fm_fused")
+    stream = torch.cuda.current_stream(nbr.device).cuda_stream
+    err = lib.fm_move_loop_launch(*(a.data_ptr() for a in args + outs),
+                                  L, n, d, int(bool(pos_only)), stream)
+    build.check(err, "fm_move_loop")
+    move_loop_launches += 1
+    return outs[:4]
+
+
+def fm_move_loop(nbr, lane_work, vwgt_f, part, locked, pulled0, pulled1,
+                 noise, pert, eps_abs, max_moves, bws, bimb,
+                 pos_only: bool = False):
+    """One pass of FM moves per lane, the hoisted path's move loop.
+
+    Inputs as ``fm_move_loop_plain``.  CUDA tensors go to the kernel, CPU
+    tensors to the plain version.  Returns (best part int8, bws, bimb).
+    """
+    args = (nbr, lane_work, vwgt_f, part, locked, pulled0, pulled1, noise,
+            pert, eps_abs, max_moves, bws, bimb)
+    _check_move_loop(*args)
+    if nbr.device.type == "cuda":
+        return fm_move_loop_kernel(*args, pos_only=pos_only)[:3]
+    return fm_move_loop_plain(*args, pos_only=pos_only)
 
 
 def fm_fused_multi(nbr, lane_work, vwgt, parts, locked, keys, eps_frac,

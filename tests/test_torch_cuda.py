@@ -5,16 +5,21 @@ Marked ``cuda``: on a host without an NVIDIA card every test here skips
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
-Exact equality is the stated tolerance, as in the CPU parity tests.
+Exact equality is the stated tolerance for the FM and BFS kernels, as in
+the CPU parity tests (integer-valued float32 sums); the ELL kernels are
+held to the reference tests' tolerances (1e-5 float32 SpMV, 5e-2
+bfloat16, 1e-4 diffusion), at sizes that are no multiple of any block,
+and the bfloat16 SpMV's rounding of each product is checked exactly.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import prng
+from repro_torch.core import fm
 from repro_torch.core.nd import nested_dissection
 from repro_torch.graphs.generators import grid3d, rgg2d
-from repro_torch.kernels import band_batch, fm_fused
+from repro_torch.kernels import band_batch, diffusion, ell_spmv, fm_fused, ops
 
 pytestmark = pytest.mark.cuda
 
@@ -72,3 +77,132 @@ def test_nested_dissection_card_equals_cpu(card):
         assert band_batch.launches > 0 and fm_fused.launches > 0
         assert np.array_equal(p_card, nested_dissection(g, seed=1, nproc=4,
                                                         device="cpu"))
+
+
+@pytest.mark.parametrize("L,W,n,d", [(1, 1, 64, 8), (8, 2, 256, 16),
+                                     (3, 3, 100, 40), (5, 2, 1000, 1)])
+def test_gain_kernel_equals_plain(card, L, W, n, d):
+    rng = np.random.default_rng(L + n + d)
+    nbr = rng.integers(0, n, (W, n, d)).astype(np.int32)
+    nbr[rng.random((W, n, d)) < 0.4] = -1
+    t = [torch.from_numpy(a).to(card) for a in (
+        nbr, rng.integers(0, W, L).astype(np.int32),
+        rng.integers(0, 4, (L, n)).astype(np.float32),
+        rng.integers(0, 4, (L, n)).astype(np.int8))]
+    before = band_batch.gain_launches
+    got = band_batch.sep_gain_multi(*t)
+    assert band_batch.gain_launches == before + 1
+    for a, b in zip(got, band_batch.sep_gain_multi_plain(*t)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("pos_only", [False, True])
+@pytest.mark.parametrize("L,n,d", [(3, 64, 8), (8, 256, 16), (2, 1000, 40)])
+def test_move_loop_kernel_equals_plain(card, L, n, d, pos_only):
+    nbr, vwgt, part, locked, mm = _lanes(5 * L + n, L, n, d)
+    t = [torch.from_numpy(a).to(card) for a in (nbr, vwgt, part, locked, mm)]
+    lw = torch.arange(L, dtype=torch.int32, device=card)
+    vw = t[1]
+    p0, p1 = band_batch.sep_gain_multi_plain(t[0], lw, vw, t[2])
+    keys = prng.split(prng.PRNGKey(L, card), L)
+    noise = fm_fused.fm_noise(keys, n, 1)[:, 0].contiguous()
+    ws = (vw * (t[2] == 2)).sum(1)
+    bimb = ((vw * (t[2] == 0)).sum(1) - (vw * (t[2] == 1)).sum(1)).abs()
+    args = (t[0], lw, vw, t[2], t[3], p0, p1, noise,
+            torch.full((L,), 8, dtype=torch.int32, device=card),
+            torch.full((L,), 0.1, device=card) * vw.sum(1), t[4], ws, bimb)
+    before = fm_fused.move_loop_launches
+    got = fm_fused.fm_move_loop(*args, pos_only=pos_only)
+    assert fm_fused.move_loop_launches == before + 1
+    want = fm_fused.fm_move_loop_plain(*args, pos_only=pos_only)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_hoisted_pass_loop_equals_fused(card):
+    L, n, d = 8, 256, 16
+    nbr, vwgt, part, locked, mm = _lanes(3, L, n, d)
+    mm[6:] = 0                                          # dummy lanes
+    t = dict(nbr=torch.from_numpy(nbr[:2]).to(card),
+             lane_work=torch.tensor([0, 0, 0, 1, 1, 1, 0, 0],
+                                    dtype=torch.int32, device=card),
+             vwgt=torch.from_numpy(vwgt).to(card),
+             parts=torch.from_numpy(part).to(card),
+             locked=torch.from_numpy(locked).to(card),
+             keys=prng.split(prng.PRNGKey(4, card), L),
+             eps_frac=torch.full((L,), 0.1, device=card),
+             max_moves=torch.from_numpy(mm).to(card),
+             n_pert=torch.full((L,), 8, dtype=torch.int32, device=card))
+    fused = fm_fused.fm_fused_multi(**t, passes=3)
+    got = fm.fm_refine_multi(**t, passes=3, gain_mode="pallas")
+    for a, b in zip(got, fused):
+        assert torch.equal(a, b)
+    # the plain gains and the oracle have no kernel: on the card they raise
+    # rather than run plain torch there
+    with pytest.raises(ValueError):
+        fm.fm_refine_multi(**t, passes=3, gain_mode="jnp")
+    with pytest.raises(ValueError):
+        ops.fm_refine_batch(**t, passes=3, mode="oracle", device=card)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
+                                       ("bfloat16", 5e-2)])
+@pytest.mark.parametrize("n,d", [(1000, 1), (4097, 8), (300, 33)])
+def test_spmv_kernel_equals_plain(card, n, d, dtype, tol):
+    rng = np.random.default_rng(n + d)
+    nbr = rng.integers(0, n, (n, d)).astype(np.int32)
+    nbr[rng.random((n, d)) < 0.3] = -1
+    dt = getattr(torch, dtype)
+    nbr_c = torch.from_numpy(nbr).to(card)
+    val = torch.from_numpy(rng.standard_normal((n, d))).to(card, dt)
+    x = torch.from_numpy(rng.standard_normal(n)).to(card, dt)
+    before = ell_spmv.launches
+    got = ops.spmv(nbr_c, val, x)
+    assert ell_spmv.launches == before + 1 and got.dtype == dt
+    want = ell_spmv.ell_spmv_plain(nbr_c, val, x)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_spmv_kernel_rounds_each_bfloat16_product(card):
+    """The rows of ``test_spmv_bfloat16_rounds_each_product`` through the
+    kernel: exact sum 2^-14, sum of the rounded products 0."""
+    nbr = torch.tensor([[0, 1, -1]] * 2, dtype=torch.int32, device=card)
+    val = torch.tensor([[1.0 + 2 ** -7, -1.0, 5.0]] * 2,
+                       dtype=torch.bfloat16, device=card)
+    x = torch.tensor([1.0 + 2 ** -7, 1.0 + 2 ** -6], dtype=torch.bfloat16,
+                     device=card)
+    assert ell_spmv.ell_spmv_kernel(nbr, val, x).tolist() == [0.0, 0.0]
+    exact = ell_spmv.ell_spmv_kernel(nbr, val.float(), x.float())
+    assert exact.tolist() == [2 ** -14] * 2
+
+
+@pytest.mark.parametrize("n,d", [(1000, 4), (4097, 9), (300, 33)])
+def test_diffusion_kernel_equals_plain(card, n, d):
+    rng = np.random.default_rng(n * d)
+    nbr = rng.integers(0, n, (n, d)).astype(np.int32)
+    nbr[rng.random((n, d)) < 0.3] = -1
+    val = np.abs(rng.standard_normal((n, d))).astype(np.float32)
+    x = rng.standard_normal(n).astype(np.float32)
+    x[::7] = 0.0                                        # sign(0) = 0
+    inj = np.zeros(n, np.float32)
+    inj[:3], inj[-3:] = 0.5, -0.5
+    t = [torch.from_numpy(a).to(card) for a in (nbr, val, x, inj)]
+    before = diffusion.launches
+    got = ops.diffuse(*t, steps=3)
+    assert diffusion.launches == before + 3
+    want = t[2]
+    for _ in range(3):
+        want = diffusion.diffusion_step_plain(t[0], t[1], want, t[3])
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_nested_dissection_hoisted_card_equals_cpu(card, monkeypatch):
+    g = grid3d(7, 7, 7)
+    want = nested_dissection(g, seed=1, nproc=4, device="cpu")
+    monkeypatch.setenv("REPRO_FM_MODE", "hoisted")
+    band_batch.gain_launches = fm_fused.move_loop_launches = 0
+    fm_fused.launches = 0
+    got = nested_dissection(g, seed=1, nproc=4, device=card)
+    assert band_batch.gain_launches > 0 and fm_fused.move_loop_launches > 0
+    assert fm_fused.launches == 0
+    assert np.array_equal(got, want)
