@@ -8,7 +8,10 @@ Phases, each of which must pass:
 1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all at once) and print the build time;
 2. the threefry PRNG on the card equals the PRNG on the CPU for the
-   ordering's key and shape sequence;
+   ordering's key and shape sequence, and the matching kernel's own
+   threefry (``csrc/threefry.cuh``: the round, coin, tie and grant keys
+   derived from each lane's key) gives, in a one-round matching, the
+   matching the plain version draws with the CPU PRNG;
 3. each kernel equals its plain PyTorch version on the card at the paths'
    shapes, with CUDA-event times of both (the gain and ELL kernels also
    through their C entries alone, without the wrappers' checks and host
@@ -18,7 +21,12 @@ Phases, each of which must pass:
    pass loop must also equal the fused kernel and ``torch.sparse.mm``
    must equal the gains; within 1e-5 (float32), 5e-2 (bfloat16) and 1e-4
    (diffusion) for the ELL kernels, up to ``grid3d(100, 100, 100)``, and
-   exactly for the bfloat16 SpMV's rounding of each product.  The ELL
+   exactly for the bfloat16 SpMV's rounding of each product.  The
+   matching kernel equals its plain version exactly at the root bucket
+   of ``grid3d(30, 30, 30)`` (1, 32768, 8) and at the widest coarse-level
+   bucket of its root separator's hierarchy; the gain kernel reads the
+   tiles' row extents (``band_batch.row_extents``), as the hoisted path
+   gives them.  The ELL
    entries ``ops.spmv`` / ``ops.diffuse`` are then driven once at that
    size with their launch counts set to 0 just before and read just after;
 4. ``nested_dissection(grid3d(12, 12, 12), seed=0, nproc=4)`` gives the
@@ -27,10 +35,12 @@ Phases, each of which must pass:
    and the oracle (``REPRO_FM_MODE=oracle``) raise on the card;
 5. the main path: ``nested_dissection(grid3d(30, 30, 30), seed=0,
    nproc=8)`` on the card, with the kernel launch counts set to 0 just
-   before and read just after; both kernels must have launched;
+   before and read just after; the matching, BFS and FM kernels must
+   have launched;
 6. the hoisted path at the same width (``REPRO_FM_MODE=hoisted``): the
-   same permutation as phase 5, the gain and move-loop kernels launched
-   and the fused kernel not;
+   same permutation as phase 5, the matching, gain and move-loop kernels
+   launched and the fused kernel not, and the host seconds spent building
+   the tiles' row extents;
 7. a ``{"kernels": [...]}`` line with each kernel's launches, error, times,
    bound and library time, the card's name and power limit, and as the
    last line ``{"ok": true, "device": {...}}``.
@@ -55,6 +65,9 @@ SRC = ROOT / "src"
 # tensor cores, used for the integer and float scalar work of both kernels
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+# integer operations of one threefry2x32 draw (20 add-rotate-xor rounds,
+# key injections, the uniform's shift and subtract)
+OPS_PER_DRAW = 100
 
 
 def log(msg: str) -> None:
@@ -181,8 +194,34 @@ def phase_prng() -> None:
         for a, b in zip(*per_device):
             if not torch.equal(a, b.cpu()):
                 raise AssertionError(f"prng differs on the card, seed {seed}")
+    # threefry.cuh's key schedule, through a one-round matching: the kernel
+    # derives every key and draw itself; the plain version on the CPU draws
+    # them with the CPU PRNG
+    from repro_torch.kernels import matching
+    nbr, wgt = _match_inputs(8, 4096, 8, seed=3)
+    for seed in (0, 1, 12345, 2 ** 31 - 1):
+        keys = prng.split(prng.PRNGKey(seed), 8)
+        got = matching.heavy_edge_matching_multi_kernel(
+            nbr.cuda(), wgt.cuda(), keys.cuda(), rounds=1)
+        want = matching.heavy_edge_matching_multi_plain(nbr, wgt, keys, 1)
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"threefry.cuh: the one-round matching on "
+                                 f"the card differs from the CPU's, seed "
+                                 f"{seed}")
     log("phase 2 prng: card == cpu for keys, fm_noise (8, 3, 2, 8192), "
-        "bernoulli (32768,), uniform (32768, 8) and (8192,)")
+        "bernoulli (32768,), uniform (32768, 8) and (8192,); threefry.cuh "
+        "one-round matching (8, 4096, 8) == cpu for 4 seeds")
+
+
+def _match_inputs(L, n, d, seed):
+    """A random ELL bucket (-1 slots anywhere, weights 1-3) as CPU tensors."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    nbr = rng.integers(0, n, (L, n, d)).astype(np.int32)
+    nbr[rng.random((L, n, d)) < 0.4] = -1
+    wgt = np.where(nbr >= 0, rng.integers(1, 4, (L, n, d)), 0)
+    return torch.from_numpy(nbr), torch.from_numpy(wgt.astype(np.int32))
 
 
 def _bfs_case(nbr, src, width=3) -> dict:
@@ -217,10 +256,12 @@ def _fm_case(works) -> dict:
     import torch
     from repro_torch.core.fm import fm_refine_multi, pack_fm_bucket
     from repro_torch.kernels import fm_fused as ff
+    from repro_torch.kernels.band_batch import row_extents
     assert len({w.bucket_key() for w in works}) == 1
     passes, pos_only = works[0].passes, works[0].pos_only
     host, counts = pack_fm_bucket(works)
     t = {k: v.cuda() for k, v in host.items()}
+    extents = row_extents(host["nbr"]).to("cuda")
     got = ff.fm_fused_multi(**t, passes=passes, pos_only=pos_only)
     vwgt_f = host["vwgt"].float()
     eps_abs = host["eps_frac"] * vwgt_f.sum(1)
@@ -233,11 +274,13 @@ def _fm_case(works) -> dict:
     if err != 0 or not all(torch.equal(a, b) for a, b in zip(got, want)):
         raise AssertionError(f"fm_fused_multi differs from its plain version "
                              f"at {tuple(t['nbr'].shape)}: max |diff| {err}")
-    # the hoisted pass loop: per pass the gain kernel and the move loop
+    # the hoisted pass loop: per pass the gain kernel (reading the tiles'
+    # row extents) and the move loop
     hoisted_ms = cuda_ms(lambda: fm_refine_multi(
-        **t, passes=passes, pos_only=pos_only, gain_mode="pallas"), reps=3)
+        **t, passes=passes, pos_only=pos_only, gain_mode="pallas",
+        extents=extents), reps=3)
     hoisted = fm_refine_multi(**t, passes=passes, pos_only=pos_only,
-                              gain_mode="pallas")
+                              gain_mode="pallas", extents=extents)
     if not all(torch.equal(a, b) for a, b in zip(hoisted, want)):
         raise AssertionError("the hoisted pass loop differs from "
                              "fm_fused_multi and fm_fused_plain")
@@ -262,11 +305,11 @@ def _fm_case(works) -> dict:
                state_bytes=ff.state_bytes(n, d), ms=ms, plain_ms=plain_ms,
                hoisted_ms=hoisted_ms, max_abs_err=err,
                **bound(nbytes, ops))
-    out["move_loop"] = _move_loop_case(args, pos_only)
+    out["move_loop"] = _move_loop_case(args, extents, pos_only)
     return out
 
 
-def _move_loop_case(args, pos_only) -> dict:
+def _move_loop_case(args, extents, pos_only) -> dict:
     """The first pass of the hoisted path: ``fm_move_loop``'s kernel
     against its plain version, with the gains from the gain kernel."""
     import torch
@@ -274,7 +317,8 @@ def _move_loop_case(args, pos_only) -> dict:
     from repro_torch.kernels import fm_fused as ff
     nbr, lane_work, vw, parts, locked, noise, eps_abs, max_moves, n_pert = \
         args
-    pulled0, pulled1 = bb.sep_gain_multi_kernel(nbr, lane_work, vw, parts)
+    pulled0, pulled1 = bb.sep_gain_multi_kernel(nbr, lane_work, vw, parts,
+                                                extents)
     bws = (vw * (parts == 2)).sum(1)
     bimb = ((vw * (parts == 0)).sum(1) - (vw * (parts == 1)).sum(1)).abs()
     pass_args = (nbr, lane_work, vw, parts, locked, pulled0, pulled1,
@@ -318,22 +362,27 @@ def _lanes_csr(nbr, lane_work):
     return coo.to_sparse_csr()
 
 
-def _gain_case(nbr, lane_work, vwgt, part) -> dict:
-    """``sep_gain_multi`` on the card against its plain version and
-    against ``torch.sparse.mm`` of the tiles with the side weights."""
+def _gain_case(nbr, lane_work, vwgt, part, extents) -> dict:
+    """``sep_gain_multi`` on the card, reading the tiles' row extents as
+    the hoisted path gives them, against its plain version and against
+    ``torch.sparse.mm`` of the tiles with the side weights."""
     import torch
     from repro_torch.kernels import band_batch as bb
     args = (nbr, lane_work, vwgt, part)
-    got = bb.sep_gain_multi_kernel(*args)
+    got = bb.sep_gain_multi_kernel(*args, extents)
     want = bb.sep_gain_multi_plain(*args)
     err = max(max_err(g, w) for g, w in zip(got, want))
     if err != 0 or not all(torch.equal(a, b) for a, b in zip(got, want)):
         raise AssertionError(f"sep_gain_multi differs from its plain version "
                              f"at {tuple(nbr.shape)}: max |diff| {err}")
     L, n = part.shape
-    ms = entry_ms("sep_gain", "sep_gain_launch", *args,
-                  *(torch.empty_like(g) for g in got), L, n, nbr.shape[2])
-    call_ms = cuda_ms(lambda: bb.sep_gain_multi_kernel(*args), reps=20)
+    d = nbr.shape[2]
+    outs = [torch.empty_like(g) for g in got]
+    group = extents.group
+    ms = entry_ms("sep_gain", "sep_gain_launch", nbr, lane_work,
+                  extents.row_len, vwgt, part, *outs, L, n, d, group)
+    call_ms = cuda_ms(lambda: bb.sep_gain_multi_kernel(*args, extents),
+                      reps=20)
     plain_ms = cuda_ms(lambda: bb.sep_gain_multi_plain(*args), reps=3)
     A = _lanes_csr(nbr, lane_work)
     Y = torch.stack([vwgt * (part == 1), vwgt * (part == 0)], dim=-1) \
@@ -349,16 +398,67 @@ def _gain_case(nbr, lane_work, vwgt, part) -> dict:
     # the tiles' real ids once, each lane's part and vwgt once, the two
     # outputs once; a compare and an add per real slot of every lane
     nbytes = 4 * int(tile_ids.sum()) + L * n * (1 + 4) + 2 * 4 * L * n
-    return dict(shape=[L, n, nbr.shape[2]], tiles=nbr.shape[0], ms=ms,
-                call_ms=call_ms, plain_ms=plain_ms, library_ms=library_ms,
-                max_abs_err=err,
+    return dict(shape=[L, n, d], tiles=nbr.shape[0], group=group, ms=ms,
+                call_ms=call_ms, plain_ms=plain_ms,
+                library_ms=library_ms, max_abs_err=err,
                 library_err=lib_err, **bound(nbytes, 2 * slots))
+
+
+def _match_case(work) -> dict:
+    """The matching kernel on one ``MatchWork``'s bucket, padded as
+    ``execute_match_works`` pads it, against its plain version on the card;
+    the bound counts the draws this run's rounds need (the plain version's
+    tally) and the tile's real slots."""
+    import numpy as np
+    import torch
+    from repro_torch import prng
+    from repro_torch.kernels import matching
+    n_pad, d_pad, rounds = work.bucket_key()
+    n, d = work.nbr.shape
+    nbr = -np.ones((1, n_pad, d_pad), np.int32)
+    wgt = np.zeros((1, n_pad, d_pad), np.int32)
+    nbr[0, :n, :d], wgt[0, :n, :d] = work.nbr, work.wgt
+    nbr, wgt = torch.from_numpy(nbr).cuda(), torch.from_numpy(wgt).cuda()
+    keys = prng.PRNGKey(work.seed, "cuda")[None]
+    got = matching.heavy_edge_matching_multi_kernel(nbr, wgt, keys, rounds)
+    tally = []
+    want = matching.heavy_edge_matching_multi_plain(nbr, wgt, keys, rounds,
+                                                    tally=tally)
+    err = int((got.long() - want.long()).abs().max())
+    if err != 0 or not torch.equal(got, want):
+        raise AssertionError(f"the matching kernel differs from its plain "
+                             f"version at (1, {n_pad}, {d_pad}): max |diff| "
+                             f"{err}")
+    m = got[0, :n].long().cpu()
+    if not torch.equal(m[m], torch.arange(n)):
+        raise AssertionError("the matching kernel's matching is no involution")
+    scratch = (torch.empty_like(got), torch.empty_like(got),
+               torch.empty((2, 1, n_pad), dtype=torch.int64, device="cuda"))
+    ms = entry_ms("matching", "matching_launch", nbr, wgt, keys, *scratch,
+                  1, n_pad, d_pad, rounds)
+    call_ms = cuda_ms(lambda: matching.heavy_edge_matching_multi_kernel(
+        nbr, wgt, keys, rounds), reps=20)
+    plain_ms = cuda_ms(lambda: matching.heavy_edge_matching_multi_plain(
+        nbr, wgt, keys, rounds), reps=3)
+    # the draws the rounds need (coins of unmatched vertices, ties of the
+    # slots proposers score, grant keys of proposals) and 4 key-schedule
+    # draws a round; ids and weights of the real slots, the key and the
+    # output once
+    draws = sum(sum(t) for t in tally) + 4 * rounds
+    nbytes = 8 * int((nbr >= 0).sum()) + 16 + 4 * n_pad
+    return dict(shape=[1, n_pad, d_pad], n=n, rounds=rounds, draws=draws,
+                matched=int((m != torch.arange(n)).sum()), ms=ms,
+                call_ms=call_ms, plain_ms=plain_ms, max_abs_err=err,
+                **bound(nbytes, OPS_PER_DRAW * draws))
 
 
 def phase_kernels() -> dict:
     import numpy as np
     import torch
+    from repro_torch.core.coarsen import coarsen_multilevel, match_work_for
     from repro_torch.core.fm import FMWork, pack_fm_bucket
+    from repro_torch.kernels.band_batch import row_extents
+    from repro_torch.core.nd import NDConfig
     from repro_torch.util import pow2
     g, part, band, bpart, locked = plane_problem(30)
     nbr_g, _ = g.to_ell()
@@ -406,7 +506,8 @@ def phase_kernels() -> dict:
     host, _ = pack_fm_bucket(works)
     t = {k: v.cuda() for k, v in host.items()}
     out["gain_band"] = _gain_case(t["nbr"], t["lane_work"],
-                                  t["vwgt"].float(), t["parts"])
+                                  t["vwgt"].float(), t["parts"],
+                                  row_extents(host["nbr"]).to("cuda"))
     log(f"phase 3 sep_gain_multi == plain == sparse.mm: band "
         f"{out['gain_band']}")
     # ... and two lanes on the whole graph's tile (2, 32768, 8)
@@ -419,9 +520,30 @@ def phase_kernels() -> dict:
     out["gain_whole"] = _gain_case(
         torch.from_numpy(nb1).cuda(),
         torch.zeros(2, dtype=torch.int32).cuda(),
-        torch.from_numpy(vw1).cuda(), torch.from_numpy(pt1).cuda())
+        torch.from_numpy(vw1).cuda(), torch.from_numpy(pt1).cuda(),
+        row_extents(nb1).to("cuda"))
     log(f"phase 3 sep_gain_multi == plain == sparse.mm: whole graph "
         f"{out['gain_whole']}")
+
+    # matching: the root bucket (1, 32768, 8) and the widest coarse-level
+    # bucket of the root separator's hierarchy (seed 0, nproc 8)
+    cfg = NDConfig()
+    state = coarsen_multilevel(g, seed=0, nproc=8,
+                               coarse_target=cfg.coarse_target,
+                               fold_threshold=cfg.fold_threshold,
+                               max_instances=cfg.k_fm_cap, device="cuda")
+    works = [match_work_for(lv.graph, i)
+             for i, lv in enumerate(state.levels)]
+    out["match_root"] = _match_case(works[0])
+    if out["match_root"]["shape"] != [1, 32768, 8]:
+        raise AssertionError(f"root bucket is {out['match_root']['shape']}")
+    level = max(range(1, len(works)),
+                key=lambda i: works[i].bucket_key()[1::-1])
+    out["match_coarse"] = _match_case(works[level])
+    log(f"phase 3 heavy_edge_matching_multi == plain: root "
+        f"{out['match_root']}")
+    log(f"phase 3 heavy_edge_matching_multi == plain: coarse level "
+        f"{level} of {len(works)} {out['match_coarse']}")
     return out
 
 
@@ -631,9 +753,10 @@ def _ordering(phase: str, counters: dict) -> dict:
 
 
 def phase_main() -> dict:
-    from repro_torch.kernels import band_batch, fm_fused
+    from repro_torch.kernels import band_batch, fm_fused, matching
     with env(REPRO_FM_MODE=None, REPRO_FM_GAIN=None):
         res = _ordering("phase 5 main path", {
+            "heavy_edge_matching_multi": (matching, "launches"),
             "bfs_multi": (band_batch, "launches"),
             "fm_fused_multi": (fm_fused, "launches")})
     if min(res["launches"].values()) <= 0:
@@ -643,22 +766,46 @@ def phase_main() -> dict:
 
 def phase_hoisted(fused: dict) -> dict:
     import numpy as np
-    from repro_torch.kernels import band_batch, fm_fused
-    with env(REPRO_FM_MODE="hoisted", REPRO_FM_GAIN=None):
+    from repro_torch.kernels import band_batch, fm_fused, matching, ops
+    spent = [0.0]                       # host seconds building row extents
+    with env(REPRO_FM_MODE="hoisted", REPRO_FM_GAIN=None), \
+            host_seconds(ops, "row_extents", spent):
         res = _ordering("phase 6 hoisted path", {
+            "heavy_edge_matching_multi": (matching, "launches"),
             "bfs_multi": (band_batch, "launches"),
             "sep_gain_multi": (band_batch, "gain_launches"),
             "fm_move_loop": (fm_fused, "move_loop_launches"),
             "fm_fused_multi": (fm_fused, "launches")})
     n = res["launches"]
     if n["sep_gain_multi"] <= 0 or n["fm_move_loop"] <= 0 or \
-            n["fm_fused_multi"] != 0:
+            n["heavy_edge_matching_multi"] <= 0 or n["fm_fused_multi"] != 0:
         raise AssertionError(f"hoisted path: launches {n}")
     if not np.array_equal(res["perm"], fused["perm"]):
         raise AssertionError("hoisted path: the permutation differs from "
                              "the fused one")
-    log("phase 6 hoisted path: same permutation (and OPC) as phase 5")
+    log("phase 6 hoisted path: same permutation (and OPC) as phase 5; "
+        f"row extents built on the host in {spent[0]:.4f} s")
+    res["extents_s"] = spent[0]
     return res
+
+
+@contextlib.contextmanager
+def host_seconds(module, name: str, spent: list):
+    """Add the host seconds of every call of ``module.name`` to
+    ``spent[0]`` while the block runs; restore the function after."""
+    fn = getattr(module, name)
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            spent[0] += time.perf_counter() - t0
+    setattr(module, name, timed)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
 
 
 def gpu_line() -> str:
@@ -704,6 +851,12 @@ def main() -> int:
                 "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
                 "bound_by": case["bound_by"], "library_ms": library_ms}
     rows = [
+        row("heavy_edge_matching_multi", "matching.cu",
+            "src/repro/core/matching.py:124",
+            main_run["launches"]["heavy_edge_matching_multi"],
+            kern["match_root"],
+            max(kern["match_root"]["max_abs_err"],
+                kern["match_coarse"]["max_abs_err"]), None),
         row("bfs_multi", "bfs_multi.cu", "src/repro/kernels/band_batch.py:49",
             main_run["launches"]["bfs_multi"], kern["bfs_root"],
             max(kern["bfs_root"]["max_abs_err"],

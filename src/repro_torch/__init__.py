@@ -1,8 +1,9 @@
 """PyTorch/CUDA port of the PT-Scotch reproduction (``repro``).
 
 Host nested dissection (``core.nd.nested_dissection``) with its device
-works on one NVIDIA H100: heavy-edge matching as batched torch ops, and
-hand-written CUDA kernels for every Pallas kernel of the reference: the
+works on one NVIDIA H100, as hand-written CUDA kernels for the
+reference's XLA heavy-edge matching (``kernels.matching``) and for every
+Pallas kernel of the reference: the
 band distance sweep and the FM gains (``kernels.band_batch``), the fused
 FM pass loop and the hoisted path's one-pass move loop
 (``kernels.fm_fused``), the ELL SpMV (``kernels.ell_spmv``) and the

@@ -33,7 +33,7 @@ import torch
 
 from repro_torch import prng
 from repro_torch.kernels import ops
-from repro_torch.kernels.band_batch import sep_gain_multi
+from repro_torch.kernels.band_batch import RowExtents, sep_gain_multi
 from repro_torch.kernels.fm_fused import fm_move_loop, fm_noise
 from repro_torch.util import pow2 as _pow2, resolve_device
 
@@ -72,19 +72,22 @@ def gain_mode_default(device=None) -> str:
 
 def fm_refine_multi(nbr, lane_work, vwgt, parts, locked, keys, eps_frac,
                     max_moves, n_pert, passes: int = 3,
-                    pos_only: bool = False, gain_mode: str | None = None):
+                    pos_only: bool = False, gain_mode: str | None = None,
+                    extents: Optional[RowExtents] = None):
     """The hoisted pass loop: FM over a flat lane axis, pass by pass.
 
     Shapes as ``fm_fused_multi``: nbr (W, n, d) int32 tiles with
     lane_work (L,) int32; vwgt (L, n); parts (L, n) int8; locked (L, n)
     bool; keys (L, 2); eps_frac (L,) float32; max_moves, n_pert (L,)
-    int32.  Per pass: split the keys and draw the noise, recompute the
-    gains (``sep_gain_multi``), run one ``fm_move_loop``, revert to the
-    best state.  The best separator weight and imbalance carry from pass
-    to pass.  On the card each pass is two kernel launches.  Returns
-    (parts int8, sep_w, imb), the fused kernel's bits.  Raises
-    ``ValueError`` for an unknown ``gain_mode``, and for ``jnp`` on CUDA
-    tensors.
+    int32; ``extents``, the tiles' ``RowExtents`` on their device
+    (``band_batch.row_extents``), which every pass's gain launch reads and
+    the card needs.  Per pass: split the keys and draw the noise,
+    recompute the gains (``sep_gain_multi``), run one ``fm_move_loop``,
+    revert to the best state.  The best separator weight and imbalance
+    carry from pass to pass.  On the card each pass is two kernel
+    launches.  Returns (parts int8, sep_w, imb), the fused kernel's bits.
+    Raises ``ValueError`` for an unknown ``gain_mode``, and for ``jnp`` on
+    CUDA tensors.
     """
     gain_mode = gain_mode or gain_mode_default(nbr.device)
     if gain_mode not in GAIN_MODES:
@@ -102,7 +105,8 @@ def fm_refine_multi(nbr, lane_work, vwgt, parts, locked, keys, eps_frac,
     bpart, bws = parts, ws
     pert = n_pert                       # perturbation in the first pass only
     for p in range(passes):
-        pulled0, pulled1 = sep_gain_multi(nbr, lane_work, vwgt_f, bpart)
+        pulled0, pulled1 = sep_gain_multi(nbr, lane_work, vwgt_f, bpart,
+                                          extents)
         bpart, bws, bimb = fm_move_loop(
             nbr, lane_work, vwgt_f, bpart, locked, pulled0, pulled1,
             noise[:, p].contiguous(), pert, eps_abs, max_moves, bws, bimb,

@@ -15,9 +15,15 @@ pulled weights of the hoisted FM path's per-pass gain recompute.  Like
 ``lane_work``; the reference's (L, n, d) form is ``lane_work = arange(L)``.
 CUDA tensors go to ``csrc/sep_gain.cu``, CPU tensors to
 ``sep_gain_multi_plain``.  ``gain_launches`` counts its kernel launches.
+The kernel takes the tiles' ``RowExtents`` (``row_extents``: each row's
+extent and the group width, made on the host once a bucket), so that it
+reads a band tile's real ids and not the padding of its rows.
 """
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
+import numpy as np
 import torch
 
 from repro_torch.kernels import build
@@ -108,6 +114,39 @@ def sep_gain_multi_plain(nbr: torch.Tensor, lane_work: torch.Tensor,
     return (wn * (pn == 1)).sum(2), (wn * (pn == 0)).sum(2)
 
 
+class RowExtents(NamedTuple):
+    """The row extents of a bucket's ELL tiles, which the gain kernel reads
+    in place of the tiles' width: ``row_len`` (W, n) int32, 1 + the last
+    slot of each row that holds an id (0 for an empty row), and ``group``,
+    the threads the kernel gives a row (``extent_group`` of the non-empty
+    rows' mean extent).  Made once a bucket by ``row_extents``."""
+    row_len: torch.Tensor
+    group: int
+
+    def to(self, device) -> "RowExtents":
+        return RowExtents(self.row_len.to(device), self.group)
+
+
+def extent_group(mean_extent: float) -> int:
+    """Threads that read one row of extents averaging ``mean_extent``: the
+    power of two at or above it, at most 32 (longer rows loop)."""
+    group = 1
+    while group < 32 and group < mean_extent:
+        group *= 2
+    return group
+
+
+def row_extents(nbr) -> RowExtents:
+    """The extents of host tiles ``nbr`` (W, n, d) (numpy or a CPU tensor),
+    computed with numpy where the tiles are made."""
+    held = np.asarray(nbr) >= 0
+    last = held.shape[-1] - np.argmax(held[..., ::-1], axis=-1)
+    row_len = np.where(held.any(-1), last, 0).astype(np.int32)
+    full = row_len[row_len > 0]
+    return RowExtents(torch.from_numpy(row_len),
+                      extent_group(full.mean() if full.size else 0.0))
+
+
 def check_tensors(nbr: torch.Tensor, want: dict) -> None:
     """Raise unless each ``name: (tensor, dtype, shape)`` of ``want`` has
     that dtype and shape and lies on ``nbr``'s device."""
@@ -119,34 +158,63 @@ def check_tensors(nbr: torch.Tensor, want: dict) -> None:
             raise ValueError(f"{name} is on {t.device}, nbr on {nbr.device}")
 
 
-def check_tiles(nbr: torch.Tensor, lane_work: torch.Tensor) -> None:
-    """Raise unless the tiles are on the card and ``lane_work`` names
-    tiles that exist (the kernels index the tiles by it)."""
+def check_spans(nbr: torch.Tensor, lane_work: torch.Tensor,
+                row_len: Optional[torch.Tensor] = None) -> None:
+    """Raise unless ``lane_work`` names tiles that exist (the kernels index
+    the tiles by it) and, if given, every extent of ``row_len`` lies in
+    [0, d].  One host sync on the card."""
+    W, _, d = nbr.shape
+    spans = [(t, lo, hi, name) for t, lo, hi, name in (
+        (lane_work, 0, W - 1, "lane_work"), (row_len, 0, d, "row_len"))
+        if t is not None and t.numel()]
+    if not spans:
+        return
+    vals = torch.stack([r for t, *_ in spans
+                        for r in torch.aminmax(t)]).tolist()
+    for k, (_, lo, hi, name) in enumerate(spans):
+        a, b = vals[2 * k:2 * k + 2]
+        if a < lo or b > hi:
+            raise ValueError(f"{name} spans [{a}, {b}], outside "
+                             f"[{lo}, {hi}]")
+
+
+def check_tiles(nbr: torch.Tensor, lane_work: torch.Tensor,
+                row_len: Optional[torch.Tensor] = None) -> None:
+    """``check_spans`` for the kernels: also raise unless the tiles are on
+    the card."""
     if nbr.device.type != "cuda":
         raise ValueError("the kernel takes CUDA tensors")
-    if lane_work.numel():
-        lo, hi = int(lane_work.min()), int(lane_work.max())
-        if lo < 0 or hi >= nbr.shape[0]:
-            raise ValueError(f"lane_work spans [{lo}, {hi}], outside the "
-                             f"{nbr.shape[0]} tiles")
+    check_spans(nbr, lane_work, row_len)
 
 
-def _check_gain(nbr, lane_work, vwgt, part) -> None:
+def _check_gain(nbr, lane_work, vwgt, part, extents) -> None:
     W, n, d = nbr.shape
     L = lane_work.shape[0]
-    check_tensors(nbr, {"nbr": (nbr, torch.int32, (W, n, d)),
-                        "lane_work": (lane_work, torch.int32, (L,)),
-                        "vwgt": (vwgt, torch.float32, (L, n)),
-                        "part": (part, torch.int8, (L, n))})
+    want = {"nbr": (nbr, torch.int32, (W, n, d)),
+            "lane_work": (lane_work, torch.int32, (L,)),
+            "vwgt": (vwgt, torch.float32, (L, n)),
+            "part": (part, torch.int8, (L, n))}
+    if extents is not None:
+        if not isinstance(extents, RowExtents) or \
+                extents.group not in (1, 2, 4, 8, 16, 32):
+            raise ValueError("extents: want a RowExtents (row_extents) with "
+                             "a group of 1 to 32 threads, a power of two")
+        want["row_len"] = (extents.row_len, torch.int32, (W, n))
+    check_tensors(nbr, want)
 
 
-def sep_gain_multi_kernel(nbr, lane_work, vwgt, part):
-    """Launch the CUDA kernel on the current stream (CUDA tensors only)."""
+def sep_gain_multi_kernel(nbr, lane_work, vwgt, part,
+                          extents: Optional[RowExtents] = None):
+    """Launch the CUDA kernel on the current stream (CUDA tensors only;
+    ``extents`` is required)."""
     global gain_launches
-    _check_gain(nbr, lane_work, vwgt, part)
-    check_tiles(nbr, lane_work)
-    nbr, lane_work, vwgt, part = (t.contiguous() for t in
-                                  (nbr, lane_work, vwgt, part))
+    _check_gain(nbr, lane_work, vwgt, part, extents)
+    if extents is None:
+        raise ValueError("the gain kernel reads the tiles' row extents: "
+                         "pass extents=row_extents(tiles)")
+    check_tiles(nbr, lane_work, extents.row_len)
+    nbr, lane_work, vwgt, part, row_len = (t.contiguous() for t in (
+        nbr, lane_work, vwgt, part, extents.row_len))
     L = lane_work.shape[0]
     n, d = nbr.shape[1:]
     pulled0 = torch.empty((L, n), dtype=torch.float32, device=nbr.device)
@@ -154,24 +222,31 @@ def sep_gain_multi_kernel(nbr, lane_work, vwgt, part):
     lib = build.load("sep_gain")
     stream = torch.cuda.current_stream(nbr.device).cuda_stream
     err = lib.sep_gain_launch(nbr.data_ptr(), lane_work.data_ptr(),
-                              vwgt.data_ptr(), part.data_ptr(),
-                              pulled0.data_ptr(), pulled1.data_ptr(),
-                              L, n, d, stream)
+                              row_len.data_ptr(), vwgt.data_ptr(),
+                              part.data_ptr(), pulled0.data_ptr(),
+                              pulled1.data_ptr(), L, n, d, extents.group,
+                              stream)
     build.check(err, "sep_gain")
     gain_launches += 1
     return pulled0, pulled1
 
 
 def sep_gain_multi(nbr: torch.Tensor, lane_work: torch.Tensor,
-                   vwgt: torch.Tensor, part: torch.Tensor):
+                   vwgt: torch.Tensor, part: torch.Tensor,
+                   extents: Optional[RowExtents] = None):
     """Batched separator FM gains: (pulled0, pulled1), each (L, n) float32.
 
     nbr (W, n, d) int32 ELL tiles (-1 pads), lane_work (L,) int32 naming
-    each lane's tile, vwgt (L, n) float32, part (L, n) int8.  The gain of
-    moving v to side 0 is vwgt[v] − pulled0[v] (side 1 likewise).  CUDA
-    tensors go to the kernel, CPU tensors to the plain version.
+    each lane's tile, vwgt (L, n) float32, part (L, n) int8, and the
+    tiles' ``extents`` (``row_extents``; on the tiles' device), which the
+    kernel needs, so that it reads no slot past a row's last id.  The gain
+    of moving v to side 0 is vwgt[v] − pulled0[v] (side 1 likewise).  CUDA
+    tensors go to the kernel, CPU tensors to the plain version, which
+    checks the extents given and has no use for them.
     """
-    _check_gain(nbr, lane_work, vwgt, part)
+    _check_gain(nbr, lane_work, vwgt, part, extents)
     if nbr.device.type == "cuda":
-        return sep_gain_multi_kernel(nbr, lane_work, vwgt, part)
+        return sep_gain_multi_kernel(nbr, lane_work, vwgt, part, extents)
+    if extents is not None:
+        check_spans(nbr, lane_work, extents.row_len)
     return sep_gain_multi_plain(nbr, lane_work, vwgt, part)

@@ -19,19 +19,21 @@ __host__ __device__ inline int gain_group(int d) {
   return group;
 }
 
-// One group's share of one row.  `row` is the row's d slots, or nullptr for a
-// group past the last row (it still takes part in the shuffles).  Groups are
-// aligned inside a warp and every thread of the warp calls this together.
-// The group's first thread (threadIdx.x % group == 0) gets the row's sums in
-// p0 / p1.  Returns the number of valid slots this thread read.
-__device__ __forceinline__ int gain_row(const int* row, int d, int n,
+// One group's share of one row.  `row` is the row's slots, or nullptr for a
+// group past the last row (it still takes part in the shuffles); `len` is
+// how many of them to read: the tile's width d, or the row's extent (1 + its
+// last slot that holds an id), past which a row holds only padding.  Groups
+// are aligned inside a warp and every thread of the warp calls this
+// together.  The group's first thread (threadIdx.x % group == 0) gets the
+// row's sums in p0 / p1.  Returns the number of valid slots this thread read.
+__device__ __forceinline__ int gain_row(const int* row, int len, int n,
                                         int group, const int8_t* part,
                                         const float* vw, float& p0,
                                         float& p1) {
   float a0 = 0.f, a1 = 0.f;
   int slots = 0;
   if (row != nullptr) {
-    for (int j = threadIdx.x % group; j < d; j += group) {
+    for (int j = threadIdx.x % group; j < len; j += group) {
       const int u = row[j];
       if ((unsigned)u >= (unsigned)n) continue;  // padding, or not an id
       ++slots;

@@ -23,6 +23,7 @@ import os
 
 import torch
 
+from repro_torch.kernels.band_batch import row_extents
 from repro_torch.kernels.diffusion import diffusion_step
 from repro_torch.kernels.ell_spmv import ell_spmv
 from repro_torch.kernels.fm_fused import fm_fused_multi, fm_noise
@@ -60,7 +61,9 @@ def fm_refine_batch(nbr, lane_work, vwgt, parts, locked, keys, eps_frac,
     lane_work (L,) int32; vwgt (L, n); parts (L, n) int8; locked (L, n)
     bool; keys (L, 2); eps_frac (L,) float32; max_moves, n_pert (L,)
     int32.  ``mode`` defaults to ``fm_mode_default()``; ``gain_mode``
-    applies only to the hoisted path.  Returns (parts int8, sep_w, imb).
+    applies only to the hoisted path, which also builds the tiles' row
+    extents for its gain kernel, once a call on the host
+    (``band_batch.row_extents``).  Returns (parts int8, sep_w, imb).
     Raises ``ValueError`` for a mode other than fused, hoisted or oracle,
     and for the oracle on the card: it has no kernel, and the card's work
     never goes to plain torch.
@@ -78,8 +81,10 @@ def fm_refine_batch(nbr, lane_work, vwgt, parts, locked, keys, eps_frac,
         return fm_fused_multi(*args, passes=passes, pos_only=pos_only)
     if mode == "hoisted":
         from repro_torch.core.fm import fm_refine_multi
+        extents = row_extents(torch.as_tensor(nbr).cpu())
         return fm_refine_multi(*args, passes=passes, pos_only=pos_only,
-                               gain_mode=gain_mode)
+                               gain_mode=gain_mode,
+                               extents=extents.to(args[0].device))
     from repro_torch.kernels.ref import fm_fused_ref
     nbr, lane_work, vwgt, parts, locked, keys, eps_frac, max_moves, \
         n_pert = args

@@ -5,7 +5,8 @@ Marked ``cuda``: on a host without an NVIDIA card every test here skips
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
-Exact equality is the stated tolerance for the FM and BFS kernels, as in
+Exact equality is the stated tolerance for the FM, BFS, gain and matching
+kernels, as in
 the CPU parity tests (integer-valued float32 sums); the ELL kernels are
 held to the reference tests' tolerances (1e-5 float32 SpMV, 5e-2
 bfloat16, 1e-4 diffusion), at sizes that are no multiple of any block,
@@ -19,7 +20,9 @@ from repro_torch import prng
 from repro_torch.core import fm
 from repro_torch.core.nd import nested_dissection
 from repro_torch.graphs.generators import grid3d, rgg2d
+from repro_torch.core.coarsen import match_graph
 from repro_torch.kernels import band_batch, diffusion, ell_spmv, fm_fused, ops
+from repro_torch.kernels import matching
 
 pytestmark = pytest.mark.cuda
 
@@ -72,9 +75,10 @@ def test_fm_kernel_equals_plain(card, L, n, d, passes, pos_only):
 
 def test_nested_dissection_card_equals_cpu(card):
     for g in (grid3d(7, 7, 7), rgg2d(400, seed=2)):
-        band_batch.launches = fm_fused.launches = 0
+        band_batch.launches = fm_fused.launches = matching.launches = 0
         p_card = nested_dissection(g, seed=1, nproc=4, device=card)
         assert band_batch.launches > 0 and fm_fused.launches > 0
+        assert matching.launches > 0
         assert np.array_equal(p_card, nested_dissection(g, seed=1, nproc=4,
                                                         device="cpu"))
 
@@ -90,10 +94,13 @@ def test_gain_kernel_equals_plain(card, L, W, n, d):
         rng.integers(0, 4, (L, n)).astype(np.float32),
         rng.integers(0, 4, (L, n)).astype(np.int8))]
     before = band_batch.gain_launches
-    got = band_batch.sep_gain_multi(*t)
+    got = band_batch.sep_gain_multi(
+        *t, extents=band_batch.row_extents(nbr).to(card))
     assert band_batch.gain_launches == before + 1
     for a, b in zip(got, band_batch.sep_gain_multi_plain(*t)):
         assert torch.equal(a, b)
+    with pytest.raises(ValueError):     # the kernel reads the row extents
+        band_batch.sep_gain_multi(*t)
 
 
 @pytest.mark.parametrize("pos_only", [False, True])
@@ -134,7 +141,9 @@ def test_hoisted_pass_loop_equals_fused(card):
              max_moves=torch.from_numpy(mm).to(card),
              n_pert=torch.full((L,), 8, dtype=torch.int32, device=card))
     fused = fm_fused.fm_fused_multi(**t, passes=3)
-    got = fm.fm_refine_multi(**t, passes=3, gain_mode="pallas")
+    got = fm.fm_refine_multi(
+        **t, passes=3, gain_mode="pallas",
+        extents=band_batch.row_extents(nbr[:2]).to(card))
     for a, b in zip(got, fused):
         assert torch.equal(a, b)
     # the plain gains and the oracle have no kernel: on the card they raise
@@ -206,3 +215,68 @@ def test_nested_dissection_hoisted_card_equals_cpu(card, monkeypatch):
     assert band_batch.gain_launches > 0 and fm_fused.move_loop_launches > 0
     assert fm_fused.launches == 0
     assert np.array_equal(got, want)
+
+
+def _match_bucket(seed, L, n, d, weights="small"):
+    rng = np.random.default_rng(seed)
+    nbr = rng.integers(0, n, (L, n, d)).astype(np.int32)
+    nbr[rng.random((L, n, d)) < 0.4] = -1
+    if weights == "small":
+        w = rng.integers(1, 4, (L, n, d))
+    elif weights == "tied":
+        w = np.full((L, n, d), 2 ** 24)
+    else:
+        w = rng.integers(-2 ** 31, 2 ** 31, (L, n, d))
+    return nbr, np.where(nbr >= 0, w, 0).astype(np.int32)
+
+
+@pytest.mark.parametrize("rounds", [1, 8])
+@pytest.mark.parametrize("L,n,d,weights", [
+    (1, 64, 8, "small"), (4, 128, 8, "small"), (3, 64, 32, "small"),
+    (2, 256, 16, "small"), (3, 128, 8, "tied"), (3, 128, 8, "int32"),
+    (1, 32768, 8, "small")])
+def test_matching_kernel_equals_plain(card, L, n, d, weights, rounds):
+    nbr, wgt = (torch.from_numpy(a).to(card)
+                for a in _match_bucket(L * n + d, L, n, d, weights))
+    keys = prng.split(prng.PRNGKey(L + d, card), L)
+    before = matching.launches
+    got = matching.heavy_edge_matching_multi(nbr, wgt, keys, rounds=rounds)
+    assert matching.launches == before + 2 * rounds + 1
+    want = matching.heavy_edge_matching_multi_plain(nbr, wgt, keys, rounds)
+    assert torch.equal(got, want)
+
+
+def test_match_graph_card_equals_cpu(card):
+    for g in (grid3d(9, 8, 7), rgg2d(500, seed=3)):
+        for seed in (0, 5):
+            before = matching.launches
+            got = match_graph(g, seed, device=card)
+            assert matching.launches > before
+            assert np.array_equal(got, match_graph(g, seed, device="cpu"))
+
+
+@pytest.mark.parametrize("L,W,n,d", [(1, 1, 64, 8), (8, 2, 256, 16),
+                                     (3, 3, 100, 40), (4, 2, 300, 1024)])
+def test_gain_kernel_with_row_len_equals_plain(card, L, W, n, d):
+    rng = np.random.default_rng(L + n + d)
+    nbr = rng.integers(0, n, (W, n, d)).astype(np.int32)
+    ends = rng.integers(0, min(d, 12) + 1, (W, n))
+    ends[:, ::97] = d                                   # anchor-like rows
+    nbr[np.arange(d)[None, None, :] >= ends[..., None]] = -1
+    nbr[rng.random((W, n, d)) < 0.3] = -1               # -1 inside extents
+    t = [torch.from_numpy(a).to(card) for a in (
+        nbr, rng.integers(0, W, L).astype(np.int32),
+        rng.integers(0, 4, (L, n)).astype(np.float32),
+        rng.integers(0, 4, (L, n)).astype(np.int8))]
+    extents = band_batch.row_extents(nbr)
+    before = band_batch.gain_launches
+    got = band_batch.sep_gain_multi(*t, extents=extents.to(card))
+    assert band_batch.gain_launches == before + 1
+    for a, b in zip(got, band_batch.sep_gain_multi_plain(*t)):
+        assert torch.equal(a, b)
+    # every group width takes each row to its extent
+    for group in (1, 4, 32):
+        got = band_batch.sep_gain_multi(
+            *t, extents=band_batch.RowExtents(extents.row_len.to(card), group))
+        for a, b in zip(got, band_batch.sep_gain_multi_plain(*t)):
+            assert torch.equal(a, b)
