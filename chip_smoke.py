@@ -8,19 +8,24 @@ Phases, each of which must pass:
 1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all at once) and print the build time;
 2. the threefry PRNG on the card equals the PRNG on the CPU for the
-   ordering's key and shape sequence, and the matching kernel's own
+   ordering's key and shape sequence, the matching kernel's own
    threefry (``csrc/threefry.cuh``: the round, coin, tie and grant keys
    derived from each lane's key) gives, in a one-round matching, the
-   matching the plain version draws with the CPU PRNG;
+   matching the plain version draws with the CPU PRNG, and the FM noise
+   kernel (``csrc/fm_noise.cu``) equals ``fm_noise_plain`` bit for bit for
+   four keys and four shapes, (8, 3, 2, 8192) among them, with its times;
 3. each kernel equals its plain PyTorch version on the card at the paths'
    shapes, with CUDA-event times of both (the gain and ELL kernels also
    through their C entries alone, without the wrappers' checks and host
    syncs): exactly for the FM, gain and
    BFS kernels (the altr4-scale band of ``grid3d(30, 30, 30)``, dummy lanes
    included, and the whole graph at ``n_pad`` 32768), where the hoisted
-   pass loop must also equal the fused kernel and ``torch.sparse.mm``
-   must equal the gains; within 1e-5 (float32), 5e-2 (bfloat16) and 1e-4
-   (diffusion) for the ELL kernels, up to ``grid3d(100, 100, 100)``, and
+   pass loop must also equal the fused kernel, whose tally at the band
+   bucket must be the one PERF.md records for the kernel before its
+   redesign (23,440 steps, 241,888,561 operations), and
+   ``torch.sparse.mm`` must equal the gains; within 1e-5 (float32), 5e-2
+   (bfloat16) and 1e-4 (diffusion) for the ELL kernels, up to
+   ``grid3d(100, 100, 100)``, and
    exactly for the bfloat16 SpMV's rounding of each product.  The
    matching kernel equals its plain version exactly at the root bucket
    of ``grid3d(30, 30, 30)`` (1, 32768, 8) and at the widest coarse-level
@@ -35,12 +40,12 @@ Phases, each of which must pass:
    and the oracle (``REPRO_FM_MODE=oracle``) raise on the card;
 5. the main path: ``nested_dissection(grid3d(30, 30, 30), seed=0,
    nproc=8)`` on the card, with the kernel launch counts set to 0 just
-   before and read just after; the matching, BFS and FM kernels must
-   have launched;
+   before and read just after; the matching, BFS, noise and FM kernels
+   must have launched; the fm stage's split (``fm_split``: packing, row
+   extents, noise, upload, the kernels' device time, download);
 6. the hoisted path at the same width (``REPRO_FM_MODE=hoisted``): the
-   same permutation as phase 5, the matching, gain and move-loop kernels
-   launched and the fused kernel not, and the host seconds spent building
-   the tiles' row extents;
+   same permutation as phase 5, the matching, gain, noise and move-loop
+   kernels launched and the fused kernel not, and the same split;
 7. a ``{"kernels": [...]}`` line with each kernel's launches, error, times,
    bound and library time, the card's name and power limit, and as the
    last line ``{"ok": true, "device": {...}}``.
@@ -178,15 +183,15 @@ def phase_build() -> None:
     log(f"phase 1 build: {sorted(build.SOURCES)} in {dt:.1f} s")
 
 
-def phase_prng() -> None:
+def phase_prng() -> dict:
     import torch
     from repro_torch import prng
-    from repro_torch.kernels.fm_fused import fm_noise
+    from repro_torch.kernels import fm_fused as ff
     for seed in (0, 1, 12345, 2 ** 31 - 1):
         per_device = []
         for dev in ("cpu", "cuda"):
             keys = prng.split(prng.PRNGKey(seed, dev), 8)
-            per_device.append([keys, fm_noise(keys, 8192, 3),
+            per_device.append([keys, ff.fm_noise_plain(keys, 8192, 3),
                                prng.bernoulli(keys, 0.5, (32768,)),
                                prng.uniform(keys[:2], (32768, 8)),
                                prng.uniform(keys, (8192,)),
@@ -208,9 +213,45 @@ def phase_prng() -> None:
             raise AssertionError(f"threefry.cuh: the one-round matching on "
                                  f"the card differs from the CPU's, seed "
                                  f"{seed}")
-    log("phase 2 prng: card == cpu for keys, fm_noise (8, 3, 2, 8192), "
+    # the FM noise kernel (csrc/fm_noise.cu) == fm_noise_plain bit for bit
+    shapes = ((8, 3, 8192), (16, 3, 32768), (3, 1, 100), (1, 2, 5))
+    for seed in (0, 1, 12345, 2 ** 31 - 1):
+        for L, passes, n in shapes:
+            keys = prng.split(prng.PRNGKey(seed), L)
+            got = ff.fm_noise_kernel(keys.cuda(), n, passes)
+            if not torch.equal(got.cpu(), ff.fm_noise_plain(keys, n, passes)):
+                raise AssertionError(f"fm_noise kernel differs from its plain "
+                                     f"version at {(L, passes, 2, n)}, seed "
+                                     f"{seed}")
+    log("phase 2 prng: card == cpu for keys, fm_noise_plain (8, 3, 2, 8192), "
         "bernoulli (32768,), uniform (32768, 8) and (8192,); threefry.cuh "
-        "one-round matching (8, 4096, 8) == cpu for 4 seeds")
+        "one-round matching (8, 4096, 8) == cpu for 4 seeds; fm_noise kernel "
+        f"== fm_noise_plain for 4 seeds at (L, passes, 2, n) in "
+        f"{[(a, b, 2, c) for a, b, c in shapes]}")
+    return _noise_case(8, 3, 8192)
+
+
+def _noise_case(L: int, passes: int, n: int) -> dict:
+    """The noise kernel at the band bucket's (L, passes, 2, n): alone,
+    through its wrapper, and its plain version on the card."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.kernels import fm_fused as ff
+    keys = prng.split(prng.PRNGKey(3, "cuda"), L)
+    out = torch.empty((L, passes, 2, n), dtype=torch.float32, device="cuda")
+    ms = entry_ms("fm_noise", "fm_noise_launch", keys, out, L, n, passes,
+                  reps=50)
+    call_ms = cuda_ms(lambda: ff.fm_noise_kernel(keys, n, passes), reps=50)
+    plain_ms = cuda_ms(lambda: ff.fm_noise_plain(keys, n, passes), reps=5)
+    err = max_err(ff.fm_noise_kernel(keys, n, passes),
+                  ff.fm_noise_plain(keys, n, passes))
+    draws = L * passes * 2 * n
+    # the keys read once, every entry written once; a draw per entry and
+    # the key schedule (passes + 1 splits) per (lane, pass)
+    return dict(shape=[L, passes, 2, n], ms=ms, call_ms=call_ms,
+                plain_ms=plain_ms, max_abs_err=err,
+                **bound(16 * L + 4 * draws,
+                        OPS_PER_DRAW * (draws + L * passes * (passes + 1))))
 
 
 def _match_inputs(L, n, d, seed):
@@ -256,12 +297,11 @@ def _fm_case(works) -> dict:
     import torch
     from repro_torch.core.fm import fm_refine_multi, pack_fm_bucket
     from repro_torch.kernels import fm_fused as ff
-    from repro_torch.kernels.band_batch import row_extents
     assert len({w.bucket_key() for w in works}) == 1
     passes, pos_only = works[0].passes, works[0].pos_only
     host, counts = pack_fm_bucket(works)
-    t = {k: v.cuda() for k, v in host.items()}
-    extents = row_extents(host["nbr"]).to("cuda")
+    t = {k: v.to("cuda") for k, v in host.items()}
+    extents = t["extents"]
     got = ff.fm_fused_multi(**t, passes=passes, pos_only=pos_only)
     vwgt_f = host["vwgt"].float()
     eps_abs = host["eps_frac"] * vwgt_f.sum(1)
@@ -277,17 +317,16 @@ def _fm_case(works) -> dict:
     # the hoisted pass loop: per pass the gain kernel (reading the tiles'
     # row extents) and the move loop
     hoisted_ms = cuda_ms(lambda: fm_refine_multi(
-        **t, passes=passes, pos_only=pos_only, gain_mode="pallas",
-        extents=extents), reps=3)
+        **t, passes=passes, pos_only=pos_only, gain_mode="pallas"), reps=3)
     hoisted = fm_refine_multi(**t, passes=passes, pos_only=pos_only,
-                              gain_mode="pallas", extents=extents)
+                              gain_mode="pallas")
     if not all(torch.equal(a, b) for a, b in zip(hoisted, want)):
         raise AssertionError("the hoisted pass loop differs from "
                              "fm_fused_multi and fm_fused_plain")
     # the kernel alone: its time, and its tally of the work the moves needed
-
     def kernel():
-        return ff.fm_fused_kernel(*args, passes=passes, pos_only=pos_only)
+        return ff.fm_fused_kernel(*args, passes=passes, pos_only=pos_only,
+                                  extents=extents)
     ms = cuda_ms(kernel, reps=3)
     res = kernel()
     if not all(torch.equal(a, b) for a, b in zip(res[:3], want)):
@@ -328,7 +367,8 @@ def _move_loop_case(args, extents, pos_only) -> dict:
         *pass_args, pos_only=pos_only))
 
     def kernel():
-        return ff.fm_move_loop_kernel(*pass_args, pos_only=pos_only)
+        return ff.fm_move_loop_kernel(*pass_args, pos_only=pos_only,
+                                      extents=extents)
     ms = cuda_ms(kernel, reps=3)
     res = kernel()
     err = max(max_err(g, w) for g, w in zip(res[:3], want))
@@ -380,7 +420,8 @@ def _gain_case(nbr, lane_work, vwgt, part, extents) -> dict:
     outs = [torch.empty_like(g) for g in got]
     group = extents.group
     ms = entry_ms("sep_gain", "sep_gain_launch", nbr, lane_work,
-                  extents.row_len, vwgt, part, *outs, L, n, d, group)
+                  extents.row_len, vwgt, part, *outs, L, nbr.shape[0], n, d,
+                  group)
     call_ms = cuda_ms(lambda: bb.sep_gain_multi_kernel(*args, extents),
                       reps=20)
     plain_ms = cuda_ms(lambda: bb.sep_gain_multi_plain(*args), reps=3)
@@ -493,6 +534,13 @@ def phase_kernels() -> dict:
     out["fm_band"] = _fm_case(works)
     if out["fm_band"]["shape"] != [8, 8192, 1024]:
         raise AssertionError(f"band bucket is {out['fm_band']['shape']}")
+    # the work the moves need is the kernel design's invariant: the kernel
+    # before its redesign tallied these at this bucket (PERF.md)
+    tally = (out["fm_band"]["steps"], out["fm_band"]["ops"])
+    if tally != (23440, 241888561):
+        raise AssertionError(f"the band bucket's FM tally (steps, "
+                             f"operations) is {tally}, not (23440, "
+                             f"241888561)")
     log(f"phase 3 fm_fused_multi == plain == hoisted: band {out['fm_band']}")
     # fm on the whole graph: n_pad 32768, the largest the main path pads to
     whole = [FMWork(nbr=nbr_g, vwgt=g.vwgt, part=part,
@@ -504,10 +552,10 @@ def phase_kernels() -> dict:
 
     # gains: the band bucket's lanes on its two works' tiles ...
     host, _ = pack_fm_bucket(works)
-    t = {k: v.cuda() for k, v in host.items()}
+    t = {k: v.to("cuda") for k, v in host.items()}
     out["gain_band"] = _gain_case(t["nbr"], t["lane_work"],
                                   t["vwgt"].float(), t["parts"],
-                                  row_extents(host["nbr"]).to("cuda"))
+                                  t["extents"])
     log(f"phase 3 sep_gain_multi == plain == sparse.mm: band "
         f"{out['gain_band']}")
     # ... and two lanes on the whole graph's tile (2, 32768, 8)
@@ -754,38 +802,43 @@ def _ordering(phase: str, counters: dict) -> dict:
 
 def phase_main() -> dict:
     from repro_torch.kernels import band_batch, fm_fused, matching
-    with env(REPRO_FM_MODE=None, REPRO_FM_GAIN=None):
+    split = {}
+    with env(REPRO_FM_MODE=None, REPRO_FM_GAIN=None), fm_split(split):
         res = _ordering("phase 5 main path", {
             "heavy_edge_matching_multi": (matching, "launches"),
             "bfs_multi": (band_batch, "launches"),
+            "fm_noise": (fm_fused, "noise_launches"),
             "fm_fused_multi": (fm_fused, "launches")})
     if min(res["launches"].values()) <= 0:
         raise AssertionError(f"main path skipped a kernel: {res['launches']}")
+    res["fm_split_s"] = split
+    log(f"phase 5 fm stage split (s): {json.dumps(split)}")
     return res
 
 
 def phase_hoisted(fused: dict) -> dict:
     import numpy as np
-    from repro_torch.kernels import band_batch, fm_fused, matching, ops
-    spent = [0.0]                       # host seconds building row extents
-    with env(REPRO_FM_MODE="hoisted", REPRO_FM_GAIN=None), \
-            host_seconds(ops, "row_extents", spent):
+    from repro_torch.kernels import band_batch, fm_fused, matching
+    split = {}
+    with env(REPRO_FM_MODE="hoisted", REPRO_FM_GAIN=None), fm_split(split):
         res = _ordering("phase 6 hoisted path", {
             "heavy_edge_matching_multi": (matching, "launches"),
             "bfs_multi": (band_batch, "launches"),
             "sep_gain_multi": (band_batch, "gain_launches"),
             "fm_move_loop": (fm_fused, "move_loop_launches"),
+            "fm_noise": (fm_fused, "noise_launches"),
             "fm_fused_multi": (fm_fused, "launches")})
     n = res["launches"]
     if n["sep_gain_multi"] <= 0 or n["fm_move_loop"] <= 0 or \
-            n["heavy_edge_matching_multi"] <= 0 or n["fm_fused_multi"] != 0:
+            n["heavy_edge_matching_multi"] <= 0 or n["fm_noise"] <= 0 or \
+            n["fm_fused_multi"] != 0:
         raise AssertionError(f"hoisted path: launches {n}")
     if not np.array_equal(res["perm"], fused["perm"]):
         raise AssertionError("hoisted path: the permutation differs from "
                              "the fused one")
-    log("phase 6 hoisted path: same permutation (and OPC) as phase 5; "
-        f"row extents built on the host in {spent[0]:.4f} s")
-    res["extents_s"] = spent[0]
+    log("phase 6 hoisted path: same permutation (and OPC) as phase 5")
+    res["fm_split_s"] = split
+    log(f"phase 6 fm stage split (s): {json.dumps(split)}")
     return res
 
 
@@ -806,6 +859,63 @@ def host_seconds(module, name: str, spent: list):
         yield
     finally:
         setattr(module, name, fn)
+
+
+@contextlib.contextmanager
+def fm_split(split: dict):
+    """Split the fm stage while the block runs: host seconds packing the
+    buckets (``pack_fm_bucket``; of which ``extents``, building the tiles'
+    row extents), drawing the noise (``fm_noise``), uploading
+    (``ops._on``) and downloading (``core.fm.download``, which ends each
+    work with its sync), and the device seconds of the FM kernels and of
+    the noise kernel (CUDA events around each launch, read after the
+    block, so no sync is added).  Fills ``split`` when the block ends."""
+    import torch
+    from repro_torch.core import fm as core_fm
+    from repro_torch.kernels import band_batch, fm_fused, ops
+    host = {k: [0.0] for k in ("pack", "extents", "noise", "upload",
+                               "download")}
+    events = {"kernels": [], "noise_kernel": []}
+
+    @contextlib.contextmanager
+    def on_card(module, name, where):
+        fn = getattr(module, name)
+
+        def timed(*args, **kw):
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            out = fn(*args, **kw)
+            t1.record()
+            where.append((t0, t1))
+            return out
+        setattr(module, name, timed)
+        try:
+            yield
+        finally:
+            setattr(module, name, fn)
+
+    with contextlib.ExitStack() as stack:
+        for module, name, key in (
+                (core_fm, "pack_fm_bucket", "pack"),
+                (core_fm, "row_extents", "extents"),
+                (fm_fused, "fm_noise", "noise"),
+                (core_fm, "fm_noise", "noise"),
+                (ops, "_on", "upload"), (core_fm, "download", "download")):
+            stack.enter_context(host_seconds(module, name, host[key]))
+        for module, name in ((fm_fused, "fm_fused_kernel"),
+                             (fm_fused, "fm_move_loop_kernel"),
+                             (band_batch, "sep_gain_multi_kernel")):
+            stack.enter_context(on_card(module, name, events["kernels"]))
+        stack.enter_context(on_card(fm_fused, "fm_noise_kernel",
+                                    events["noise_kernel"]))
+        yield
+    torch.cuda.synchronize()
+    split.update({k: v[0] for k, v in host.items()})
+    for key, pairs in events.items():
+        split[f"{key}_device"] = sum(a.elapsed_time(b)
+                                     for a, b in pairs) / 1e3
+        split[f"{key}_launches"] = len(pairs)
 
 
 def gpu_line() -> str:
@@ -835,7 +945,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     phase_build()
-    phase_prng()
+    noise = phase_prng()
     kern = phase_kernels()
     ell = phase_ell()
     phase_small_parity()
@@ -876,6 +986,9 @@ def main() -> int:
             hoisted["launches"]["fm_move_loop"], kern["fm_band"]["move_loop"],
             max(kern["fm_band"]["move_loop"]["max_abs_err"],
                 kern["fm_whole"]["move_loop"]["max_abs_err"]), None),
+        row("fm_noise", "fm_noise.cu", "src/repro/kernels/fm_fused.py:139",
+            main_run["launches"]["fm_noise"], noise, noise["max_abs_err"],
+            None),
         row("ell_spmv", "ell_spmv.cu", "src/repro/kernels/ell_spmv.py:36",
             ell["launches"]["ell_spmv"], big["spmv"],
             max(c["spmv"]["max_abs_err"] for c in ell["cases"]),

@@ -33,7 +33,8 @@ import torch
 
 from repro_torch import prng
 from repro_torch.kernels import ops
-from repro_torch.kernels.band_batch import RowExtents, sep_gain_multi
+from repro_torch.kernels.band_batch import RowExtents, check_spans, \
+    row_extents, sep_gain_multi
 from repro_torch.kernels.fm_fused import fm_move_loop, fm_noise
 from repro_torch.util import pow2 as _pow2, resolve_device
 
@@ -80,12 +81,12 @@ def fm_refine_multi(nbr, lane_work, vwgt, parts, locked, keys, eps_frac,
     lane_work (L,) int32; vwgt (L, n); parts (L, n) int8; locked (L, n)
     bool; keys (L, 2); eps_frac (L,) float32; max_moves, n_pert (L,)
     int32; ``extents``, the tiles' ``RowExtents`` on their device
-    (``band_batch.row_extents``), which every pass's gain launch reads and
-    the card needs.  Per pass: split the keys and draw the noise,
-    recompute the gains (``sep_gain_multi``), run one ``fm_move_loop``,
-    revert to the best state.  The best separator weight and imbalance
-    carry from pass to pass.  On the card each pass is two kernel
-    launches.  Returns (parts int8, sep_w, imb), the fused kernel's bits.
+    (``band_batch.row_extents``), which every pass's gain and move-loop
+    launches read and the card needs.  Draw every pass's noise, then per
+    pass recompute the gains (``sep_gain_multi``), run one
+    ``fm_move_loop``, revert to the best state.  The best separator weight
+    and imbalance carry from pass to pass.  On the card each pass is two
+    kernel launches.  Returns (parts int8, sep_w, imb), the fused kernel's bits.
     Raises ``ValueError`` for an unknown ``gain_mode``, and for ``jnp`` on
     CUDA tensors.
     """
@@ -110,7 +111,7 @@ def fm_refine_multi(nbr, lane_work, vwgt, parts, locked, keys, eps_frac,
         bpart, bws, bimb = fm_move_loop(
             nbr, lane_work, vwgt_f, bpart, locked, pulled0, pulled1,
             noise[:, p].contiguous(), pert, eps_abs, max_moves, bws, bimb,
-            pos_only=pos_only)
+            pos_only=pos_only, extents=extents)
         pert = torch.zeros_like(n_pert)
     return bpart, bws, bimb
 
@@ -207,7 +208,10 @@ def pack_fm_bucket(works: Sequence[FMWork]) -> Tuple[dict, List[int]]:
 
     One ELL tile per work; each work's ``k_inst`` lanes name it through
     ``lane_work``.  Lanes are padded to a multiple of 8 with copies of the
-    first lane that get no moves, as the reference pads them.
+    first lane that get no moves, as the reference pads them.  The tiles'
+    ``extents`` (``band_batch.row_extents``) are made here, once a bucket,
+    and ``lane_work`` and the extents are checked here on the host, so the
+    kernels' wrappers need not read them back from the card.
     """
     lanes = [_prepare_lanes(w) for w in works]
     counts = [ln.parts0.shape[0] for ln in lanes]
@@ -226,9 +230,12 @@ def pack_fm_bucket(works: Sequence[FMWork]) -> Tuple[dict, List[int]]:
 
     mm = np.concatenate([ln.max_moves for ln in lanes] +
                         [np.zeros(pad, np.int32)])          # dummies: 0 moves
+    nbr = torch.from_numpy(np.stack([ln.nbr for ln in lanes]))
+    lane_work = torch.from_numpy(lane_work.astype(np.int32))
+    extents = row_extents(nbr)
+    check_spans(nbr, lane_work, extents.row_len)
     return dict(
-        nbr=torch.from_numpy(np.stack([ln.nbr for ln in lanes])),
-        lane_work=torch.from_numpy(lane_work.astype(np.int32)),
+        nbr=nbr, lane_work=lane_work, extents=extents,
         vwgt=per_work(lambda ln: ln.vwgt),
         parts=per_lane(lambda ln: ln.parts0, np.int8),
         locked=per_work(lambda ln: ln.locked),
@@ -236,6 +243,11 @@ def pack_fm_bucket(works: Sequence[FMWork]) -> Tuple[dict, List[int]]:
         eps_frac=per_lane(lambda ln: ln.eps, np.float32),
         max_moves=torch.from_numpy(mm),
         n_pert=per_lane(lambda ln: ln.n_pert, np.int32)), counts
+
+
+def download(*tensors) -> List[np.ndarray]:
+    """Host copies of a bucket's results: the one sync of an FM work."""
+    return [t.cpu().numpy() for t in tensors]
 
 
 def execute_fm_works(works: Sequence[FMWork], device=None, *,
@@ -265,8 +277,7 @@ def execute_fm_works(works: Sequence[FMWork], device=None, *,
         parts, sep_w, imb = ops.fm_refine_batch(
             **host, passes=passes, pos_only=pos_only, mode=mode,
             gain_mode=gain_mode, device=dev)
-        parts, sep_w, imb = parts.cpu().numpy(), sep_w.cpu().numpy(), \
-            imb.cpu().numpy()
+        parts, sep_w, imb = download(parts, sep_w, imb)
         off = 0
         for i, k in zip(idxs, counts):
             n = works[i].nbr.shape[0]

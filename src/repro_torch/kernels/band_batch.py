@@ -160,31 +160,30 @@ def check_tensors(nbr: torch.Tensor, want: dict) -> None:
 
 def check_spans(nbr: torch.Tensor, lane_work: torch.Tensor,
                 row_len: Optional[torch.Tensor] = None) -> None:
-    """Raise unless ``lane_work`` names tiles that exist (the kernels index
-    the tiles by it) and, if given, every extent of ``row_len`` lies in
-    [0, d].  One host sync on the card."""
+    """Raise unless ``lane_work`` names tiles of ``nbr`` that exist and, if
+    given, every extent of ``row_len`` lies in [0, d].  Reads host tensors
+    only, where a bucket's arrays are made (``core.fm.pack_fm_bucket``) or
+    where the plain versions run, so the card's wrappers never sync for
+    it; the kernels read a ``lane_work`` outside the tiles as an empty
+    tile and clamp each extent to [0, d]."""
     W, _, d = nbr.shape
-    spans = [(t, lo, hi, name) for t, lo, hi, name in (
-        (lane_work, 0, W - 1, "lane_work"), (row_len, 0, d, "row_len"))
-        if t is not None and t.numel()]
-    if not spans:
-        return
-    vals = torch.stack([r for t, *_ in spans
-                        for r in torch.aminmax(t)]).tolist()
-    for k, (_, lo, hi, name) in enumerate(spans):
-        a, b = vals[2 * k:2 * k + 2]
-        if a < lo or b > hi:
-            raise ValueError(f"{name} spans [{a}, {b}], outside "
-                             f"[{lo}, {hi}]")
+    for t, hi, name in ((lane_work, W - 1, "lane_work"),
+                        (row_len, d, "row_len")):
+        if t is None or not t.numel():
+            continue
+        if t.device.type != "cpu":
+            raise ValueError(f"check_spans reads host tensors; {name} is on "
+                             f"{t.device}")
+        lo_t, hi_t = (int(x) for x in torch.aminmax(t))
+        if lo_t < 0 or hi_t > hi:
+            raise ValueError(f"{name} spans [{lo_t}, {hi_t}], outside "
+                             f"[0, {hi}]")
 
 
-def check_tiles(nbr: torch.Tensor, lane_work: torch.Tensor,
-                row_len: Optional[torch.Tensor] = None) -> None:
-    """``check_spans`` for the kernels: also raise unless the tiles are on
-    the card."""
-    if nbr.device.type != "cuda":
+def require_card(t: torch.Tensor) -> None:
+    """Raise unless ``t`` is on the card: the kernels take CUDA tensors."""
+    if t.device.type != "cuda":
         raise ValueError("the kernel takes CUDA tensors")
-    check_spans(nbr, lane_work, row_len)
 
 
 def _check_gain(nbr, lane_work, vwgt, part, extents) -> None:
@@ -206,13 +205,14 @@ def _check_gain(nbr, lane_work, vwgt, part, extents) -> None:
 def sep_gain_multi_kernel(nbr, lane_work, vwgt, part,
                           extents: Optional[RowExtents] = None):
     """Launch the CUDA kernel on the current stream (CUDA tensors only;
-    ``extents`` is required)."""
+    ``extents`` is required).  No host sync: ``lane_work`` and the
+    extents are checked where they are made (``check_spans``)."""
     global gain_launches
     _check_gain(nbr, lane_work, vwgt, part, extents)
+    require_card(nbr)
     if extents is None:
         raise ValueError("the gain kernel reads the tiles' row extents: "
                          "pass extents=row_extents(tiles)")
-    check_tiles(nbr, lane_work, extents.row_len)
     nbr, lane_work, vwgt, part, row_len = (t.contiguous() for t in (
         nbr, lane_work, vwgt, part, extents.row_len))
     L = lane_work.shape[0]
@@ -224,8 +224,8 @@ def sep_gain_multi_kernel(nbr, lane_work, vwgt, part,
     err = lib.sep_gain_launch(nbr.data_ptr(), lane_work.data_ptr(),
                               row_len.data_ptr(), vwgt.data_ptr(),
                               part.data_ptr(), pulled0.data_ptr(),
-                              pulled1.data_ptr(), L, n, d, extents.group,
-                              stream)
+                              pulled1.data_ptr(), L, nbr.shape[0], n, d,
+                              extents.group, stream)
     build.check(err, "sep_gain")
     gain_launches += 1
     return pulled0, pulled1
@@ -247,6 +247,5 @@ def sep_gain_multi(nbr: torch.Tensor, lane_work: torch.Tensor,
     _check_gain(nbr, lane_work, vwgt, part, extents)
     if nbr.device.type == "cuda":
         return sep_gain_multi_kernel(nbr, lane_work, vwgt, part, extents)
-    if extents is not None:
-        check_spans(nbr, lane_work, extents.row_len)
+    check_spans(nbr, lane_work, None if extents is None else extents.row_len)
     return sep_gain_multi_plain(nbr, lane_work, vwgt, part)

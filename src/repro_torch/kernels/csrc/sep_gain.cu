@@ -35,7 +35,8 @@
 // anchor) is left to the whole block after the group pass: each warp sums
 // a contiguous share of it with gain_row, and the warps' sums meet in
 // shared memory (exact in any order, as above).  An extent outside [0, d]
-// is clamped, so no read leaves the row.
+// is clamped and a lane_work outside [0, W) reads as an empty tile, so no
+// read leaves the tiles; the wrapper does not read them back to check.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -54,13 +55,15 @@ __global__ void sep_gain_kernel(const int* __restrict__ nbr,
                                 const float* __restrict__ vwgt,
                                 const int8_t* __restrict__ part,
                                 float* __restrict__ pulled0,
-                                float* __restrict__ pulled1, int n, int d,
-                                int group) {
+                                float* __restrict__ pulled1, int W, int n,
+                                int d, int group) {
   __shared__ int long_rows[kThreads];
   __shared__ int n_long;
   __shared__ float block_sum[2];
   const int lane = blockIdx.y;
-  const int64_t tile = (int64_t)lane_work[lane] * n;
+  const int work = lane_work[lane];
+  const bool has_tile = (unsigned)work < (unsigned)W;
+  const int64_t tile = has_tile ? (int64_t)work * n : 0;
   const int8_t* pt = part + (int64_t)lane * n;
   const float* vw = vwgt + (int64_t)lane * n;
   float* out0 = pulled0 + (int64_t)lane * n;
@@ -73,7 +76,7 @@ __global__ void sep_gain_kernel(const int* __restrict__ nbr,
   int len = 0;
   if (v < n) {
     row = nbr + (tile + v) * d;
-    len = min(max(row_len[tile + v], 0), d);
+    len = has_tile ? min(max(row_len[tile + v], 0), d) : 0;
     if (len > kLongLoops * group) {
       if (threadIdx.x % group == 0) long_rows[atomicAdd(&n_long, 1)] = (int)v;
       row = nullptr;  // deferred to the block
@@ -116,12 +119,12 @@ __global__ void sep_gain_kernel(const int* __restrict__ nbr,
 
 // nbr (W, n, d) int32 tiles, lane_work (L,) int32, row_len (W, n) int32,
 // vwgt (L, n) float32, part (L, n) int8  ->  pulled0, pulled1 (L, n)
-// float32.  group: threads a row, a power of two <= 32.
+// float32.  W: tiles; group: threads a row, a power of two <= 32.
 extern "C" int sep_gain_launch(const void* nbr, const void* lane_work,
                                const void* row_len, const void* vwgt,
                                const void* part, void* pulled0,
-                               void* pulled1, int L, int n, int d, int group,
-                               void* stream) {
+                               void* pulled1, int L, int W, int n, int d,
+                               int group, void* stream) {
   if (L == 0 || n == 0) return (int)cudaGetLastError();
   if (group <= 0 || group > 32 || (group & (group - 1)) != 0)
     return (int)cudaErrorInvalidValue;
@@ -130,6 +133,6 @@ extern "C" int sep_gain_launch(const void* nbr, const void* lane_work,
   sep_gain_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const int*)nbr, (const int*)lane_work, (const int*)row_len,
       (const float*)vwgt, (const int8_t*)part, (float*)pulled0,
-      (float*)pulled1, n, d, group);
+      (float*)pulled1, W, n, d, group);
   return (int)cudaGetLastError();
 }

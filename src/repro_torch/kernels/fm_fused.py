@@ -9,13 +9,21 @@ best feasible state), then revert to the best state.
 
 Lanes share ELL tiles: ``nbr`` holds one (n, d) tile per work and
 ``lane_work[l]`` names the tile of lane ``l``, so a work's k lanes do not
-carry k copies of it.  The per-pass tiebreak noise is drawn outside the
-kernel by ``fm_noise`` with the reference's exact key sequence, and every
-float sum is over integer-valued float32 weights, so the kernel, the
-plain version and the reference agree bit for bit.
+carry k copies of it.  The kernels also take the tiles' ``RowExtents``
+(``band_batch.row_extents``, made on the host once a bucket), so that they
+read each row only to its last id.  The per-pass tiebreak noise is drawn
+outside the move loop by ``fm_noise`` with the reference's exact key
+sequence (one launch of ``csrc/fm_noise.cu`` on the card, counted in
+``noise_launches``), and every float sum is over integer-valued float32
+weights, so the kernel, the plain version and the reference agree bit for
+bit.
 
 On a CUDA tensor the wrapper launches ``csrc/fm_fused.cu``; on a CPU
-tensor it runs ``fm_fused_plain``.  ``launches`` counts kernel launches.
+tensor it runs ``fm_fused_plain``, which takes the extents and has no use
+for them.  ``launches`` counts kernel launches.  The card's wrappers do
+not read their inputs back to the host: ``lane_work`` and the extents are
+checked where the bucket is made (``core.fm.pack_fm_bucket``), and the
+kernels read a ``lane_work`` outside the tiles as an empty tile.
 
 ``fm_move_loop`` is one pass of the same move loop with the pulled weights
 given: the hoisted path (``core.fm.fm_refine_multi``) alternates it with
@@ -27,14 +35,14 @@ launches.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch import prng
 from repro_torch.kernels import build
-from repro_torch.kernels.band_batch import check_tensors, check_tiles, \
-    sep_gain_multi_plain
+from repro_torch.kernels.band_batch import RowExtents, check_spans, \
+    check_tensors, require_card, sep_gain_multi_plain
 
 BIG_NOISE = 1e9
 SMALL_NOISE = 1e-3
@@ -43,10 +51,12 @@ SMALL_NOISE = 1e-3
 launches = 0
 #: number of times ``fm_move_loop`` launched its CUDA kernel
 move_loop_launches = 0
+#: number of times ``fm_noise`` launched its CUDA kernel
+noise_launches = 0
 
 
-def fm_noise(keys: torch.Tensor, n: int, passes: int) -> torch.Tensor:
-    """Per-pass tiebreak noise of every lane: (L, 2) keys → (L, passes, 2, n).
+def fm_noise_plain(keys: torch.Tensor, n: int, passes: int) -> torch.Tensor:
+    """The noise in torch, on any device (the kernel's plain version).
 
     The reference's sequence: per pass, split each lane's key in two,
     carry the first half and draw ``uniform((2, n))`` from the second.
@@ -59,10 +69,47 @@ def fm_noise(keys: torch.Tensor, n: int, passes: int) -> torch.Tensor:
     return torch.stack(noises, dim=1)
 
 
+def _check_keys(keys: torch.Tensor) -> None:
+    if keys.dtype != torch.int64 or keys.dim() != 2 or keys.shape[1] != 2:
+        raise ValueError(f"keys: want int64 (L, 2), got {keys.dtype} "
+                         f"{tuple(keys.shape)}")
+
+
+def fm_noise_kernel(keys: torch.Tensor, n: int, passes: int) -> torch.Tensor:
+    """Launch ``csrc/fm_noise.cu`` on the current stream (CUDA keys only)."""
+    global noise_launches
+    _check_keys(keys)
+    require_card(keys)
+    keys = keys.contiguous()
+    L = keys.shape[0]
+    noise = torch.empty((L, passes, 2, n), dtype=torch.float32,
+                        device=keys.device)
+    lib = build.load("fm_noise")
+    stream = torch.cuda.current_stream(keys.device).cuda_stream
+    err = lib.fm_noise_launch(keys.data_ptr(), noise.data_ptr(), L, int(n),
+                              int(passes), stream)
+    build.check(err, "fm_noise")
+    noise_launches += 1
+    return noise
+
+
+def fm_noise(keys: torch.Tensor, n: int, passes: int) -> torch.Tensor:
+    """Per-pass tiebreak noise of every lane: (L, 2) keys → (L, passes, 2, n).
+
+    CUDA keys go to the kernel (one launch), CPU keys to the plain version.
+    """
+    _check_keys(keys)
+    if keys.device.type == "cuda":
+        return fm_noise_kernel(keys, n, passes)
+    return fm_noise_plain(keys, n, passes)
+
+
 def state_bytes(n: int, d: int) -> int:
-    """Bytes of one lane's kernel state (pulled0/1, pull list, parts),
-    kept in a device-memory scratch slice of 256-byte-aligned stride."""
-    return 11 * n + 4 * d
+    """Bytes of one lane's kernel state (pulled0/1, the candidate list, the
+    move journal of at most 3n entries, the undo's marks, the pulled-slot
+    list, part and flags), kept in a device-memory scratch slice of
+    256-byte-aligned stride."""
+    return 30 * n + 4 * d
 
 
 def _sums(vw: torch.Tensor, part: torch.Tensor):
@@ -72,7 +119,8 @@ def _sums(vw: torch.Tensor, part: torch.Tensor):
 
 def fm_move_loop_plain(nbr, lane_work, vwgt_f, part, locked, pulled0,
                        pulled1, noise, pert, eps_abs, max_moves, bws, bimb,
-                       pos_only: bool = False
+                       pos_only: bool = False,
+                       extents: Optional[RowExtents] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One pass of moves in torch, batched over lanes, on any device.
 
@@ -81,10 +129,10 @@ def fm_move_loop_plain(nbr, lane_work, vwgt_f, part, locked, pulled0,
     float32 ``vwgt_f`` (L, n), the pass-start state ``part`` (L, n) and
     its pulled weights ``pulled0/1`` (L, n) float32, bool ``locked``,
     this pass's ``noise`` (L, 2, n), int32 ``pert`` / ``max_moves`` (L,),
-    float32 ``eps_abs`` and the best so far ``bws`` / ``bimb`` (L,).  A
-    lane takes part in a step while it has budget left and its last move
-    succeeded.  Returns (best part int8, bws, bimb); the inputs are not
-    modified.
+    float32 ``eps_abs`` and the best so far ``bws`` / ``bimb`` (L,);
+    ``extents``, the kernel's, has no use here.  A lane takes part in a
+    step while it has budget left and its last move succeeded.  Returns
+    (best part int8, bws, bimb); the inputs are not modified.
     """
     L = lane_work.shape[0]
     n, d = nbr.shape[1:]
@@ -171,14 +219,16 @@ def fm_move_loop_plain(nbr, lane_work, vwgt_f, part, locked, pulled0,
 
 
 def fm_fused_plain(nbr, lane_work, vwgt_f, parts, locked, noise, eps_abs,
-                   max_moves, n_pert, passes: int, pos_only: bool = False
+                   max_moves, n_pert, passes: int, pos_only: bool = False,
+                   extents: Optional[RowExtents] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The pass loop in torch, batched over lanes, on any device.
 
     Takes the kernel's inputs: tiles ``nbr`` (W, n, d) int32 with
     ``lane_work`` (L,), float32 ``vwgt_f`` (L, n), int8 ``parts``, bool
     ``locked``, ``noise`` (L, passes, 2, n) from ``fm_noise``, float32
-    ``eps_abs`` (L,), int32 ``max_moves`` / ``n_pert`` (L,).  Per pass:
+    ``eps_abs`` (L,), int32 ``max_moves`` / ``n_pert`` (L,), and the
+    kernel's ``extents``, which it has no use for.  Per pass:
     the pulled weights (``sep_gain_multi_plain``), one
     ``fm_move_loop_plain``, and a revert to the best state.  Returns
     (parts int8, sep_w, imb).
@@ -196,7 +246,7 @@ def fm_fused_plain(nbr, lane_work, vwgt_f, parts, locked, noise, eps_abs,
 
 
 def _check(nbr, lane_work, vwgt_f, parts, locked, noise, eps_abs,
-           max_moves, n_pert, passes) -> None:
+           max_moves, n_pert, passes, extents) -> None:
     W, n, d = nbr.shape
     L = lane_work.shape[0]
     check_tensors(nbr, {
@@ -208,11 +258,13 @@ def _check(nbr, lane_work, vwgt_f, parts, locked, noise, eps_abs,
         "noise": (noise, torch.float32, (L, passes, 2, n)),
         "eps_abs": (eps_abs, torch.float32, (L,)),
         "max_moves": (max_moves, torch.int32, (L,)),
-        "n_pert": (n_pert, torch.int32, (L,))})
+        "n_pert": (n_pert, torch.int32, (L,)),
+        **_extents_want(nbr, extents)})
 
 
 def _check_move_loop(nbr, lane_work, vwgt_f, part, locked, pulled0, pulled1,
-                     noise, pert, eps_abs, max_moves, bws, bimb) -> None:
+                     noise, pert, eps_abs, max_moves, bws, bimb,
+                     extents) -> None:
     W, n, d = nbr.shape
     L = lane_work.shape[0]
     check_tensors(nbr, {
@@ -228,7 +280,29 @@ def _check_move_loop(nbr, lane_work, vwgt_f, part, locked, pulled0, pulled1,
         "eps_abs": (eps_abs, torch.float32, (L,)),
         "max_moves": (max_moves, torch.int32, (L,)),
         "bws": (bws, torch.float32, (L,)),
-        "bimb": (bimb, torch.float32, (L,))})
+        "bimb": (bimb, torch.float32, (L,)),
+        **_extents_want(nbr, extents)})
+
+
+def _extents_want(nbr, extents) -> dict:
+    """The extents' check: a ``RowExtents`` of the tiles, or none."""
+    if extents is None:
+        return {}
+    if not isinstance(extents, RowExtents) or \
+            extents.group not in (1, 2, 4, 8, 16, 32):
+        raise ValueError("extents: want a RowExtents (row_extents) with a "
+                         "group of 1 to 32 threads, a power of two")
+    return {"row_len": (extents.row_len, torch.int32, tuple(nbr.shape[:2]))}
+
+
+def _card_row_len(nbr, extents):
+    """The kernels' common checks, CUDA tiles and the extents they read;
+    returns the row extents."""
+    require_card(nbr)
+    if extents is None:
+        raise ValueError("the FM kernels read the tiles' row extents: pass "
+                         "extents=row_extents(tiles)")
+    return extents.row_len.contiguous()
 
 
 def _lane_outputs(L: int, n: int, d: int, dev):
@@ -242,26 +316,29 @@ def _lane_outputs(L: int, n: int, d: int, dev):
 
 
 def fm_fused_kernel(nbr, lane_work, vwgt_f, parts, locked, noise, eps_abs,
-                    max_moves, n_pert, passes: int, pos_only: bool = False):
+                    max_moves, n_pert, passes: int, pos_only: bool = False,
+                    extents: Optional[RowExtents] = None):
     """Launch the CUDA kernel on the current stream (CUDA tensors only).
 
-    Same inputs as ``fm_fused_plain``; returns its three outputs and a
-    fourth, each lane's tally of the work its moves needed, int64 (L, 3):
-    move-loop steps, arithmetic operations, noise entries read.
+    Same inputs as ``fm_fused_plain``, with the tiles' ``extents``
+    required.  Returns its three outputs and a fourth, each lane's tally
+    of the work its moves needed, int64 (L, 3): move-loop steps,
+    arithmetic operations, noise entries read.
     """
     global launches
     args = (nbr, lane_work, vwgt_f, parts, locked, noise, eps_abs,
             max_moves, n_pert)
-    _check(*args, passes)
-    check_tiles(nbr, lane_work)
+    _check(*args, passes, extents)
+    row_len = _card_row_len(nbr, extents)
     args = tuple(a.contiguous() for a in args)
     L = lane_work.shape[0]
-    n, d = nbr.shape[1:]
+    W, n, d = nbr.shape
     outs = _lane_outputs(L, n, d, nbr.device)
     lib = build.load("fm_fused")
     stream = torch.cuda.current_stream(nbr.device).cuda_stream
-    err = lib.fm_fused_launch(*(a.data_ptr() for a in args + outs), L, n, d,
-                              int(passes), int(bool(pos_only)), stream)
+    ptrs = [a.data_ptr() for a in (args[0], row_len) + args[1:] + outs]
+    err = lib.fm_fused_launch(*ptrs, L, W, n, d, extents.group, int(passes),
+                              int(bool(pos_only)), stream)
     build.check(err, "fm_fused")
     launches += 1
     return outs[:4]
@@ -269,25 +346,28 @@ def fm_fused_kernel(nbr, lane_work, vwgt_f, parts, locked, noise, eps_abs,
 
 def fm_move_loop_kernel(nbr, lane_work, vwgt_f, part, locked, pulled0,
                         pulled1, noise, pert, eps_abs, max_moves, bws, bimb,
-                        pos_only: bool = False):
+                        pos_only: bool = False,
+                        extents: Optional[RowExtents] = None):
     """Launch the one-pass CUDA kernel on the current stream (CUDA only).
 
-    Same inputs as ``fm_move_loop_plain``; returns its three outputs and
-    the lanes' tally of the work their moves needed, as ``fm_fused_kernel``.
+    Same inputs as ``fm_move_loop_plain``, with the tiles' ``extents``
+    required; returns its three outputs and the lanes' tally of the work
+    their moves needed, as ``fm_fused_kernel``.
     """
     global move_loop_launches
     args = (nbr, lane_work, vwgt_f, part, locked, pulled0, pulled1, noise,
             pert, eps_abs, max_moves, bws, bimb)
-    _check_move_loop(*args)
-    check_tiles(nbr, lane_work)
+    _check_move_loop(*args, extents)
+    row_len = _card_row_len(nbr, extents)
     args = tuple(a.contiguous() for a in args)
     L = lane_work.shape[0]
-    n, d = nbr.shape[1:]
+    W, n, d = nbr.shape
     outs = _lane_outputs(L, n, d, nbr.device)
     lib = build.load("fm_fused")
     stream = torch.cuda.current_stream(nbr.device).cuda_stream
-    err = lib.fm_move_loop_launch(*(a.data_ptr() for a in args + outs),
-                                  L, n, d, int(bool(pos_only)), stream)
+    ptrs = [a.data_ptr() for a in (args[0], row_len) + args[1:] + outs]
+    err = lib.fm_move_loop_launch(*ptrs, L, W, n, d, int(bool(pos_only)),
+                                  stream)
     build.check(err, "fm_move_loop")
     move_loop_launches += 1
     return outs[:4]
@@ -295,30 +375,38 @@ def fm_move_loop_kernel(nbr, lane_work, vwgt_f, part, locked, pulled0,
 
 def fm_move_loop(nbr, lane_work, vwgt_f, part, locked, pulled0, pulled1,
                  noise, pert, eps_abs, max_moves, bws, bimb,
-                 pos_only: bool = False):
+                 pos_only: bool = False,
+                 extents: Optional[RowExtents] = None):
     """One pass of FM moves per lane, the hoisted path's move loop.
 
-    Inputs as ``fm_move_loop_plain``.  CUDA tensors go to the kernel, CPU
-    tensors to the plain version.  Returns (best part int8, bws, bimb).
+    Inputs as ``fm_move_loop_plain``, with the tiles' ``extents``, which
+    the kernel needs.  CUDA tensors go to the kernel, CPU tensors to the
+    plain version, which checks ``lane_work`` and the extents.  Returns
+    (best part int8, bws, bimb).
     """
     args = (nbr, lane_work, vwgt_f, part, locked, pulled0, pulled1, noise,
             pert, eps_abs, max_moves, bws, bimb)
-    _check_move_loop(*args)
+    _check_move_loop(*args, extents)
     if nbr.device.type == "cuda":
-        return fm_move_loop_kernel(*args, pos_only=pos_only)[:3]
+        return fm_move_loop_kernel(*args, pos_only=pos_only,
+                                   extents=extents)[:3]
+    check_spans(nbr, lane_work, None if extents is None else extents.row_len)
     return fm_move_loop_plain(*args, pos_only=pos_only)
 
 
 def fm_fused_multi(nbr, lane_work, vwgt, parts, locked, keys, eps_frac,
                    max_moves, n_pert, passes: int = 3,
-                   pos_only: bool = False):
+                   pos_only: bool = False,
+                   extents: Optional[RowExtents] = None):
     """Fused FM over a flat lane axis, the reference's contract.
 
     nbr (W, n, d) int32 tiles with lane_work (L,) int32; vwgt (L, n);
     parts (L, n) int8; locked (L, n) bool; keys (L, 2) PRNG keys;
-    eps_frac (L,) float32; max_moves, n_pert (L,) int32.  The balance
-    slack ``eps_frac · Σvwgt`` is formed here in float32 and the noise is
-    drawn here, as the reference does.  Returns (parts int8, sep_w, imb).
+    eps_frac (L,) float32; max_moves, n_pert (L,) int32; ``extents``, the
+    tiles' ``RowExtents`` on their device (``band_batch.row_extents``),
+    which the card needs.  The balance slack ``eps_frac · Σvwgt`` is
+    formed here in float32 and the noise is drawn here, as the reference
+    does.  Returns (parts int8, sep_w, imb).
     """
     vwgt_f = vwgt.to(torch.float32)
     eps_abs = eps_frac.to(torch.float32) * vwgt_f.sum(dim=1)
@@ -326,6 +414,8 @@ def fm_fused_multi(nbr, lane_work, vwgt, parts, locked, keys, eps_frac,
     args = (nbr, lane_work, vwgt_f, parts, locked, noise, eps_abs,
             max_moves, n_pert)
     if nbr.device.type == "cuda":
-        return fm_fused_kernel(*args, passes=passes, pos_only=pos_only)[:3]
-    _check(*args, passes)
+        return fm_fused_kernel(*args, passes=passes, pos_only=pos_only,
+                               extents=extents)[:3]
+    _check(*args, passes, extents)
+    check_spans(nbr, lane_work, None if extents is None else extents.row_len)
     return fm_fused_plain(*args, passes=passes, pos_only=pos_only)

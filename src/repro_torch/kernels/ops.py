@@ -23,7 +23,7 @@ import os
 
 import torch
 
-from repro_torch.kernels.band_batch import row_extents
+from repro_torch.kernels.band_batch import RowExtents
 from repro_torch.kernels.diffusion import diffusion_step
 from repro_torch.kernels.ell_spmv import ell_spmv
 from repro_torch.kernels.fm_fused import fm_fused_multi, fm_noise
@@ -54,19 +54,23 @@ def fm_mode_default() -> str:
 def fm_refine_batch(nbr, lane_work, vwgt, parts, locked, keys, eps_frac,
                     max_moves, n_pert, passes: int = 3,
                     pos_only: bool = False, mode: str | None = None,
-                    gain_mode: str | None = None, device=None):
+                    gain_mode: str | None = None,
+                    extents: RowExtents | None = None, device=None):
     """Batched FM refinement over a bucket's lanes (mode-switched).
 
     Shapes as ``fm_fused_multi``: nbr (W, n, d) int32 tiles with
     lane_work (L,) int32; vwgt (L, n); parts (L, n) int8; locked (L, n)
     bool; keys (L, 2); eps_frac (L,) float32; max_moves, n_pert (L,)
-    int32.  ``mode`` defaults to ``fm_mode_default()``; ``gain_mode``
-    applies only to the hoisted path, which also builds the tiles' row
-    extents for its gain kernel, once a call on the host
-    (``band_batch.row_extents``).  Returns (parts int8, sep_w, imb).
-    Raises ``ValueError`` for a mode other than fused, hoisted or oracle,
-    and for the oracle on the card: it has no kernel, and the card's work
-    never goes to plain torch.
+    int32; ``extents``, the tiles' host ``RowExtents``, which the kernels
+    of both paths read and which the fused and hoisted modes require
+    (``core.fm.pack_fm_bucket`` makes and checks them with the tiles;
+    direct callers pass ``band_batch.row_extents(nbr)``).  ``mode``
+    defaults to ``fm_mode_default()``; ``gain_mode`` applies only to the
+    hoisted path.  Returns (parts int8, sep_w, imb).  Raises
+    ``ValueError`` for a mode other than fused, hoisted or oracle, for
+    the fused and hoisted modes without extents, and for the oracle on the
+    card: it has no kernel, and the card's work never goes to plain
+    torch.
     """
     mode = fm_mode_default() if mode is None else mode
     if mode not in FM_MODES:
@@ -75,16 +79,21 @@ def fm_refine_batch(nbr, lane_work, vwgt, parts, locked, keys, eps_frac,
     if mode == "oracle" and resolve_device(device).type == "cuda":
         raise ValueError("REPRO_FM_MODE=oracle is plain torch and runs only "
                          "on the CPU")
+    if extents is None and mode != "oracle":
+        raise ValueError(f"REPRO_FM_MODE={mode} reads the tiles' row "
+                         "extents: pass extents=row_extents(nbr)")
     args = _on(device, nbr, lane_work, vwgt, parts, locked, keys, eps_frac,
                max_moves, n_pert)
+    if mode != "oracle":
+        (row_len,) = _on(device, extents.row_len)
+        extents = RowExtents(row_len, extents.group)
     if mode == "fused":
-        return fm_fused_multi(*args, passes=passes, pos_only=pos_only)
+        return fm_fused_multi(*args, passes=passes, pos_only=pos_only,
+                              extents=extents)
     if mode == "hoisted":
         from repro_torch.core.fm import fm_refine_multi
-        extents = row_extents(torch.as_tensor(nbr).cpu())
         return fm_refine_multi(*args, passes=passes, pos_only=pos_only,
-                               gain_mode=gain_mode,
-                               extents=extents.to(args[0].device))
+                               gain_mode=gain_mode, extents=extents)
     from repro_torch.kernels.ref import fm_fused_ref
     nbr, lane_work, vwgt, parts, locked, keys, eps_frac, max_moves, \
         n_pert = args

@@ -56,21 +56,110 @@ def test_bfs_kernel_equals_plain(card, L, n, d):
     assert torch.equal(got, band_batch.bfs_multi_plain(nbr_c, src, 3))
 
 
-@pytest.mark.parametrize("passes,pos_only", [(3, False), (1, True)])
-@pytest.mark.parametrize("L,n,d", [(3, 64, 8), (8, 256, 16), (2, 32768, 8)])
-def test_fm_kernel_equals_plain(card, L, n, d, passes, pos_only):
-    nbr, vwgt, part, locked, mm = _lanes(7 * L + n, L, n, d)
+def _fm_args(card, nbr, vwgt, part, locked, mm, passes, seed):
+    """The fused kernel's inputs on the card, one tile a lane, and the
+    tiles' extents."""
+    L, n, _ = nbr.shape
     t = [torch.from_numpy(a).to(card) for a in (nbr, vwgt, part, locked, mm)]
-    keys = prng.split(prng.PRNGKey(L, card), L)
+    keys = prng.split(prng.PRNGKey(seed, card), L)
     vw = t[1]
     args = (t[0], torch.arange(L, dtype=torch.int32, device=card), vw, t[2],
             t[3], fm_fused.fm_noise(keys, n, passes),
             torch.full((L,), 0.1, device=card) * vw.sum(1), t[4],
             torch.full((L,), 8, dtype=torch.int32, device=card))
-    got = fm_fused.fm_fused_kernel(*args, passes=passes, pos_only=pos_only)
+    return args, band_batch.row_extents(nbr).to(card)
+
+
+def _move_loop_args(card, nbr, vwgt, part, locked, mm, seed):
+    """One pass's move-loop inputs on the card, the gains from the plain
+    version, and the tiles' extents."""
+    L, n, _ = nbr.shape
+    t = [torch.from_numpy(a).to(card) for a in (nbr, vwgt, part, locked, mm)]
+    lw = torch.arange(L, dtype=torch.int32, device=card)
+    vw = t[1]
+    p0, p1 = band_batch.sep_gain_multi_plain(t[0], lw, vw, t[2])
+    keys = prng.split(prng.PRNGKey(seed, card), L)
+    noise = fm_fused.fm_noise(keys, n, 1)[:, 0].contiguous()
+    ws = (vw * (t[2] == 2)).sum(1)
+    bimb = ((vw * (t[2] == 0)).sum(1) - (vw * (t[2] == 1)).sum(1)).abs()
+    args = (t[0], lw, vw, t[2], t[3], p0, p1, noise,
+            torch.full((L,), 8, dtype=torch.int32, device=card),
+            torch.full((L,), 0.1, device=card) * vw.sum(1), t[4], ws, bimb)
+    return args, band_batch.row_extents(nbr).to(card)
+
+
+@pytest.mark.parametrize("passes,pos_only", [(3, False), (1, True)])
+@pytest.mark.parametrize("L,n,d", [(3, 64, 8), (8, 256, 16), (2, 32768, 8)])
+def test_fm_kernel_equals_plain(card, L, n, d, passes, pos_only):
+    args, extents = _fm_args(card, *_lanes(7 * L + n, L, n, d), passes, L)
     want = fm_fused.fm_fused_plain(*args, passes=passes, pos_only=pos_only)
+    got = fm_fused.fm_fused_kernel(*args, passes=passes, pos_only=pos_only,
+                                   extents=extents)
     for a, b in zip(got[:3], want):
         assert torch.equal(a, b)
+    with pytest.raises(ValueError):     # the kernel reads the row extents
+        fm_fused.fm_fused_kernel(*args, passes=passes)
+
+
+def _anchor_bucket(seed, L, n, d):
+    """Band-like lanes: rows of a few ids, two anchor rows of about 0.9 d
+    ids, locked, as the band of a separator has."""
+    rng = np.random.default_rng(seed)
+    nbr = -np.ones((L, n, d), np.int32)
+    nbr[:, :, :6] = rng.integers(0, n, (L, n, 6))
+    nbr[:, :2, :int(0.9 * d)] = rng.integers(0, n, (L, 2, int(0.9 * d)))
+    nbr[rng.random((L, n, d)) < 0.1] = -1
+    vwgt = rng.integers(1, 4, (L, n)).astype(np.float32)
+    vwgt[:, :2] = n // 4
+    part = rng.integers(0, 3, (L, n)).astype(np.int8)
+    part[:, 0], part[:, 1] = 0, 1
+    locked = rng.random((L, n)) < 0.05
+    locked[:, :2] = True
+    mm = np.full(L, 2 * int((part == 2).sum(1).max()) + 16, np.int32)
+    return nbr, vwgt, part, locked, np.minimum(mm, min(n, 4096))
+
+
+def _capped_bucket(seed, L, n, d):
+    """Lanes whose separator is most of the graph: a budget of 4096 moves,
+    the executor's cap, is used up, so the move journal runs long."""
+    rng = np.random.default_rng(seed)
+    nbr = rng.integers(0, n, (L, n, d)).astype(np.int32)
+    nbr[rng.random((L, n, d)) < 0.3] = -1
+    vwgt = rng.integers(1, 3, (L, n)).astype(np.float32)
+    part = np.where(rng.random((L, n)) < 0.7, 2,
+                    rng.integers(0, 2, (L, n))).astype(np.int8)
+    return nbr, vwgt, part, np.zeros((L, n), bool), \
+        np.full(L, 4096, np.int32)
+
+
+@pytest.mark.parametrize("bucket", ["anchor", "capped"])
+def test_fm_kernels_equal_plain_at_anchor_and_capped_buckets(card, bucket):
+    if bucket == "anchor":
+        lanes, passes = _anchor_bucket(11, 3, 2048, 1024), 3
+    else:
+        lanes, passes = _capped_bucket(12, 2, 8192, 8), 1
+    args, extents = _fm_args(card, *lanes, passes, 5)
+    got = fm_fused.fm_fused_kernel(*args, passes=passes, extents=extents)
+    want = fm_fused.fm_fused_plain(*args, passes=passes)
+    for a, b in zip(got[:3], want):
+        assert torch.equal(a, b)
+    if bucket == "capped":                      # every lane used its budget
+        assert got[3][:, 0].tolist() == [4096] * 2
+    args, extents = _move_loop_args(card, *lanes, 6)
+    got = fm_fused.fm_move_loop_kernel(*args, extents=extents)
+    for a, b in zip(got[:3], fm_fused.fm_move_loop_plain(*args)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("L,passes,n", [(8, 3, 8192), (3, 1, 100),
+                                        (16, 2, 4097), (1, 3, 1)])
+def test_noise_kernel_equals_plain(card, L, passes, n):
+    for seed in (0, 7, 2 ** 31 - 1):
+        keys = prng.split(prng.PRNGKey(seed, card), L)
+        before = fm_fused.noise_launches
+        got = fm_fused.fm_noise(keys, n, passes)
+        assert fm_fused.noise_launches == before + 1
+        assert torch.equal(got, fm_fused.fm_noise_plain(keys, n, passes))
 
 
 def test_nested_dissection_card_equals_cpu(card):
@@ -106,20 +195,9 @@ def test_gain_kernel_equals_plain(card, L, W, n, d):
 @pytest.mark.parametrize("pos_only", [False, True])
 @pytest.mark.parametrize("L,n,d", [(3, 64, 8), (8, 256, 16), (2, 1000, 40)])
 def test_move_loop_kernel_equals_plain(card, L, n, d, pos_only):
-    nbr, vwgt, part, locked, mm = _lanes(5 * L + n, L, n, d)
-    t = [torch.from_numpy(a).to(card) for a in (nbr, vwgt, part, locked, mm)]
-    lw = torch.arange(L, dtype=torch.int32, device=card)
-    vw = t[1]
-    p0, p1 = band_batch.sep_gain_multi_plain(t[0], lw, vw, t[2])
-    keys = prng.split(prng.PRNGKey(L, card), L)
-    noise = fm_fused.fm_noise(keys, n, 1)[:, 0].contiguous()
-    ws = (vw * (t[2] == 2)).sum(1)
-    bimb = ((vw * (t[2] == 0)).sum(1) - (vw * (t[2] == 1)).sum(1)).abs()
-    args = (t[0], lw, vw, t[2], t[3], p0, p1, noise,
-            torch.full((L,), 8, dtype=torch.int32, device=card),
-            torch.full((L,), 0.1, device=card) * vw.sum(1), t[4], ws, bimb)
+    args, extents = _move_loop_args(card, *_lanes(5 * L + n, L, n, d), L)
     before = fm_fused.move_loop_launches
-    got = fm_fused.fm_move_loop(*args, pos_only=pos_only)
+    got = fm_fused.fm_move_loop(*args, pos_only=pos_only, extents=extents)
     assert fm_fused.move_loop_launches == before + 1
     want = fm_fused.fm_move_loop_plain(*args, pos_only=pos_only)
     for a, b in zip(got, want):
@@ -140,10 +218,10 @@ def test_hoisted_pass_loop_equals_fused(card):
              eps_frac=torch.full((L,), 0.1, device=card),
              max_moves=torch.from_numpy(mm).to(card),
              n_pert=torch.full((L,), 8, dtype=torch.int32, device=card))
-    fused = fm_fused.fm_fused_multi(**t, passes=3)
-    got = fm.fm_refine_multi(
-        **t, passes=3, gain_mode="pallas",
-        extents=band_batch.row_extents(nbr[:2]).to(card))
+    extents = band_batch.row_extents(nbr[:2]).to(card)
+    fused = fm_fused.fm_fused_multi(**t, passes=3, extents=extents)
+    got = fm.fm_refine_multi(**t, passes=3, gain_mode="pallas",
+                             extents=extents)
     for a, b in zip(got, fused):
         assert torch.equal(a, b)
     # the plain gains and the oracle have no kernel: on the card they raise
@@ -156,8 +234,11 @@ def test_hoisted_pass_loop_equals_fused(card):
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
                                        ("bfloat16", 5e-2)])
-@pytest.mark.parametrize("n,d", [(1000, 1), (4097, 8), (300, 33)])
+@pytest.mark.parametrize("n,d", [(1000, 1), (4097, 8), (300, 33), (4099, 4),
+                                 (100003, 16), (333, 12), (5001, 5)])
 def test_spmv_kernel_equals_plain(card, n, d, dtype, tol):
+    """Both paths of the kernel, at ragged n: the vector path (d of 4, 8,
+    12, 16 in float32; 8, 16 in bfloat16) and the group path (the rest)."""
     rng = np.random.default_rng(n + d)
     nbr = rng.integers(0, n, (n, d)).astype(np.int32)
     nbr[rng.random((n, d)) < 0.3] = -1
@@ -280,3 +361,39 @@ def test_gain_kernel_with_row_len_equals_plain(card, L, W, n, d):
             *t, extents=band_batch.RowExtents(extents.row_len.to(card), group))
         for a, b in zip(got, band_batch.sep_gain_multi_plain(*t)):
             assert torch.equal(a, b)
+
+
+def test_spmv_group_path_for_unaligned_arrays(card):
+    """Arrays that do not start on 16 bytes take the group path."""
+    rng = np.random.default_rng(2)
+    n, d = 2049, 8
+    nbr = torch.from_numpy(rng.integers(-1, n, (n + 1, d)).astype(
+        np.int32)).to(card)[1:]                     # offset by one row ...
+    val = torch.from_numpy(rng.standard_normal(n * d + 1).astype(
+        np.float32)).to(card)[1:].view(n, d)        # ... and by 4 bytes
+    x = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(card)
+    torch.testing.assert_close(ell_spmv.ell_spmv_kernel(nbr, val, x),
+                               ell_spmv.ell_spmv_plain(nbr, val, x),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_kernels_read_a_bad_lane_work_as_an_empty_tile(card):
+    """The wrappers do not read ``lane_work`` back to check it: a lane that
+    names no tile reads none (no pulled weight, no neighbour)."""
+    L, n, d = 2, 256, 8
+    nbr, vwgt, part, locked, mm = _lanes(9, L, n, d)
+    args, extents = _fm_args(card, nbr, vwgt, part, locked, mm, 1, 3)
+    bad = torch.tensor([0, 5], dtype=torch.int32, device=card)
+    p0, p1 = band_batch.sep_gain_multi(args[0], bad, args[2], args[3],
+                                       extents=extents)
+    assert not p0[1].any() and not p1[1].any()
+    empty = torch.full_like(args[0][:1], -1)
+    want = fm_fused.fm_fused_plain(torch.cat([args[0][:1], empty]),
+                                   torch.tensor([0, 1], dtype=torch.int32,
+                                                device=card),
+                                   *args[2:], passes=1)
+    got = fm_fused.fm_fused_kernel(args[0], bad, *args[2:], passes=1,
+                                   extents=extents)
+    torch.cuda.synchronize()
+    for a, b in zip(got[:3], want):
+        assert torch.equal(a, b)

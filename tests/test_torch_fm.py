@@ -25,7 +25,7 @@ from repro.kernels.fm_fused import fm_noise as jax_fm_noise  # noqa: E402
 from repro.kernels.ref import fm_fused_ref  # noqa: E402
 from repro_torch.convert import key_from_array  # noqa: E402
 from repro_torch.core import fm  # noqa: E402
-from repro_torch.kernels import fm_fused  # noqa: E402
+from repro_torch.kernels import band_batch, fm_fused  # noqa: E402
 
 N, D = 32, 4
 
@@ -51,7 +51,7 @@ def _rand_lanes(seed, L, locks, budgets):
     return nbr, vwgt, part, locked, keys, eps, mm, n_pert
 
 
-def _port(args, passes, pos_only):
+def _port(args, passes, pos_only, extents=False):
     nbr, vwgt, part, locked, keys, eps, mm, n_pert = args
     L = nbr.shape[0]
     out = fm_fused.fm_fused_multi(
@@ -59,7 +59,8 @@ def _port(args, passes, pos_only):
         torch.from_numpy(vwgt), torch.from_numpy(part),
         torch.from_numpy(locked), key_from_array(keys),
         torch.from_numpy(eps), torch.from_numpy(mm),
-        torch.from_numpy(n_pert), passes=passes, pos_only=pos_only)
+        torch.from_numpy(n_pert), passes=passes, pos_only=pos_only,
+        extents=band_batch.row_extents(nbr) if extents else None)
     return [x.numpy() for x in out]
 
 
@@ -92,6 +93,101 @@ def test_fm_plain_matches_pallas_and_oracle(L, locks, budgets, passes,
     _assert_same(got, fused, tag + " vs pallas")
     _assert_same(got, oracle, tag + " vs oracle")
     assert fm_fused.launches == 0            # CPU tensors never launch
+
+
+@pytest.mark.parametrize("passes,pos_only", [(1, True), (3, False)])
+@pytest.mark.parametrize("L", [1, 8])
+def test_fm_with_extents_matches_pallas_and_oracle(L, passes, pos_only):
+    """Given the tiles' row extents, as the executor now always passes
+    them, the fused path still equals the reference's kernel and oracle."""
+    args = _rand_lanes(1000 + 10 * L + passes, L, True, "mixed")
+    jargs = [jnp.asarray(a) for a in args]
+    fused = jax_fm_fused(*jargs, passes=passes, pos_only=pos_only,
+                         interpret=True)
+    nbr, vwgt, part, locked, keys, eps, mm, n_pert = jargs
+    eps_abs = eps * vwgt.astype(jnp.float32).sum(axis=1)
+    oracle = fm_fused_ref(nbr, vwgt, part, locked,
+                          jax_fm_noise(keys, N, passes), eps_abs, mm, n_pert,
+                          passes=passes, pos_only=pos_only)
+    got = _port(args, passes, pos_only, extents=True)
+    _assert_same(got, fused, "with extents vs pallas")
+    _assert_same(got, oracle, "with extents vs oracle")
+
+
+@pytest.mark.parametrize("L,passes,n", [(8, 3, 64), (3, 1, 5), (1, 2, 33)])
+def test_fm_noise_on_cpu_keys_equals_reference(L, passes, n):
+    """CPU keys take the plain version, which is the reference's draw."""
+    jkeys = jax.random.split(jax.random.PRNGKey(L * n + passes), L)
+    want = np.asarray(jax_fm_noise(jkeys, n, passes))
+    keys = key_from_array(np.asarray(jkeys))
+    before = fm_fused.noise_launches
+    got = fm_fused.fm_noise(keys, n, passes)
+    assert fm_fused.noise_launches == before       # CPU keys never launch
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(fm_fused.fm_noise_plain(keys, n, passes).numpy(),
+                          want)
+    with pytest.raises(ValueError):                # the kernel takes the card
+        fm_fused.fm_noise_kernel(keys, n, passes)
+
+
+def test_pack_fm_bucket_extents_equal_row_extents():
+    works = [_work(fm, seed=1, k_inst=4, d=5), _work(fm, seed=2, k_inst=2)]
+    host, _ = fm.pack_fm_bucket(works)
+    want = band_batch.row_extents(host["nbr"])
+    assert host["extents"].group == want.group
+    assert torch.equal(host["extents"].row_len, want.row_len)
+    assert host["extents"].row_len.shape == host["nbr"].shape[:2]
+
+
+@pytest.mark.parametrize("mode", ["fused", "hoisted"])
+def test_fm_refine_batch_needs_extents(mode):
+    """Both kernel paths read the row extents, so ``fm_refine_batch``
+    takes them from its caller and does not build them itself."""
+    from repro_torch.kernels import ops
+    works = [_work(fm, seed=1, k_inst=2)]
+    host, _ = fm.pack_fm_bucket(works)
+    extents = host.pop("extents")
+    with pytest.raises(ValueError, match="extents"):
+        ops.fm_refine_batch(**host, passes=1, mode=mode, device="cpu")
+    got = ops.fm_refine_batch(**host, passes=1, mode=mode, device="cpu",
+                              extents=extents)
+    assert got[0].shape == host["parts"].shape
+
+
+@pytest.mark.parametrize("entry", ["fused", "move_loop", "gain", "refine"])
+@pytest.mark.parametrize("bad", ["lane_work", "row_len"])
+def test_out_of_range_spans_raise_on_the_host(entry, bad):
+    """The span checks left the card's wrappers (no host sync a call) but
+    still hold on host tensors: the plain paths and ``fm_refine_batch``."""
+    args = _rand_lanes(3, 2, False, "uniform")
+    nbr, vwgt, part, locked, keys, eps, mm, n_pert = (
+        torch.from_numpy(np.array(a)) for a in args)
+    lane_work = torch.arange(2, dtype=torch.int32)
+    extents = band_batch.row_extents(args[0])
+    if bad == "lane_work":
+        lane_work = torch.tensor([0, 2], dtype=torch.int32)   # 2 tiles
+    else:
+        row_len = extents.row_len.clone()
+        row_len[1, 3] = D + 1                                 # past d
+        extents = band_batch.RowExtents(row_len, extents.group)
+    vw = vwgt.float()
+    with pytest.raises(ValueError, match=bad):
+        if entry == "fused":
+            fm_fused.fm_fused_multi(nbr, lane_work, vwgt, part, locked,
+                                    key_from_array(args[4]), eps, mm, n_pert,
+                                    extents=extents)
+        elif entry == "move_loop":
+            fm_fused.fm_move_loop(
+                nbr, lane_work, vw, part, locked, vw, vw,
+                torch.zeros((2, 2, N)), n_pert, eps, mm, vw[:, 0], vw[:, 0],
+                extents=extents)
+        elif entry == "gain":
+            band_batch.sep_gain_multi(nbr, lane_work, vw, part,
+                                      extents=extents)
+        else:
+            fm.fm_refine_multi(nbr, lane_work, vwgt, part, locked,
+                               key_from_array(args[4]), eps, mm, n_pert,
+                               extents=extents)
 
 
 def test_shared_tiles_equal_per_lane_tiles():

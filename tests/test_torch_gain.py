@@ -172,9 +172,9 @@ def test_gain_wrapper_checks_row_len():
 
 
 def test_hoisted_path_with_row_len_equals_without(monkeypatch):
-    """``fm_refine_batch``'s hoisted path builds the tiles' extents and
-    passes them to every gain launch; it gives the bits of the hoisted pass
-    loop without them and of the fused path."""
+    """``fm_refine_batch``'s hoisted path passes the bucket's extents
+    (made by ``pack_fm_bucket``) to every gain launch; it gives the bits
+    of the hoisted pass loop without them and of the fused path."""
     from repro_torch.core import fm
     from repro_torch.kernels import ops
     rng = np.random.default_rng(4)
@@ -203,7 +203,9 @@ def test_hoisted_path_with_row_len_equals_without(monkeypatch):
     want = band_batch.row_extents(host["nbr"])
     for e in seen:
         assert e.group == want.group and torch.equal(e.row_len, want.row_len)
-    without = fm.fm_refine_multi(**host, passes=3, gain_mode="pallas")
+    without = fm.fm_refine_multi(
+        **{k: v for k, v in host.items() if k != "extents"}, passes=3,
+        gain_mode="pallas")
     fused = ops.fm_refine_batch(**host, passes=3, mode="fused", device="cpu")
     for a, b, c in zip(with_len, without, fused):
         assert torch.equal(a, b) and torch.equal(a, c)

@@ -121,6 +121,31 @@ def test_hoisted_and_oracle_equal_reference(L, locks, budgets, passes,
     assert (band_batch.gain_launches, fm_fused.move_loop_launches) == before
 
 
+@pytest.mark.parametrize("passes,pos_only", [(3, False), (1, True)])
+@pytest.mark.parametrize("L", [3, 8])
+def test_hoisted_with_extents_equals_reference(L, passes, pos_only):
+    """Given the tiles' row extents, which its gain and move-loop kernels
+    read on the card, the hoisted path still gives the reference's bits."""
+    args = _rand_lanes(500 + 10 * L + passes, L, True, "mixed")
+    nbr, vwgt, part, locked, keys, eps, mm, n_pert = args
+    got = fm.fm_refine_multi(
+        torch.from_numpy(nbr), torch.arange(L, dtype=torch.int32),
+        torch.from_numpy(vwgt), torch.from_numpy(part),
+        torch.from_numpy(locked), key_from_array(keys),
+        torch.from_numpy(eps), torch.from_numpy(mm),
+        torch.from_numpy(n_pert), passes=passes, pos_only=pos_only,
+        gain_mode="pallas", extents=band_batch.row_extents(nbr))
+    j = [jnp.asarray(a) for a in args]
+    want = jfm.fm_refine_multi(*j, passes=passes, pos_only=pos_only,
+                               gain_mode="jnp")
+    _assert_same([x.numpy() for x in got], want, "hoisted with extents")
+    eps_abs = j[5] * j[1].astype(jnp.float32).sum(axis=1)
+    oracle = jax_oracle(j[0], j[1], j[2], j[3], jax_noise(j[4], N, passes),
+                        eps_abs, j[6], j[7], passes=passes,
+                        pos_only=pos_only)
+    _assert_same([x.numpy() for x in got], oracle, "vs reference oracle")
+
+
 def test_move_loop_carries_bimb_and_leaves_inputs():
     """One pass of ``fm_move_loop`` keeps the carried best imbalance when
     no move beats it, returns dummy lanes unchanged and writes nothing

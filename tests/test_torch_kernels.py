@@ -49,10 +49,10 @@ def test_spmv_shapes(n, d):
     assert ell_spmv.launches == 0               # CPU tensors never launch
 
 
-@pytest.mark.parametrize("dtype,rtol", [("float32", 1e-5),
-                                        ("bfloat16", 5e-2)])
-def test_spmv_dtypes(dtype, rtol):
-    nbr, val, x = make_ell(512, 8, seed=7)
+def _spmv_vs_reference(n, d, dtype, rtol, seed):
+    """``ops.spmv`` on the CPU (the plain version) against the reference's
+    kernel in interpret mode and its jnp version, in ``dtype``."""
+    nbr, val, x = make_ell(n, d, seed=seed)
     tdt = getattr(torch, dtype)
     val_t = torch.from_numpy(val).to(tdt)
     x_t = torch.from_numpy(x).to(tdt)
@@ -66,6 +66,23 @@ def test_spmv_dtypes(dtype, rtol):
         np.testing.assert_allclose(got.float().numpy(),
                                    np.asarray(want, np.float32),
                                    rtol=rtol, atol=rtol)
+
+
+@pytest.mark.parametrize("dtype,rtol", [("float32", 1e-5),
+                                        ("bfloat16", 5e-2)])
+def test_spmv_dtypes(dtype, rtol):
+    _spmv_vs_reference(512, 8, dtype, rtol, seed=7)
+
+
+@pytest.mark.parametrize("dtype,rtol", [("float32", 1e-5),
+                                        ("bfloat16", 5e-2)])
+@pytest.mark.parametrize("d", [4, 8, 16, 5])
+def test_spmv_widths(d, dtype, rtol):
+    """The plain version against the reference at a ragged n and at the
+    widths on which the card's kernel picks its path (in float32, d of 4,
+    8 and 16 take its vector path and 5 its group path); the card tests
+    hold the kernel itself to the plain version."""
+    _spmv_vs_reference(1001, d, dtype, rtol, seed=d)
 
 
 def test_spmv_bfloat16_rounds_each_product():
