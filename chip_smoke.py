@@ -15,9 +15,9 @@ Phases, each of which must pass:
    kernel (``csrc/fm_noise.cu``) equals ``fm_noise_plain`` bit for bit for
    four keys and four shapes, (8, 3, 2, 8192) among them, with its times;
 3. each kernel equals its plain PyTorch version on the card at the paths'
-   shapes, with CUDA-event times of both (the gain and ELL kernels also
-   through their C entries alone, without the wrappers' checks and host
-   syncs): exactly for the FM, gain and
+   shapes, with CUDA-event times of both (the matching, BFS, gain and ELL
+   kernels also through their C entries alone, without the wrappers'
+   checks and allocations): exactly for the FM, gain and
    BFS kernels (the altr4-scale band of ``grid3d(30, 30, 30)``, dummy lanes
    included, and the whole graph at ``n_pad`` 32768), where the hoisted
    pass loop must also equal the fused kernel, whose tally at the band
@@ -27,9 +27,14 @@ Phases, each of which must pass:
    (bfloat16) and 1e-4 (diffusion) for the ELL kernels, up to
    ``grid3d(100, 100, 100)``, and
    exactly for the bfloat16 SpMV's rounding of each product.  The
-   matching kernel equals its plain version exactly at the root bucket
-   of ``grid3d(30, 30, 30)`` (1, 32768, 8) and at the widest coarse-level
-   bucket of its root separator's hierarchy; the gain kernel reads the
+   matching and BFS kernels equal their plain versions exactly in both
+   designs (one launch on a cluster per lane, and a launch a phase over
+   the card) at the root bucket of ``grid3d(30, 30, 30)`` (1, 32768, 8),
+   the widest coarse-level bucket of its root separator's hierarchy, two
+   small buckets of ``grid3d(12, 12, 12)``'s, (1, 2048, 8) and (1, 512,
+   16), and the threshold shapes (1, 2^15 / 2^17 / 2^20, 8), each timed
+   alone in the grid design and on clusters of 1, 2, 4, 8 and 16 CTAs,
+   the evidence for ``band_batch.lane_plan``; the gain kernel reads the
    tiles' row extents (``band_batch.row_extents``), as the hoisted path
    gives them.  The ELL
    entries ``ops.spmv`` / ``ops.diffuse`` are then driven once at that
@@ -42,7 +47,9 @@ Phases, each of which must pass:
    nproc=8)`` on the card, with the kernel launch counts set to 0 just
    before and read just after; the matching, BFS, noise and FM kernels
    must have launched; the fm stage's split (``fm_split``: packing, row
-   extents, noise, upload, the kernels' device time, download);
+   extents, noise, upload, the kernels' device time, download) and the
+   match and bfs stages' (``stage_split``: packing, upload, the kernel's
+   device time, download, launches a call);
 6. the hoisted path at the same width (``REPRO_FM_MODE=hoisted``): the
    same permutation as phase 5, the matching, gain, noise and move-loop
    kernels launched and the fused kernel not, and the same split;
@@ -265,29 +272,79 @@ def _match_inputs(L, n, d, seed):
     return torch.from_numpy(nbr), torch.from_numpy(wgt.astype(np.int32))
 
 
+def _design_key(plan) -> str:
+    """The name of the design ``lane_plan`` gives, as ``_designs`` names it."""
+    return "grid" if plan[0] == "grid" else f"cluster_{plan[1]}"
+
+
+def _designs(grid, cluster, args, out, n, d):
+    """A kernel's designs as name → (C entry, arguments, output): the grid
+    entry, and the cluster entry at the cluster sizes 1, 2, 4, 8, 16 and
+    ``cluster_size(n, d)``, whatever the lane's size; the output is
+    overwritten by each launch of an entry."""
+    from repro_torch.kernels.band_batch import cluster_size
+    named = {"grid": (grid, args, out)}
+    for C in sorted({1, 2, 4, 8, 16, cluster_size(n, d)}):
+        named[f"cluster_{C}"] = (cluster, args + (C,), out)
+    return named
+
+
+def _bfs_designs(nbr, src, width):
+    import torch
+    L, n, d = nbr.shape
+    dist = torch.empty((L, n), dtype=torch.int32, device="cuda")
+    return _designs("bfs_multi_launch", "bfs_cluster_launch",
+                    (nbr, src, dist, torch.empty_like(dist), L, n, d, width),
+                    dist, n, d)
+
+
 def _bfs_case(nbr, src, width=3) -> dict:
+    """``bfs_multi`` on one bucket: each design's C entry alone and the
+    wrapper, all held exactly to the plain version on the card."""
     import torch
     from repro_torch.kernels import band_batch as bb
     nbr_c = torch.from_numpy(nbr).cuda()
     src_c = torch.from_numpy(src).cuda()
-    ms = cuda_ms(lambda: bb.bfs_multi_kernel(nbr_c, src_c, width), reps=20)
-    plain_ms = cuda_ms(lambda: bb.bfs_multi_plain(nbr_c, src_c, width),
-                       reps=5)
     want = bb.bfs_multi_plain(nbr_c, src_c, width)
     got = bb.bfs_multi_kernel(nbr_c, src_c, width)
     err = int((got.long() - want.long()).abs().max())
     if err != 0 or not torch.equal(got, want):
         raise AssertionError(f"bfs_multi differs from its plain version "
                              f"at {tuple(nbr.shape)}: max |diff| {err}")
+    designs = {}
+    for name, (entry, args, out) in _bfs_designs(nbr_c, src_c,
+                                                 width).items():
+        designs[name] = entry_ms("bfs_multi", entry, *args, reps=20)
+        if not torch.equal(out, want):
+            raise AssertionError(f"bfs_multi's {name} design differs from "
+                                 f"its plain version at {tuple(nbr.shape)}")
+    call_ms = cuda_ms(lambda: bb.bfs_multi_kernel(nbr_c, src_c, width),
+                      reps=20)
+    plain_ms = cuda_ms(lambda: bb.bfs_multi_plain(nbr_c, src_c, width),
+                       reps=5)
     valid = int((nbr >= 0).sum())
     L, n, _ = nbr.shape
     nbytes = 4 * valid + 4 * L * n + 4 * L * n     # ids, src, dist
     ops = 2 * width * valid                        # compare + add per slot
-    bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S)
-    return dict(shape=list(nbr.shape), ms=ms, plain_ms=plain_ms,
-                max_abs_err=err, bound_ms=bound_ms,
-                bound_by="bytes" if nbytes / HBM_BYTES_PER_S >=
-                ops / SCALAR_OPS_PER_S else "operations")
+    planned = bb.lane_plan(n, nbr.shape[2])
+    return dict(shape=list(nbr.shape), plan=planned,
+                ms=designs[_design_key(planned)], designs_ms=designs,
+                call_ms=call_ms, plain_ms=plain_ms,
+                max_abs_err=err, **bound(nbytes, ops))
+
+
+def _plane_bfs(g, side):
+    """The BFS bucket (L=1) of ``g = grid3d(side³)`` from the plane x =
+    side/2, padded as ``execute_bfs_works`` pads it."""
+    import numpy as np
+    from repro_torch.util import pow2
+    nbr_g, _ = g.to_ell()
+    n_pad = pow2(g.n)
+    nb = -np.ones((1, n_pad, pow2(nbr_g.shape[1], 8)), np.int32)
+    nb[0, :g.n, :nbr_g.shape[1]] = nbr_g
+    src = np.zeros((1, n_pad), np.int32)
+    src[0, :g.n] = np.arange(g.n) // (side * side) == side // 2
+    return nb, src
 
 
 def _fm_case(works) -> dict:
@@ -445,15 +502,28 @@ def _gain_case(nbr, lane_work, vwgt, part, extents) -> dict:
                 library_err=lib_err, **bound(nbytes, 2 * slots))
 
 
+def _match_designs(nbr, wgt, keys, rounds):
+    import torch
+    L, n, d = nbr.shape
+    match = torch.empty((L, n), dtype=torch.int32, device="cuda")
+    scratch = torch.empty(2 * L * n + (5 * L * n + 7) // 8,
+                          dtype=torch.int64, device="cuda")
+    return _designs("matching_grid_launch", "matching_cluster_launch",
+                    (nbr, wgt, keys, match, scratch, L, n, d, rounds), match,
+                    n, d)
+
+
 def _match_case(work) -> dict:
     """The matching kernel on one ``MatchWork``'s bucket, padded as
-    ``execute_match_works`` pads it, against its plain version on the card;
-    the bound counts the draws this run's rounds need (the plain version's
-    tally) and the tile's real slots."""
+    ``execute_match_works`` pads it: each design's C entry alone and the
+    wrapper, all held exactly to the plain version on the card; the bound
+    counts the draws this run's rounds need (the plain version's tally)
+    and the tile's real slots."""
     import numpy as np
     import torch
     from repro_torch import prng
     from repro_torch.kernels import matching
+    from repro_torch.kernels.band_batch import lane_plan
     n_pad, d_pad, rounds = work.bucket_key()
     n, d = work.nbr.shape
     nbr = -np.ones((1, n_pad, d_pad), np.int32)
@@ -473,10 +543,14 @@ def _match_case(work) -> dict:
     m = got[0, :n].long().cpu()
     if not torch.equal(m[m], torch.arange(n)):
         raise AssertionError("the matching kernel's matching is no involution")
-    scratch = (torch.empty_like(got), torch.empty_like(got),
-               torch.empty((2, 1, n_pad), dtype=torch.int64, device="cuda"))
-    ms = entry_ms("matching", "matching_launch", nbr, wgt, keys, *scratch,
-                  1, n_pad, d_pad, rounds)
+    designs = {}
+    for name, (entry, args, out) in _match_designs(nbr, wgt, keys,
+                                                   rounds).items():
+        designs[name] = entry_ms("matching", entry, *args)
+        if not torch.equal(out, want):
+            raise AssertionError(f"the matching's {name} design differs from "
+                                 f"its plain version at (1, {n_pad}, "
+                                 f"{d_pad})")
     call_ms = cuda_ms(lambda: matching.heavy_edge_matching_multi_kernel(
         nbr, wgt, keys, rounds), reps=20)
     plain_ms = cuda_ms(lambda: matching.heavy_edge_matching_multi_plain(
@@ -487,19 +561,35 @@ def _match_case(work) -> dict:
     # output once
     draws = sum(sum(t) for t in tally) + 4 * rounds
     nbytes = 8 * int((nbr >= 0).sum()) + 16 + 4 * n_pad
+    planned = lane_plan(n_pad, d_pad)
     return dict(shape=[1, n_pad, d_pad], n=n, rounds=rounds, draws=draws,
-                matched=int((m != torch.arange(n)).sum()), ms=ms,
+                matched=int((m != torch.arange(n)).sum()), plan=planned,
+                ms=designs[_design_key(planned)], designs_ms=designs,
                 call_ms=call_ms, plain_ms=plain_ms, max_abs_err=err,
                 **bound(nbytes, OPS_PER_DRAW * draws))
+
+
+def coarse_levels(side: int):
+    """The levels of ``grid3d(side³)``'s root hierarchy (seed 0, nproc 8,
+    the default ``NDConfig``), coarsened on the card."""
+    from repro_torch.core.coarsen import coarsen_multilevel
+    from repro_torch.core.nd import NDConfig
+    from repro_torch.graphs.generators import grid3d
+    cfg = NDConfig()
+    return coarsen_multilevel(grid3d(side, side, side), seed=0, nproc=8,
+                              coarse_target=cfg.coarse_target,
+                              fold_threshold=cfg.fold_threshold,
+                              max_instances=cfg.k_fm_cap,
+                              device="cuda").levels
 
 
 def phase_kernels() -> dict:
     import numpy as np
     import torch
-    from repro_torch.core.coarsen import coarsen_multilevel, match_work_for
+    from repro_torch.core.coarsen import match_work_for
     from repro_torch.core.fm import FMWork, pack_fm_bucket
+    from repro_torch.graphs.generators import grid3d
     from repro_torch.kernels.band_batch import row_extents
-    from repro_torch.core.nd import NDConfig
     from repro_torch.util import pow2
     g, part, band, bpart, locked = plane_problem(30)
     nbr_g, _ = g.to_ell()
@@ -509,12 +599,9 @@ def phase_kernels() -> dict:
     out = {}
 
     # bfs: the root level's fine graph (L=1, 32768, 8) ...
-    nb1 = -np.ones((1, pow2(g.n), 8), np.int32)
-    nb1[0, :g.n, :nbr_g.shape[1]] = nbr_g
-    src1 = np.zeros((1, pow2(g.n)), np.int32)
-    src1[0, :g.n] = part == 2
+    nb1, src1 = _plane_bfs(g, 30)
     out["bfs_root"] = _bfs_case(nb1, src1)
-    # ... and eight lanes of the altr4-scale band tile (8, 8192, 1024)
+    # ... eight lanes of the altr4-scale band tile (8, 8192, 1024) ...
     rng = np.random.default_rng(0)
     nb8 = -np.ones((8, n_b, d_b), np.int32)
     nb8[:, :band.n, :nbr_b.shape[1]] = nbr_b
@@ -522,8 +609,25 @@ def phase_kernels() -> dict:
     src8[:, :band.n] = bpart == 2
     src8[1:, :band.n] |= rng.random((7, band.n)) < 0.01
     out["bfs_band"] = _bfs_case(nb8, src8)
-    log(f"phase 3 bfs_multi == plain: root {out['bfs_root']}")
-    log(f"phase 3 bfs_multi == plain: band {out['bfs_band']}")
+    # ... two small buckets of the kind most calls have: grid3d(12³)
+    # (1, 2048, 8) and its second coarse level (1, 512, 16), with 5% of
+    # its vertices as sources ...
+    small = coarse_levels(12)
+    nb_s, src_s = _plane_bfs(grid3d(12, 12, 12), 12)
+    out["bfs_small_2048"] = _bfs_case(nb_s, src_s)
+    c2 = small[2].graph
+    nb_c, _ = c2.to_ell()
+    nb_s = -np.ones((1, pow2(c2.n), pow2(nb_c.shape[1], 8)), np.int32)
+    nb_s[0, :c2.n, :nb_c.shape[1]] = nb_c
+    src_s = np.zeros((1, nb_s.shape[1]), np.int32)
+    src_s[0, :c2.n] = rng.random(c2.n) < 0.05
+    out["bfs_small_512"] = _bfs_case(nb_s, src_s)
+    # ... and the designs at the threshold shapes (1, 2^15 / 2^17 / 2^20, 8)
+    for side in (30, 50, 100):
+        case = _bfs_case(*_plane_bfs(grid3d(side, side, side), side))
+        out[f"bfs_threshold_{case['shape'][1]}"] = case
+    for key, case in out.items():
+        log(f"phase 3 bfs_multi == plain: {key} {case}")
 
     # fm: two band works (4 + 2 lanes, mixed budgets) and 2 dummy lanes
     works = [FMWork(nbr=nbr_b, vwgt=band.vwgt, part=bpart, locked=locked,
@@ -574,24 +678,29 @@ def phase_kernels() -> dict:
         f"{out['gain_whole']}")
 
     # matching: the root bucket (1, 32768, 8) and the widest coarse-level
-    # bucket of the root separator's hierarchy (seed 0, nproc 8)
-    cfg = NDConfig()
-    state = coarsen_multilevel(g, seed=0, nproc=8,
-                               coarse_target=cfg.coarse_target,
-                               fold_threshold=cfg.fold_threshold,
-                               max_instances=cfg.k_fm_cap, device="cuda")
-    works = [match_work_for(lv.graph, i)
-             for i, lv in enumerate(state.levels)]
+    # bucket of the root separator's hierarchy (seed 0, nproc 8) ...
+    levels = coarse_levels(30)
+    works = [match_work_for(lv.graph, i) for i, lv in enumerate(levels)]
     out["match_root"] = _match_case(works[0])
     if out["match_root"]["shape"] != [1, 32768, 8]:
         raise AssertionError(f"root bucket is {out['match_root']['shape']}")
     level = max(range(1, len(works)),
                 key=lambda i: works[i].bucket_key()[1::-1])
     out["match_coarse"] = _match_case(works[level])
-    log(f"phase 3 heavy_edge_matching_multi == plain: root "
-        f"{out['match_root']}")
-    log(f"phase 3 heavy_edge_matching_multi == plain: coarse level "
-        f"{level} of {len(works)} {out['match_coarse']}")
+    # ... two small buckets of grid3d(12³)'s hierarchy, (1, 2048, 8) and
+    # (1, 512, 16) ...
+    for i in (0, 2):
+        case = _match_case(match_work_for(small[i].graph, i))
+        out[f"match_small_{case['shape'][1]}"] = case
+    # ... and the designs at the threshold shapes (1, 2^15 / 2^17 / 2^20, 8)
+    for side in (30, 50, 100):
+        case = _match_case(match_work_for(grid3d(side, side, side), 0))
+        out[f"match_threshold_{case['shape'][1]}"] = case
+    for key, case in out.items():
+        if key.startswith("match_"):
+            log(f"phase 3 heavy_edge_matching_multi == plain: {key} {case}")
+    log(f"phase 3 the coarse matching bucket is level {level} of "
+        f"{len(works)}")
     return out
 
 
@@ -802,8 +911,9 @@ def _ordering(phase: str, counters: dict) -> dict:
 
 def phase_main() -> dict:
     from repro_torch.kernels import band_batch, fm_fused, matching
-    split = {}
-    with env(REPRO_FM_MODE=None, REPRO_FM_GAIN=None), fm_split(split):
+    split, stages = {}, {}
+    with env(REPRO_FM_MODE=None, REPRO_FM_GAIN=None), fm_split(split), \
+            stage_split(stages):
         res = _ordering("phase 5 main path", {
             "heavy_edge_matching_multi": (matching, "launches"),
             "bfs_multi": (band_batch, "launches"),
@@ -811,16 +921,19 @@ def phase_main() -> dict:
             "fm_fused_multi": (fm_fused, "launches")})
     if min(res["launches"].values()) <= 0:
         raise AssertionError(f"main path skipped a kernel: {res['launches']}")
-    res["fm_split_s"] = split
+    res["fm_split_s"], res["stage_split_s"] = split, stages
+    per_call(res)
     log(f"phase 5 fm stage split (s): {json.dumps(split)}")
+    log(f"phase 5 match and bfs stage split (s): {json.dumps(stages)}")
     return res
 
 
 def phase_hoisted(fused: dict) -> dict:
     import numpy as np
     from repro_torch.kernels import band_batch, fm_fused, matching
-    split = {}
-    with env(REPRO_FM_MODE="hoisted", REPRO_FM_GAIN=None), fm_split(split):
+    split, stages = {}, {}
+    with env(REPRO_FM_MODE="hoisted", REPRO_FM_GAIN=None), \
+            fm_split(split), stage_split(stages):
         res = _ordering("phase 6 hoisted path", {
             "heavy_edge_matching_multi": (matching, "launches"),
             "bfs_multi": (band_batch, "launches"),
@@ -837,8 +950,10 @@ def phase_hoisted(fused: dict) -> dict:
         raise AssertionError("hoisted path: the permutation differs from "
                              "the fused one")
     log("phase 6 hoisted path: same permutation (and OPC) as phase 5")
-    res["fm_split_s"] = split
+    res["fm_split_s"], res["stage_split_s"] = split, stages
+    per_call(res)
     log(f"phase 6 fm stage split (s): {json.dumps(split)}")
+    log(f"phase 6 match and bfs stage split (s): {json.dumps(stages)}")
     return res
 
 
@@ -862,39 +977,47 @@ def host_seconds(module, name: str, spent: list):
 
 
 @contextlib.contextmanager
+def on_card(module, name: str, where: list):
+    """Record CUDA events around every call of ``module.name`` into
+    ``where`` while the block runs (read after it, so no sync is added);
+    restore the function after."""
+    import torch
+    fn = getattr(module, name)
+
+    def timed(*args, **kw):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        out = fn(*args, **kw)
+        t1.record()
+        where.append((t0, t1))
+        return out
+    setattr(module, name, timed)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def device_s(pairs) -> float:
+    return sum(a.elapsed_time(b) for a, b in pairs) / 1e3
+
+
+@contextlib.contextmanager
 def fm_split(split: dict):
     """Split the fm stage while the block runs: host seconds packing the
     buckets (``pack_fm_bucket``; of which ``extents``, building the tiles'
     row extents), drawing the noise (``fm_noise``), uploading
     (``ops._on``) and downloading (``core.fm.download``, which ends each
     work with its sync), and the device seconds of the FM kernels and of
-    the noise kernel (CUDA events around each launch, read after the
-    block, so no sync is added).  Fills ``split`` when the block ends."""
+    the noise kernel (CUDA events around each launch).  Fills ``split``
+    when the block ends."""
     import torch
     from repro_torch.core import fm as core_fm
     from repro_torch.kernels import band_batch, fm_fused, ops
     host = {k: [0.0] for k in ("pack", "extents", "noise", "upload",
                                "download")}
     events = {"kernels": [], "noise_kernel": []}
-
-    @contextlib.contextmanager
-    def on_card(module, name, where):
-        fn = getattr(module, name)
-
-        def timed(*args, **kw):
-            t0 = torch.cuda.Event(enable_timing=True)
-            t1 = torch.cuda.Event(enable_timing=True)
-            t0.record()
-            out = fn(*args, **kw)
-            t1.record()
-            where.append((t0, t1))
-            return out
-        setattr(module, name, timed)
-        try:
-            yield
-        finally:
-            setattr(module, name, fn)
-
     with contextlib.ExitStack() as stack:
         for module, name, key in (
                 (core_fm, "pack_fm_bucket", "pack"),
@@ -913,9 +1036,52 @@ def fm_split(split: dict):
     torch.cuda.synchronize()
     split.update({k: v[0] for k, v in host.items()})
     for key, pairs in events.items():
-        split[f"{key}_device"] = sum(a.elapsed_time(b)
-                                     for a, b in pairs) / 1e3
+        split[f"{key}_device"] = device_s(pairs)
         split[f"{key}_launches"] = len(pairs)
+
+
+@contextlib.contextmanager
+def stage_split(split: dict):
+    """Split the match and bfs stages while the block runs: for each, the
+    host seconds of packing its buckets (``pack_match_bucket`` /
+    ``pack_bfs_bucket``), of the upload and of the download (which waits
+    for the kernel), the device seconds of the kernel (CUDA events around
+    each call of ``heavy_edge_matching_multi_kernel`` / ``bfs_multi_kernel``)
+    and the calls.  Fills ``split`` when the block ends."""
+    import torch
+    from repro_torch.core import band, coarsen
+    from repro_torch.kernels import band_batch, matching
+    stages = {"match": (coarsen, "pack_match_bucket", matching,
+                        "heavy_edge_matching_multi_kernel"),
+              "bfs": (band, "pack_bfs_bucket", band_batch,
+                      "bfs_multi_kernel")}
+    host = {stage: {k: [0.0] for k in ("pack", "upload", "download")}
+            for stage in stages}
+    events = {stage: [] for stage in stages}
+    with contextlib.ExitStack() as stack:
+        for stage, (core, pack, kern, entry) in stages.items():
+            for name, key in ((pack, "pack"), ("upload", "upload"),
+                              ("download", "download")):
+                stack.enter_context(host_seconds(core, name,
+                                                 host[stage][key]))
+            stack.enter_context(on_card(kern, entry, events[stage]))
+        yield
+    torch.cuda.synchronize()
+    for stage in stages:
+        split[stage] = dict({k: v[0] for k, v in host[stage].items()},
+                            device=device_s(events[stage]),
+                            calls=len(events[stage]))
+
+
+def per_call(res: dict) -> None:
+    """Add the stage's seconds and kernel launches a call to the match and
+    bfs splits of an ordering ``res``."""
+    for stage, kernel in (("match", "heavy_edge_matching_multi"),
+                          ("bfs", "bfs_multi")):
+        split = res["stage_split_s"][stage]
+        split["stage"] = res["stage_s"][stage]
+        split["launches_per_call"] = \
+            res["launches"][kernel] / max(split["calls"], 1)
 
 
 def gpu_line() -> str:
@@ -954,6 +1120,10 @@ def main() -> int:
     src = "src/repro_torch/kernels/csrc"
     big = ell["cases"][-1]                      # grid3d(100, 100, 100)
 
+    def worst(prefix):
+        return max(c["max_abs_err"] for k, c in kern.items()
+                   if k.startswith(prefix))
+
     def row(name, source, replaces, launches, case, err, library_ms):
         return {"name": name, "route": "cuda", "source": f"{src}/{source}",
                 "replaces": replaces, "launches": launches,
@@ -964,13 +1134,10 @@ def main() -> int:
         row("heavy_edge_matching_multi", "matching.cu",
             "src/repro/core/matching.py:124",
             main_run["launches"]["heavy_edge_matching_multi"],
-            kern["match_root"],
-            max(kern["match_root"]["max_abs_err"],
-                kern["match_coarse"]["max_abs_err"]), None),
+            kern["match_root"], worst("match_"), None),
         row("bfs_multi", "bfs_multi.cu", "src/repro/kernels/band_batch.py:49",
             main_run["launches"]["bfs_multi"], kern["bfs_root"],
-            max(kern["bfs_root"]["max_abs_err"],
-                kern["bfs_band"]["max_abs_err"]), None),
+            worst("bfs_"), None),
         row("fm_fused_multi", "fm_fused.cu",
             "src/repro/kernels/fm_fused.py:209",
             main_run["launches"]["fm_fused_multi"], kern["fm_band"],

@@ -21,7 +21,8 @@ import torch
 
 from repro_torch.core.graph import Graph
 from repro_torch.kernels.band_batch import bfs_multi
-from repro_torch.util import pow2, resolve_device
+from repro_torch.util import download, host_tensor, pow2, resolve_device, \
+    upload
 
 
 @dataclasses.dataclass
@@ -36,6 +37,31 @@ class BFSWork:
         return (pow2(n), pow2(max(d, 1), 8), self.width)
 
 
+def bfs_parts(buf, L: int, n_pad: int, d_pad: int):
+    """The parts of one bucket's staging buffer (``pack_bfs_bucket``), a
+    host numpy array or its tensor on the card: nbr (L, n_pad, d_pad) and
+    the source masks (L, n_pad), int32."""
+    N = L * n_pad * d_pad
+    return buf[:N].reshape(L, n_pad, d_pad), buf[N:].reshape(L, n_pad)
+
+
+def pack_bfs_bucket(works: Sequence[BFSWork], n_pad: int, d_pad: int,
+                    device: torch.device) -> torch.Tensor:
+    """One bucket's lanes padded to (L, n_pad, d_pad), with their source
+    masks, in one host buffer (``bfs_parts``), pinned when ``device`` is
+    the card."""
+    L = len(works)
+    buf = host_tensor(L * n_pad * (d_pad + 1), device)
+    nbr_b, src_b = bfs_parts(buf.numpy(), L, n_pad, d_pad)
+    nbr_b.fill(-1)
+    src_b.fill(0)
+    for j, w in enumerate(works):
+        n, d = w.nbr.shape
+        nbr_b[j, :n, :d] = w.nbr
+        src_b[j, :n] = w.src
+    return buf
+
+
 def execute_bfs_works(works: Sequence[BFSWork],
                       device=None) -> List[np.ndarray]:
     """Run BFS works, one ``bfs_multi`` call per (n_pad, d_pad, width)."""
@@ -45,15 +71,10 @@ def execute_bfs_works(works: Sequence[BFSWork],
     for i, w in enumerate(works):
         groups[w.bucket_key()].append(i)
     for (n_pad, d_pad, width), idxs in groups.items():
-        L = len(idxs)
-        nbr_b = -np.ones((L, n_pad, d_pad), np.int32)
-        src_b = np.zeros((L, n_pad), np.int32)
-        for j, i in enumerate(idxs):
-            n, d = works[i].nbr.shape
-            nbr_b[j, :n, :d] = works[i].nbr
-            src_b[j, :n] = works[i].src
-        dist = bfs_multi(torch.from_numpy(nbr_b).to(dev),
-                         torch.from_numpy(src_b).to(dev), width).cpu().numpy()
+        buf = upload(pack_bfs_bucket([works[i] for i in idxs], n_pad,
+                                          d_pad, dev), dev)
+        dist = download(bfs_multi(*bfs_parts(buf, len(idxs), n_pad, d_pad),
+                                  width))
         for j, i in enumerate(idxs):
             results[i] = dist[j, :works[i].nbr.shape[0]]
     return results                                           # type: ignore

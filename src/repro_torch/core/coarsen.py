@@ -30,7 +30,8 @@ from repro_torch import prng
 from repro_torch.core.graph import Graph
 from repro_torch.core.matching import heavy_edge_matching, \
     heavy_edge_matching_multi
-from repro_torch.util import pow2, resolve_device
+from repro_torch.util import download, host_tensor, pow2, resolve_device, \
+    upload
 
 
 def match_graph(g: Graph, seed: int, rounds: int = 8,
@@ -81,6 +82,34 @@ def match_work_for(g: Graph, seed: int, rounds: int = 8) -> MatchWork:
     return MatchWork(nbr=nbr, wgt=wgt, seed=seed, rounds=rounds)
 
 
+def match_parts(buf, L: int, n_pad: int, d_pad: int):
+    """The parts of one bucket's staging buffer (``pack_match_bucket``), a
+    host numpy array or its tensor on the card: nbr, wgt (L, n_pad, d_pad)
+    int32 and the lanes' keys (L, 2) int64."""
+    N = L * n_pad * d_pad
+    wide = np.int64 if isinstance(buf, np.ndarray) else torch.int64
+    return (buf[:N].reshape(L, n_pad, d_pad),
+            buf[N:2 * N].reshape(L, n_pad, d_pad),
+            buf[2 * N:].view(wide).reshape(L, 2))
+
+
+def pack_match_bucket(works: Sequence[MatchWork], n_pad: int, d_pad: int,
+                      device: torch.device) -> torch.Tensor:
+    """One bucket's lanes padded to (L, n_pad, d_pad), with their keys, in
+    one host buffer (``match_parts``), pinned when ``device`` is the card."""
+    L = len(works)
+    buf = host_tensor(2 * L * n_pad * d_pad + 4 * L, device)
+    nbr_b, wgt_b, keys = match_parts(buf.numpy(), L, n_pad, d_pad)
+    nbr_b.fill(-1)
+    wgt_b.fill(0)
+    for j, w in enumerate(works):
+        n, d = w.nbr.shape
+        nbr_b[j, :n, :d] = w.nbr
+        wgt_b[j, :n, :d] = w.wgt
+        keys[j] = prng.PRNGKey(w.seed).numpy()
+    return buf
+
+
 def execute_match_works(works: Sequence[MatchWork],
                         device=None) -> List[np.ndarray]:
     """Run matching works, one batched matching per (n_pad, d_pad, rounds).
@@ -95,17 +124,10 @@ def execute_match_works(works: Sequence[MatchWork],
     for i, w in enumerate(works):
         groups[w.bucket_key()].append(i)
     for (n_pad, d_pad, rounds), idxs in groups.items():
-        L = len(idxs)
-        nbr_b = -np.ones((L, n_pad, d_pad), np.int32)
-        wgt_b = np.zeros((L, n_pad, d_pad), np.int32)
-        keys = torch.stack([prng.PRNGKey(works[i].seed) for i in idxs])
-        for j, i in enumerate(idxs):
-            n, d = works[i].nbr.shape
-            nbr_b[j, :n, :d] = works[i].nbr
-            wgt_b[j, :n, :d] = works[i].wgt
-        m = heavy_edge_matching_multi(
-            torch.from_numpy(nbr_b).to(dev), torch.from_numpy(wgt_b).to(dev),
-            keys.to(dev), rounds=rounds).cpu().numpy()
+        buf = upload(pack_match_bucket([works[i] for i in idxs], n_pad,
+                                            d_pad, dev), dev)
+        m = download(heavy_edge_matching_multi(
+            *match_parts(buf, len(idxs), n_pad, d_pad), rounds=rounds))
         for j, i in enumerate(idxs):
             n = works[i].nbr.shape[0]
             mi = m[j, :n].astype(np.int64)

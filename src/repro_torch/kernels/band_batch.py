@@ -5,9 +5,11 @@
 Jacobi min-plus relaxations over an ELL tile from a source mask: a vertex
 within ``width`` hops gets its exact distance, every other vertex keeps
 ``UNREACH``.  On a CUDA tensor the wrapper launches
-``csrc/bfs_multi.cu``; on a CPU tensor it runs ``bfs_multi_plain``, the
-same relaxation in torch.  ``launches`` counts CUDA kernel launches:
-``width + 1`` per call (``bfs_init`` and one ``bfs_relax`` per step).
+``csrc/bfs_multi.cu`` in the design ``lane_plan`` picks from the lanes'
+size: one launch a call on a thread-block cluster per lane, or, for
+lanes above ``CLUSTER_MAX_SLOTS`` slots, ``width + 1`` launches over the
+whole card; on a CPU tensor it runs ``bfs_multi_plain``, the same
+relaxation in torch.  ``launches`` counts the CUDA kernel launches.
 
 ``sep_gain_multi`` is the port of the reference's ``sep_gain_multi``: the
 pulled weights of the hoisted FM path's per-pass gain recompute.  Like
@@ -21,7 +23,7 @@ reads a band tile's real ids and not the padding of its rows.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +36,34 @@ UNREACH = 2 ** 30
 launches = 0
 #: number of times ``sep_gain_multi`` launched its CUDA kernel
 gain_launches = 0
+
+
+#: the most CTAs of a lane's cluster (16, a non-portable size on Hopper)
+CLUSTER_MAX = 16
+#: the slots (rows × width) a CTA of a lane's cluster takes until the
+#: cluster is full: two passes of its 1,024 threads at 8 slots each
+CTA_SLOTS = 2 ** 14
+#: the largest lane (n × d slots) the cluster designs take: at 2^18 slots
+#: they and the grid designs are within 5% of each other on an H100, at
+#: 2^20 the grid designs are 1.4-2× faster (PERF.md, ``chip_smoke.py``
+#: phase 3)
+CLUSTER_MAX_SLOTS = 2 ** 18
+
+
+def cluster_size(n: int, d: int) -> int:
+    """CTAs of the cluster of a lane of (n, d): enough for ``CTA_SLOTS``
+    slots each, at most ``CLUSTER_MAX``."""
+    return min(CLUSTER_MAX, max(1, -(-(n * d) // CTA_SLOTS)))
+
+
+def lane_plan(n: int, d: int) -> Tuple[str, Optional[int]]:
+    """The design of the matching and BFS kernels for lanes of (n, d):
+    ``("cluster", cluster_size(n, d))``, one launch a call, up to
+    ``CLUSTER_MAX_SLOTS`` slots; ``("grid", None)``, a launch a phase over
+    the whole card, above it."""
+    if n * d > CLUSTER_MAX_SLOTS:
+        return "grid", None
+    return "cluster", cluster_size(n, d)
 
 
 def bfs_multi_plain(nbr: torch.Tensor, src: torch.Tensor,
@@ -62,23 +92,28 @@ def _check(nbr: torch.Tensor, src: torch.Tensor) -> None:
 
 def bfs_multi_kernel(nbr: torch.Tensor, src: torch.Tensor,
                      width: int) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream (CUDA tensors only)."""
+    """Launch the CUDA kernel on the current stream (CUDA tensors only), in
+    the design ``lane_plan`` picks."""
     global launches
     _check(nbr, src)
     if nbr.device.type != "cuda":
         raise ValueError("bfs_multi_kernel takes CUDA tensors")
     nbr, src = nbr.contiguous(), src.contiguous()
     L, n, d = nbr.shape
-    dist = torch.empty((L, n), dtype=torch.int32, device=nbr.device)
-    scratch = torch.empty_like(dist)
+    bufs = torch.empty((2, L, n), dtype=torch.int32, device=nbr.device)
     lib = build.load("bfs_multi")
     stream = torch.cuda.current_stream(nbr.device).cuda_stream
-    err = lib.bfs_multi_launch(nbr.data_ptr(), src.data_ptr(),
-                               dist.data_ptr(), scratch.data_ptr(),
-                               L, n, d, int(width), stream)
+    args = (nbr.data_ptr(), src.data_ptr(), bufs[0].data_ptr(),
+            bufs[1].data_ptr(), L, n, d, int(width))
+    design, C = lane_plan(n, d)
+    if design == "cluster":
+        err, count = lib.bfs_cluster_launch(*args, C, stream), 1
+    else:
+        err, count = lib.bfs_multi_launch(*args, stream), int(width) + 1
     build.check(err, "bfs_multi")
-    launches += int(width) + 1
-    return dist
+    if L and n:
+        launches += count
+    return bufs[0]
 
 
 def bfs_multi(nbr: torch.Tensor, src: torch.Tensor,

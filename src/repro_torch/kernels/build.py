@@ -36,14 +36,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # cudaGetLastError().
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
-    "bfs_multi": {"bfs_multi_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P]},
+    "bfs_multi": {"bfs_multi_launch": [_P] * 4 + [_I] * 4 + [_P],
+                  "bfs_cluster_launch": [_P] * 4 + [_I] * 5 + [_P]},
     "fm_fused": {"fm_fused_launch": [_P] * 15 + [_I] * 7 + [_P],
                  "fm_move_loop_launch": [_P] * 19 + [_I] * 5 + [_P]},
     "fm_noise": {"fm_noise_launch": [_P] * 2 + [_I] * 3 + [_P]},
     "sep_gain": {"sep_gain_launch": [_P] * 7 + [_I] * 5 + [_P]},
     "ell_spmv": {"ell_spmv_launch": [_P] * 4 + [_I] * 3 + [_P]},
     "diffusion": {"diffusion_launch": [_P] * 5 + [_I] * 2 + [_F] * 2 + [_P]},
-    "matching": {"matching_launch": [_P] * 6 + [_I] * 4 + [_P]},
+    "matching": {"matching_grid_launch": [_P] * 5 + [_I] * 4 + [_P],
+                 "matching_cluster_launch": [_P] * 5 + [_I] * 5 + [_P]},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

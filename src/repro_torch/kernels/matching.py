@@ -5,10 +5,13 @@
 not Pallas): ``rounds`` synchronous propose/grant rounds over every lane
 of an (L, n, d) ELL bucket, each lane with its own threefry key.  On a
 CUDA tensor the wrapper launches ``csrc/matching.cu``, which draws the
-coins and tie breaks itself from the lanes' keys; on a CPU tensor it runs
-``heavy_edge_matching_multi_plain``.  ``launches`` counts CUDA kernel
-launches: ``2 * rounds + 1`` per call (propose and commit per round, then
-the singletons).
+coins and tie breaks itself from the lanes' keys, in the design
+``band_batch.lane_plan`` picks from the lanes' size: one launch a call on
+a thread-block cluster per lane, or, for lanes above ``CLUSTER_MAX_SLOTS``
+slots, ``2 * rounds + 1`` launches over the whole card (propose and commit
+per round, then the singletons); on a CPU tensor it runs
+``heavy_edge_matching_multi_plain``.
+``launches`` counts the CUDA kernel launches.
 
 Both versions resolve the grant as the kernel does: every proposal packs
 its grant key and proposer id into one 64-bit word, and an acceptor keeps
@@ -24,7 +27,7 @@ import torch
 
 from repro_torch import prng
 from repro_torch.kernels import build
-from repro_torch.kernels.band_batch import check_tensors
+from repro_torch.kernels.band_batch import check_tensors, lane_plan
 
 #: number of CUDA kernels ``heavy_edge_matching_multi`` launched
 launches = 0
@@ -117,7 +120,8 @@ def _check(nbr: torch.Tensor, wgt: torch.Tensor, keys: torch.Tensor,
 def heavy_edge_matching_multi_kernel(nbr: torch.Tensor, wgt: torch.Tensor,
                                      keys: torch.Tensor,
                                      rounds: int = 8) -> torch.Tensor:
-    """Launch the CUDA kernels on the current stream (CUDA tensors only)."""
+    """Launch the CUDA kernel on the current stream (CUDA tensors only), in
+    the design ``lane_plan`` picks."""
     global launches
     _check(nbr, wgt, keys, rounds)
     if nbr.device.type != "cuda":
@@ -125,16 +129,22 @@ def heavy_edge_matching_multi_kernel(nbr: torch.Tensor, wgt: torch.Tensor,
     nbr, wgt, keys = nbr.contiguous(), wgt.contiguous(), keys.contiguous()
     L, n, d = nbr.shape
     match = torch.empty((L, n), dtype=torch.int32, device=nbr.device)
-    prop = torch.empty_like(match)
-    best = torch.empty((2, L, n), dtype=torch.int64, device=nbr.device)
+    # the grant words (2, L, n), then prop (L, n) int32 and roles (L, n) bytes
+    scratch = torch.empty(2 * L * n + (5 * L * n + 7) // 8,
+                          dtype=torch.int64, device=nbr.device)
     lib = build.load("matching")
     stream = torch.cuda.current_stream(nbr.device).cuda_stream
-    err = lib.matching_launch(nbr.data_ptr(), wgt.data_ptr(), keys.data_ptr(),
-                              match.data_ptr(), prop.data_ptr(),
-                              best.data_ptr(), L, n, d, int(rounds), stream)
+    args = (nbr.data_ptr(), wgt.data_ptr(), keys.data_ptr(),
+            match.data_ptr(), scratch.data_ptr(), L, n, d, int(rounds))
+    design, C = lane_plan(n, d)
+    if design == "cluster":
+        err, count = lib.matching_cluster_launch(*args, C, stream), 1
+    else:
+        err = lib.matching_grid_launch(*args, stream)
+        count = 2 * int(rounds) + 1
     build.check(err, "matching")
     if L and n:
-        launches += 2 * int(rounds) + 1
+        launches += count
     return match
 
 

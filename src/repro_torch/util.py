@@ -1,6 +1,8 @@
-"""Shared utilities: seed mixing, pow2 bucketing, device resolution."""
+"""Shared utilities: seed mixing, pow2 bucketing, device resolution,
+and the host↔device copies of the matching and BFS works."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _MASK64 = (1 << 64) - 1
@@ -47,3 +49,23 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def host_tensor(numel: int, device: torch.device) -> torch.Tensor:
+    """An empty int32 host tensor to stage a work's inputs in before
+    ``upload``: pinned when ``device`` is the card, so that the work
+    uploads in one asynchronous copy (PyTorch's pinned-memory cache reuses
+    the buffer once that copy has landed)."""
+    return torch.empty(numel, dtype=torch.int32,
+                       pin_memory=device.type == "cuda")
+
+
+def upload(buf: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A staged host tensor (``host_tensor``) on ``device``, in one copy."""
+    return buf.to(device, non_blocking=True)
+
+
+def download(t: torch.Tensor) -> np.ndarray:
+    """A work's result on the host, in one copy, which waits for its
+    kernel."""
+    return t.cpu().numpy()

@@ -32,7 +32,8 @@ def _rand_ell(seed, L, n, d, p_src=0.05):
 
 
 @pytest.mark.parametrize("L,n,d,width", [(1, 64, 8, 3), (3, 128, 8, 1),
-                                         (4, 64, 16, 3), (2, 256, 8, 5)])
+                                         (4, 64, 16, 3), (2, 256, 8, 5),
+                                         (2, 128, 8, 0), (3, 64, 16, 7)])
 def test_bfs_plain_matches_pallas_and_xla(L, n, d, width):
     nbr, src = _rand_ell(L * 31 + n, L, n, d)
     want = np.asarray(jax_bfs_multi(jnp.asarray(nbr), jnp.asarray(src),
@@ -45,6 +46,28 @@ def test_bfs_plain_matches_pallas_and_xla(L, n, d, width):
     assert got.dtype == torch.int32
     assert np.array_equal(got.numpy(), want)
     assert band_batch.launches == 0          # CPU tensors never launch
+
+
+@pytest.mark.parametrize("d", [1, 2, 4, 8, 16, 32, 64, 1024])
+def test_lane_plan_picks_by_size(d):
+    """One CTA for the small lanes, more as the slots grow, never above 16
+    nor above what the slots need; the grid design above the threshold."""
+    cap = band_batch.CLUSTER_MAX_SLOTS
+    sizes = []
+    for n in [1, 64, 100, 512, 2048, 3000] + [2 ** k for k in range(12, 21)]:
+        design, C = band_batch.lane_plan(n, d)
+        if n * d > cap:
+            assert (design, C) == ("grid", None)
+            continue
+        assert design == "cluster" and 1 <= C <= band_batch.CLUSTER_MAX
+        assert C == band_batch.cluster_size(n, d)
+        assert C == 1 or (C - 1) * band_batch.CTA_SLOTS < n * d
+        assert C == band_batch.CLUSTER_MAX or \
+            C * band_batch.CTA_SLOTS >= n * d
+        sizes.append(C)
+    assert sizes == sorted(sizes) and sizes[0] == 1
+    assert band_batch.lane_plan(cap // d, d) == ("cluster", 16)
+    assert band_batch.lane_plan(cap // d + 1, d) == ("grid", None)
 
 
 def test_bfs_wrapper_checks_inputs():

@@ -45,15 +45,27 @@ def _lanes(seed, L, n, d):
     return nbr, vwgt, part, locked, mm
 
 
-@pytest.mark.parametrize("L,n,d", [(1, 64, 8), (8, 256, 16), (3, 100, 40)])
-def test_bfs_kernel_equals_plain(card, L, n, d):
+def _planned_launches(plan, steps: int) -> int:
+    """Launches of one call in the design ``band_batch.lane_plan`` gives:
+    one on the cluster design, ``steps`` + 1 on the grid design."""
+    return 1 if plan[0] == "cluster" else steps + 1
+
+
+@pytest.mark.parametrize("width", [0, 1, 3, 7])
+@pytest.mark.parametrize("L,n,d", [(1, 64, 8), (8, 256, 16), (3, 100, 40),
+                                   (2, 2048, 8), (1, 5000, 16),
+                                   (3, 9000, 2), (1, 32768, 8),
+                                   (2, 2 ** 17, 8), (1, 40000, 8),
+                                   (2, 256, 1024)])
+def test_bfs_kernel_equals_plain(card, L, n, d, width):
     nbr, _, part, _, _ = _lanes(L + n, L, n, d)
     nbr_c = torch.from_numpy(nbr).to(card)
     src = torch.from_numpy((part == 2).astype(np.int32)).to(card)
     before = band_batch.launches
-    got = band_batch.bfs_multi(nbr_c, src, 3)
-    assert band_batch.launches == before + 4     # bfs_init + 3 relaxations
-    assert torch.equal(got, band_batch.bfs_multi_plain(nbr_c, src, 3))
+    got = band_batch.bfs_multi(nbr_c, src, width)
+    assert band_batch.launches == before + _planned_launches(
+        band_batch.lane_plan(n, d), width)
+    assert torch.equal(got, band_batch.bfs_multi_plain(nbr_c, src, width))
 
 
 def _fm_args(card, nbr, vwgt, part, locked, mm, passes, seed):
@@ -311,18 +323,21 @@ def _match_bucket(seed, L, n, d, weights="small"):
     return nbr, np.where(nbr >= 0, w, 0).astype(np.int32)
 
 
-@pytest.mark.parametrize("rounds", [1, 8])
+@pytest.mark.parametrize("rounds", [0, 1, 8])
 @pytest.mark.parametrize("L,n,d,weights", [
     (1, 64, 8, "small"), (4, 128, 8, "small"), (3, 64, 32, "small"),
     (2, 256, 16, "small"), (3, 128, 8, "tied"), (3, 128, 8, "int32"),
-    (1, 32768, 8, "small")])
+    (2, 3000, 16, "tied"), (1, 32768, 8, "small"), (3, 8192, 32, "int32"),
+    (3, 9000, 2, "small"), (1, 16384, 1, "small"), (2, 2 ** 17, 8, "small"),
+    (1, 40000, 8, "small"), (2, 256, 1024, "small")])
 def test_matching_kernel_equals_plain(card, L, n, d, weights, rounds):
     nbr, wgt = (torch.from_numpy(a).to(card)
                 for a in _match_bucket(L * n + d, L, n, d, weights))
     keys = prng.split(prng.PRNGKey(L + d, card), L)
     before = matching.launches
     got = matching.heavy_edge_matching_multi(nbr, wgt, keys, rounds=rounds)
-    assert matching.launches == before + 2 * rounds + 1
+    assert matching.launches == before + _planned_launches(
+        band_batch.lane_plan(n, d), 2 * rounds)
     want = matching.heavy_edge_matching_multi_plain(nbr, wgt, keys, rounds)
     assert torch.equal(got, want)
 

@@ -22,8 +22,10 @@ import torch  # noqa: E402
 
 from repro.core.matching import heavy_edge_matching_multi as jax_hem  # noqa: E402
 from repro_torch.convert import key_from_array  # noqa: E402
+from repro_torch.core import coarsen  # noqa: E402
 from repro_torch.core import matching as core_matching  # noqa: E402
-from repro_torch.kernels import matching  # noqa: E402
+from repro_torch.graphs.generators import grid3d  # noqa: E402
+from repro_torch.kernels import band_batch, matching  # noqa: E402
 
 
 def _bucket(seed, L, n, d, weights):
@@ -115,3 +117,25 @@ def test_matching_wrapper_checks_inputs():
         matching.heavy_edge_matching_multi(t[0], t[1], t[2].int())
     with pytest.raises(ValueError):              # the kernel takes the card
         matching.heavy_edge_matching_multi_kernel(*t)
+
+
+def test_main_path_buckets_take_the_one_launch_design():
+    """The matching buckets of the main path run in one launch: one CTA for
+    the small buckets that most calls have, 16 at grid3d(30³)'s root
+    (32768, 8), every level of grid3d(20³)'s hierarchy on the cluster
+    design; lanes of 2^17 rows and more run the grid design."""
+    plan = band_batch.lane_plan
+    assert plan(512, 16) == ("cluster", 1)
+    assert plan(2048, 8) == ("cluster", 1)
+    assert plan(1024, 32) == ("cluster", 2)
+    assert plan(8192, 32) == ("cluster", 16)
+    assert plan(32768, 8) == ("cluster", 16)
+    assert plan(2 ** 17, 8) == ("grid", None)
+    assert plan(2 ** 20, 8) == ("grid", None)
+    state = coarsen.coarsen_multilevel(grid3d(20, 20, 20), seed=0, nproc=8,
+                                       device="cpu")
+    for lv in state.levels:
+        n_pad, d_pad, _ = coarsen.match_work_for(lv.graph, 0).bucket_key()
+        design, C = plan(n_pad, d_pad)
+        assert design == "cluster" and C == band_batch.cluster_size(
+            n_pad, d_pad)
