@@ -8,23 +8,26 @@ Phases, each of which must pass:
 1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all at once) and print the build time;
 2. the threefry PRNG on the card equals the PRNG on the CPU for the
-   ordering's key and shape sequence, the matching kernel's own
-   threefry (``csrc/threefry.cuh``: the round, coin, tie and grant keys
-   derived from each lane's key) gives, in a one-round matching, the
-   matching the plain version draws with the CPU PRNG, and the FM noise
-   kernel (``csrc/fm_noise.cu``) equals ``fm_noise_plain`` bit for bit for
-   four keys and four shapes, (8, 3, 2, 8192) among them, with its times;
+   ordering's key and shape sequence (the FM noise of ``fm_noise_plain``
+   at (8, 3, 2, 8192) among them, timed on the card), and the matching
+   kernel's own threefry (``csrc/threefry.cuh``: the round, coin, tie and
+   grant keys derived from each lane's key) gives, in a one-round
+   matching, the matching the plain version draws with the CPU PRNG;
 3. each kernel equals its plain PyTorch version on the card at the paths'
-   shapes, with CUDA-event times of both (the matching, BFS, gain and ELL
-   kernels also through their C entries alone, without the wrappers'
+   shapes, with CUDA-event times of both (the matching, BFS, FM, gain and
+   ELL kernels also through their C entries alone, without the wrappers'
    checks and allocations): exactly for the FM, gain and
    BFS kernels (the altr4-scale band of ``grid3d(30, 30, 30)``, dummy lanes
-   included, and the whole graph at ``n_pad`` 32768), where the hoisted
+   included, and the whole graph at ``n_pad`` 32768), where the FM kernels
+   draw their noise from the lanes' keys and the plain versions with
+   ``fm_noise_plain``, each FM kernel is timed through its wrapper and
+   its C entry (both results checked), the hoisted
    pass loop must also equal the fused kernel, whose tally at the band
    bucket must be the one PERF.md records for the kernel before its
    redesign (23,440 steps, 241,888,561 operations), and
    ``torch.sparse.mm`` must equal the gains; within 1e-5 (float32), 5e-2
-   (bfloat16) and 1e-4 (diffusion) for the ELL kernels, up to
+   (bfloat16) and 1e-4 (diffusion, in its vector path and, on copies not
+   on 16 bytes, its group path) for the ELL kernels, up to
    ``grid3d(100, 100, 100)``, and
    exactly for the bfloat16 SpMV's rounding of each product.  The
    matching and BFS kernels equal their plain versions exactly in both
@@ -45,14 +48,17 @@ Phases, each of which must pass:
    and the oracle (``REPRO_FM_MODE=oracle``) raise on the card;
 5. the main path: ``nested_dissection(grid3d(30, 30, 30), seed=0,
    nproc=8)`` on the card, with the kernel launch counts set to 0 just
-   before and read just after; the matching, BFS, noise and FM kernels
-   must have launched; the fm stage's split (``fm_split``: packing, row
-   extents, noise, upload, the kernels' device time, download) and the
-   match and bfs stages' (``stage_split``: packing, upload, the kernel's
-   device time, download, launches a call);
+   before and read just after; the matching, BFS and FM kernels must
+   have launched, and no noise tensor may have been drawn (``fm_noise``
+   and ``fm_noise_plain`` never called: the FM kernels draw it); the fm
+   stage's split (``fm_split``: packing, row extents, upload, the
+   kernels' device time, download) and the match and bfs stages'
+   (``stage_split``: packing, upload, the kernel's device time, download,
+   launches a call);
 6. the hoisted path at the same width (``REPRO_FM_MODE=hoisted``): the
-   same permutation as phase 5, the matching, gain, noise and move-loop
-   kernels launched and the fused kernel not, and the same split;
+   same permutation as phase 5, the matching, gain and move-loop kernels
+   launched and the fused kernel not, no noise tensor drawn, and the same
+   split;
 7. a ``{"kernels": [...]}`` line with each kernel's launches, error, times,
    bound and library time, the card's name and power limit, and as the
    last line ``{"ok": true, "device": {...}}``.
@@ -220,45 +226,14 @@ def phase_prng() -> dict:
             raise AssertionError(f"threefry.cuh: the one-round matching on "
                                  f"the card differs from the CPU's, seed "
                                  f"{seed}")
-    # the FM noise kernel (csrc/fm_noise.cu) == fm_noise_plain bit for bit
-    shapes = ((8, 3, 8192), (16, 3, 32768), (3, 1, 100), (1, 2, 5))
-    for seed in (0, 1, 12345, 2 ** 31 - 1):
-        for L, passes, n in shapes:
-            keys = prng.split(prng.PRNGKey(seed), L)
-            got = ff.fm_noise_kernel(keys.cuda(), n, passes)
-            if not torch.equal(got.cpu(), ff.fm_noise_plain(keys, n, passes)):
-                raise AssertionError(f"fm_noise kernel differs from its plain "
-                                     f"version at {(L, passes, 2, n)}, seed "
-                                     f"{seed}")
     log("phase 2 prng: card == cpu for keys, fm_noise_plain (8, 3, 2, 8192), "
         "bernoulli (32768,), uniform (32768, 8) and (8192,); threefry.cuh "
-        "one-round matching (8, 4096, 8) == cpu for 4 seeds; fm_noise kernel "
-        f"== fm_noise_plain for 4 seeds at (L, passes, 2, n) in "
-        f"{[(a, b, 2, c) for a, b, c in shapes]}")
-    return _noise_case(8, 3, 8192)
-
-
-def _noise_case(L: int, passes: int, n: int) -> dict:
-    """The noise kernel at the band bucket's (L, passes, 2, n): alone,
-    through its wrapper, and its plain version on the card."""
-    import torch
-    from repro_torch import prng
-    from repro_torch.kernels import fm_fused as ff
-    keys = prng.split(prng.PRNGKey(3, "cuda"), L)
-    out = torch.empty((L, passes, 2, n), dtype=torch.float32, device="cuda")
-    ms = entry_ms("fm_noise", "fm_noise_launch", keys, out, L, n, passes,
-                  reps=50)
-    call_ms = cuda_ms(lambda: ff.fm_noise_kernel(keys, n, passes), reps=50)
-    plain_ms = cuda_ms(lambda: ff.fm_noise_plain(keys, n, passes), reps=5)
-    err = max_err(ff.fm_noise_kernel(keys, n, passes),
-                  ff.fm_noise_plain(keys, n, passes))
-    draws = L * passes * 2 * n
-    # the keys read once, every entry written once; a draw per entry and
-    # the key schedule (passes + 1 splits) per (lane, pass)
-    return dict(shape=[L, passes, 2, n], ms=ms, call_ms=call_ms,
-                plain_ms=plain_ms, max_abs_err=err,
-                **bound(16 * L + 4 * draws,
-                        OPS_PER_DRAW * (draws + L * passes * (passes + 1))))
+        "one-round matching (8, 4096, 8) == cpu for 4 seeds")
+    # the noise as a tensor, the plain version's draw of the band bucket's
+    # (L, passes, 2, n), which the FM kernels now draw in place
+    keys = prng.split(prng.PRNGKey(3, "cuda"), 8)
+    return dict(shape=[8, 3, 2, 8192], plain_ms=cuda_ms(
+        lambda: ff.fm_noise_plain(keys, 8192, 3), reps=5))
 
 
 def _match_inputs(L, n, d, seed):
@@ -347,10 +322,45 @@ def _plane_bfs(g, side):
     return nb, src
 
 
+def _fm_entry_args(args, extents, passes, pos_only, p=None):
+    """The C entry's arguments of ``fm_fused_launch`` (``p`` None) or
+    ``fm_move_loop_launch`` (pass ``p``) for the wrapper's ``args``, and
+    the fresh outputs among them (parts, sep_w, imb, tally, scratch)."""
+    from repro_torch.kernels import fm_fused as ff
+    nbr, lane_work = args[0], args[1]
+    L = lane_work.shape[0]
+    W, n, d = nbr.shape
+    outs = ff._lane_outputs(L, n, d, nbr.device)
+    head = (nbr, extents.row_len) + tuple(args[1:]) + outs + (L, W, n, d)
+    if p is None:
+        return head + (extents.group, passes, int(pos_only)), outs
+    return head + (p, int(pos_only)), outs
+
+
+def _timed_fm(wrapper, entry, entry_args, outs, want, name):
+    """An FM kernel's time through its wrapper (``call_ms``) and through its
+    C entry alone (``ms``), each result held to the plain version's
+    ``want`` and the two tallies to each other; returns the times and the
+    tally summed over lanes."""
+    import torch
+    call_ms = cuda_ms(wrapper, reps=3)
+    res = wrapper()
+    ms = entry_ms("fm_fused", entry, *entry_args, reps=3)
+    for got in (res, outs):
+        if not all(torch.equal(a, b) for a, b in zip(got[:3], want)):
+            raise AssertionError(f"{name} (wrapper or C entry) differs from "
+                                 f"its plain version")
+    if not torch.equal(res[3], outs[3]):
+        raise AssertionError(f"{name}: the wrapper's and the C entry's "
+                             f"tallies differ")
+    return ms, call_ms, tuple(int(x) for x in res[3].sum(0))
+
+
 def _fm_case(works) -> dict:
     """``fm_fused_multi`` on the card against ``fm_fused_plain`` fed by the
-    same keys, with the balance slack and the noise formed on the CPU; the
-    hoisted pass loop (gain kernel + move-loop kernel) against both."""
+    same keys, with the balance slack formed on the CPU; the hoisted pass
+    loop (gain kernel + move-loop kernel) against both; the fused and the
+    move-loop kernels timed through their wrappers and their C entries."""
     import torch
     from repro_torch.core.fm import fm_refine_multi, pack_fm_bucket
     from repro_torch.kernels import fm_fused as ff
@@ -359,12 +369,13 @@ def _fm_case(works) -> dict:
     host, counts = pack_fm_bucket(works)
     t = {k: v.to("cuda") for k, v in host.items()}
     extents = t["extents"]
-    got = ff.fm_fused_multi(**t, passes=passes, pos_only=pos_only)
     vwgt_f = host["vwgt"].float()
     eps_abs = host["eps_frac"] * vwgt_f.sum(1)
-    noise = ff.fm_noise(host["keys"], host["nbr"].shape[1], passes)
     args = (t["nbr"], t["lane_work"], vwgt_f.cuda(), t["parts"], t["locked"],
-            noise.cuda(), eps_abs.cuda(), t["max_moves"], t["n_pert"])
+            t["keys"], eps_abs.cuda(), t["max_moves"], t["n_pert"])
+    L = t["lane_work"].shape[0]
+    W, n, d = t["nbr"].shape
+    got = ff.fm_fused_multi(**t, passes=passes, pos_only=pos_only)
     plain_ms, want = once_ms(lambda: ff.fm_fused_plain(
         *args, passes=passes, pos_only=pos_only))
     err = max(max_err(g, w) for g, w in zip(got, want))
@@ -380,27 +391,25 @@ def _fm_case(works) -> dict:
     if not all(torch.equal(a, b) for a, b in zip(hoisted, want)):
         raise AssertionError("the hoisted pass loop differs from "
                              "fm_fused_multi and fm_fused_plain")
-    # the kernel alone: its time, and its tally of the work the moves needed
-    def kernel():
-        return ff.fm_fused_kernel(*args, passes=passes, pos_only=pos_only,
-                                  extents=extents)
-    ms = cuda_ms(kernel, reps=3)
-    res = kernel()
-    if not all(torch.equal(a, b) for a, b in zip(res[:3], want)):
-        raise AssertionError("fm_fused_kernel differs from fm_fused_multi")
-    L = t["lane_work"].shape[0]
-    W, n, d = t["nbr"].shape
-    steps, ops, noise_reads = (int(x) for x in res[3].sum(0))
+    # the kernel alone: its times, and its tally of the work the moves
+    # needed
+    ms, call_ms, (steps, ops, draws) = _timed_fm(
+        lambda: ff.fm_fused_kernel(*args, passes=passes, pos_only=pos_only,
+                                   extents=extents),
+        "fm_fused_launch", *_fm_entry_args(args, extents, passes, pos_only),
+        want, "fm_fused_kernel")
     real_ids = int((t["nbr"] >= 0).sum())
-    # each input read once: the tiles' real ids, the lanes' state, the
-    # noise entries the moves scored; each output written once
-    nbytes = 4 * real_ids + L * n * (4 + 1 + 1 + 1) + \
-        4 * noise_reads + L * (4 * 4 + 4 + 4)
+    # each input read once: the tiles' real ids, the lanes' state and keys;
+    # each output written once; the operations the moves need, the noise
+    # entries they need drawn and each pass's key schedule (p + 1 splits)
+    nbytes = 4 * real_ids + L * n * (4 + 1 + 1 + 1) + 16 * L + \
+        L * (4 * 4 + 4 + 4)
+    splits = L * passes * (passes + 1) // 2
     out = dict(shape=[L, n, d], works=W, lanes_real=sum(counts),
-               steps=steps, noise_reads=noise_reads,
-               state_bytes=ff.state_bytes(n, d), ms=ms, plain_ms=plain_ms,
-               hoisted_ms=hoisted_ms, max_abs_err=err,
-               **bound(nbytes, ops))
+               steps=steps, move_ops=ops, draws=draws,
+               state_bytes=ff.state_bytes(n, d), ms=ms, call_ms=call_ms,
+               plain_ms=plain_ms, hoisted_ms=hoisted_ms, max_abs_err=err,
+               **bound(nbytes, ops + OPS_PER_DRAW * (draws + splits)))
     out["move_loop"] = _move_loop_case(args, extents, pos_only)
     return out
 
@@ -408,37 +417,38 @@ def _fm_case(works) -> dict:
 def _move_loop_case(args, extents, pos_only) -> dict:
     """The first pass of the hoisted path: ``fm_move_loop``'s kernel
     against its plain version, with the gains from the gain kernel."""
-    import torch
     from repro_torch.kernels import band_batch as bb
     from repro_torch.kernels import fm_fused as ff
-    nbr, lane_work, vw, parts, locked, noise, eps_abs, max_moves, n_pert = \
+    nbr, lane_work, vw, parts, locked, keys, eps_abs, max_moves, n_pert = \
         args
     pulled0, pulled1 = bb.sep_gain_multi_kernel(nbr, lane_work, vw, parts,
                                                 extents)
     bws = (vw * (parts == 2)).sum(1)
     bimb = ((vw * (parts == 0)).sum(1) - (vw * (parts == 1)).sum(1)).abs()
-    pass_args = (nbr, lane_work, vw, parts, locked, pulled0, pulled1,
-                 noise[:, 0].contiguous(), n_pert, eps_abs, max_moves, bws,
-                 bimb)
+    pass_args = (nbr, lane_work, vw, parts, locked, pulled0, pulled1, keys,
+                 0, n_pert, eps_abs, max_moves, bws, bimb)
     plain_ms, want = once_ms(lambda: ff.fm_move_loop_plain(
         *pass_args, pos_only=pos_only))
-
-    def kernel():
-        return ff.fm_move_loop_kernel(*pass_args, pos_only=pos_only,
-                                      extents=extents)
-    ms = cuda_ms(kernel, reps=3)
-    res = kernel()
+    res = ff.fm_move_loop_kernel(*pass_args, pos_only=pos_only,
+                                 extents=extents)
     err = max(max_err(g, w) for g, w in zip(res[:3], want))
-    if err != 0 or not all(torch.equal(a, b) for a, b in zip(res[:3], want)):
+    if err != 0:
         raise AssertionError(f"fm_move_loop differs from its plain version: "
                              f"max |diff| {err}")
+    ms, call_ms, (steps, ops, draws) = _timed_fm(
+        lambda: ff.fm_move_loop_kernel(*pass_args, pos_only=pos_only,
+                                       extents=extents),
+        "fm_move_loop_launch", *_fm_entry_args(
+            pass_args[:8] + pass_args[9:], extents, 1, pos_only, p=0),
+        want, "fm_move_loop_kernel")
     L, n = parts.shape
-    steps, ops, noise_reads = (int(x) for x in res[3].sum(0))
-    # each input read once: the lanes' weights, states, locks and pulled
-    # weights, the noise entries scored; each output written once
-    nbytes = L * n * (4 + 1 + 1 + 8 + 1) + 4 * noise_reads + L * 4 * 5
-    return dict(steps=steps, noise_reads=noise_reads, ms=ms,
-                plain_ms=plain_ms, max_abs_err=err, **bound(nbytes, ops))
+    # each input read once: the lanes' weights, states, locks, pulled
+    # weights and keys; each output written once; the operations, the
+    # draws and the pass's key schedule
+    nbytes = L * n * (4 + 1 + 1 + 8 + 1) + 16 * L + L * 4 * 5
+    return dict(steps=steps, draws=draws, ms=ms, call_ms=call_ms,
+                plain_ms=plain_ms, max_abs_err=err,
+                **bound(nbytes, ops + OPS_PER_DRAW * (draws + L)))
 
 
 def _lanes_csr(nbr, lane_work):
@@ -569,6 +579,17 @@ def _match_case(work) -> dict:
                 **bound(nbytes, OPS_PER_DRAW * draws))
 
 
+def _band_works(nbr_b, band, bpart, locked):
+    """Two FM works on one band (4 + 2 lanes, mixed budgets), which pack
+    with 2 dummy lanes into a bucket of 8."""
+    from repro_torch.core.fm import FMWork
+    return [FMWork(nbr=nbr_b, vwgt=band.vwgt, part=bpart, locked=locked,
+                   seed=7, k_inst=4, eps_frac=0.12, passes=3, n_pert=8),
+            FMWork(nbr=nbr_b, vwgt=band.vwgt, part=bpart, locked=locked,
+                   seed=8, k_inst=2, eps_frac=0.12, passes=3, n_pert=8,
+                   max_moves=300)]
+
+
 def coarse_levels(side: int):
     """The levels of ``grid3d(side³)``'s root hierarchy (seed 0, nproc 8,
     the default ``NDConfig``), coarsened on the card."""
@@ -630,17 +651,13 @@ def phase_kernels() -> dict:
         log(f"phase 3 bfs_multi == plain: {key} {case}")
 
     # fm: two band works (4 + 2 lanes, mixed budgets) and 2 dummy lanes
-    works = [FMWork(nbr=nbr_b, vwgt=band.vwgt, part=bpart, locked=locked,
-                    seed=7, k_inst=4, eps_frac=0.12, passes=3, n_pert=8),
-             FMWork(nbr=nbr_b, vwgt=band.vwgt, part=bpart, locked=locked,
-                    seed=8, k_inst=2, eps_frac=0.12, passes=3, n_pert=8,
-                    max_moves=300)]
+    works = _band_works(nbr_b, band, bpart, locked)
     out["fm_band"] = _fm_case(works)
     if out["fm_band"]["shape"] != [8, 8192, 1024]:
         raise AssertionError(f"band bucket is {out['fm_band']['shape']}")
     # the work the moves need is the kernel design's invariant: the kernel
     # before its redesign tallied these at this bucket (PERF.md)
-    tally = (out["fm_band"]["steps"], out["fm_band"]["ops"])
+    tally = (out["fm_band"]["steps"], out["fm_band"]["move_ops"])
     if tally != (23440, 241888561):
         raise AssertionError(f"the band bucket's FM tally (steps, "
                              f"operations) is {tally}, not (23440, "
@@ -719,6 +736,18 @@ def _ell_inputs(nbr, seed: int):
             for a in (nbr, val, np.abs(val), x, inj)]
 
 
+def _off16(t):
+    """A copy of ``t`` whose storage starts 4 bytes past 16: the kernels'
+    vector paths need 16 bytes, so the copy takes the group path."""
+    import torch
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    if out.data_ptr() % 16 == 0:
+        raise AssertionError("the group path's copy lies on 16 bytes")
+    return out
+
+
 def _ell_case(name: str, nbr) -> dict:
     """``ell_spmv`` (float32, bfloat16) and ``diffusion_step`` on the card
     against their plain versions; SpMV against ``torch.sparse.mm``."""
@@ -754,22 +783,29 @@ def _ell_case(name: str, nbr) -> dict:
                 bf16_max_abs_err=err_b, library_ms=library_ms,
                 library_err=library_err,
                 **bound(8 * valid + 4 * n + 4 * n, 2 * valid))
-    # diffusion: one step timed, three steps within 1e-4
-    step_ms = entry_ms("diffusion", "diffusion_launch", ids, wgt, x, inj,
-                       torch.empty_like(x), n, d, 0.25, 0.25 * 0.1)
+    # diffusion: one step timed in each path, three steps within 1e-4; the
+    # vector path on the arrays as they are (16-byte aligned, d of 4-16),
+    # the group path on copies of ids and values 4 bytes off 16
+    ids_g, wgt_g = (_off16(a) for a in (ids, wgt))
+    paths = {}
+    for path, (a, w) in (("vector", (ids, wgt)), ("group", (ids_g, wgt_g))):
+        step_ms = entry_ms("diffusion", "diffusion_launch", a, w, x, inj,
+                           torch.empty_like(x), n, d, 0.25, 0.25 * 0.1)
+        yk = yp = x
+        for _ in range(3):
+            yk = df.diffusion_step_kernel(a, w, yk, inj)
+            yp = df.diffusion_step_plain(ids, wgt, yp, inj)
+        torch.testing.assert_close(yk, yp, rtol=1e-4, atol=1e-4)
+        paths[path] = (step_ms, max_err(yk, yp))
     step_call_ms = cuda_ms(lambda: df.diffusion_step_kernel(
         ids, wgt, x, inj), reps=20)
     step_plain_ms = cuda_ms(lambda: df.diffusion_step_plain(
         ids, wgt, x, inj), reps=5)
-    yk = yp = x
-    for _ in range(3):
-        yk = df.diffusion_step_kernel(ids, wgt, yk, inj)
-        yp = df.diffusion_step_plain(ids, wgt, yp, inj)
-    torch.testing.assert_close(yk, yp, rtol=1e-4, atol=1e-4)
     # one step: ids and values of the real slots, x, inj and y once; per
     # slot a multiply and two adds, per row eight operations
-    diff = dict(ms=step_ms, call_ms=step_call_ms, plain_ms=step_plain_ms,
-                max_abs_err=max_err(yk, yp),
+    diff = dict(ms=paths["vector"][0], group_ms=paths["group"][0],
+                call_ms=step_call_ms, plain_ms=step_plain_ms,
+                max_abs_err=max(e for _, e in paths.values()),
                 **bound(8 * valid + 3 * 4 * n, 3 * valid + 8 * n))
     return dict(name=name, shape=[n, d], spmv=spmv, diffusion=diff)
 
@@ -909,18 +945,39 @@ def _ordering(phase: str, counters: dict) -> dict:
     return res
 
 
+@contextlib.contextmanager
+def noise_draws(calls: list):
+    """Count into ``calls[0]`` every call of ``fm_noise`` and
+    ``fm_noise_plain`` (a noise tensor drawn) while the block runs."""
+    from repro_torch.kernels import fm_fused, ops
+    with contextlib.ExitStack() as stack:
+        for module, name in ((fm_fused, "fm_noise"), (ops, "fm_noise"),
+                             (fm_fused, "fm_noise_plain")):
+            fn = getattr(module, name)
+
+            def counted(*args, _fn=fn, **kw):
+                calls[0] += 1
+                return _fn(*args, **kw)
+            setattr(module, name, counted)
+            stack.callback(setattr, module, name, fn)
+        yield
+
+
 def phase_main() -> dict:
     from repro_torch.kernels import band_batch, fm_fused, matching
-    split, stages = {}, {}
+    split, stages, drawn = {}, {}, [0]
     with env(REPRO_FM_MODE=None, REPRO_FM_GAIN=None), fm_split(split), \
-            stage_split(stages):
+            stage_split(stages), noise_draws(drawn):
         res = _ordering("phase 5 main path", {
             "heavy_edge_matching_multi": (matching, "launches"),
             "bfs_multi": (band_batch, "launches"),
-            "fm_noise": (fm_fused, "noise_launches"),
             "fm_fused_multi": (fm_fused, "launches")})
     if min(res["launches"].values()) <= 0:
         raise AssertionError(f"main path skipped a kernel: {res['launches']}")
+    if drawn[0]:
+        raise AssertionError(f"main path drew {drawn[0]} noise tensors: the "
+                             f"FM kernels draw the noise")
+    res["noise_tensors"] = drawn[0]
     res["fm_split_s"], res["stage_split_s"] = split, stages
     per_call(res)
     log(f"phase 5 fm stage split (s): {json.dumps(split)}")
@@ -931,21 +988,22 @@ def phase_main() -> dict:
 def phase_hoisted(fused: dict) -> dict:
     import numpy as np
     from repro_torch.kernels import band_batch, fm_fused, matching
-    split, stages = {}, {}
+    split, stages, drawn = {}, {}, [0]
     with env(REPRO_FM_MODE="hoisted", REPRO_FM_GAIN=None), \
-            fm_split(split), stage_split(stages):
+            fm_split(split), stage_split(stages), noise_draws(drawn):
         res = _ordering("phase 6 hoisted path", {
             "heavy_edge_matching_multi": (matching, "launches"),
             "bfs_multi": (band_batch, "launches"),
             "sep_gain_multi": (band_batch, "gain_launches"),
             "fm_move_loop": (fm_fused, "move_loop_launches"),
-            "fm_noise": (fm_fused, "noise_launches"),
             "fm_fused_multi": (fm_fused, "launches")})
     n = res["launches"]
     if n["sep_gain_multi"] <= 0 or n["fm_move_loop"] <= 0 or \
-            n["heavy_edge_matching_multi"] <= 0 or n["fm_noise"] <= 0 or \
-            n["fm_fused_multi"] != 0:
-        raise AssertionError(f"hoisted path: launches {n}")
+            n["heavy_edge_matching_multi"] <= 0 or \
+            n["fm_fused_multi"] != 0 or drawn[0]:
+        raise AssertionError(f"hoisted path: launches {n}, noise tensors "
+                             f"drawn {drawn[0]}")
+    res["noise_tensors"] = drawn[0]
     if not np.array_equal(res["perm"], fused["perm"]):
         raise AssertionError("hoisted path: the permutation differs from "
                              "the fused one")
@@ -1007,31 +1065,26 @@ def device_s(pairs) -> float:
 def fm_split(split: dict):
     """Split the fm stage while the block runs: host seconds packing the
     buckets (``pack_fm_bucket``; of which ``extents``, building the tiles'
-    row extents), drawing the noise (``fm_noise``), uploading
-    (``ops._on``) and downloading (``core.fm.download``, which ends each
-    work with its sync), and the device seconds of the FM kernels and of
-    the noise kernel (CUDA events around each launch).  Fills ``split``
-    when the block ends."""
+    row extents), uploading (``ops._on``) and downloading
+    (``core.fm.download``, which ends each work with its sync), and the
+    device seconds of the FM kernels (CUDA events around each launch),
+    which draw the noise themselves.  Fills ``split`` when the block
+    ends."""
     import torch
     from repro_torch.core import fm as core_fm
     from repro_torch.kernels import band_batch, fm_fused, ops
-    host = {k: [0.0] for k in ("pack", "extents", "noise", "upload",
-                               "download")}
-    events = {"kernels": [], "noise_kernel": []}
+    host = {k: [0.0] for k in ("pack", "extents", "upload", "download")}
+    events = {"kernels": []}
     with contextlib.ExitStack() as stack:
         for module, name, key in (
                 (core_fm, "pack_fm_bucket", "pack"),
                 (core_fm, "row_extents", "extents"),
-                (fm_fused, "fm_noise", "noise"),
-                (core_fm, "fm_noise", "noise"),
                 (ops, "_on", "upload"), (core_fm, "download", "download")):
             stack.enter_context(host_seconds(module, name, host[key]))
         for module, name in ((fm_fused, "fm_fused_kernel"),
                              (fm_fused, "fm_move_loop_kernel"),
                              (band_batch, "sep_gain_multi_kernel")):
             stack.enter_context(on_card(module, name, events["kernels"]))
-        stack.enter_context(on_card(fm_fused, "fm_noise_kernel",
-                                    events["noise_kernel"]))
         yield
     torch.cuda.synchronize()
     split.update({k: v[0] for k, v in host.items()})
@@ -1130,6 +1183,13 @@ def main() -> int:
                 "max_abs_err": err, "ms": case["ms"],
                 "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
                 "bound_by": case["bound_by"], "library_ms": library_ms}
+    # the noise is drawn inside fm_fused.cu: no launch of its own and no
+    # time or bound apart from rows fm_fused_multi and fm_move_loop, whose
+    # times and bounds include the draws; its plain version is the tensor
+    # draw, its parity that of those two rows
+    noise.update(ms=None, bound_ms=None, bound_by=None)
+    fm_err = max(kern[k][m]["max_abs_err"] if m else kern[k]["max_abs_err"]
+                 for k in ("fm_band", "fm_whole") for m in (None, "move_loop"))
     rows = [
         row("heavy_edge_matching_multi", "matching.cu",
             "src/repro/core/matching.py:124",
@@ -1153,9 +1213,12 @@ def main() -> int:
             hoisted["launches"]["fm_move_loop"], kern["fm_band"]["move_loop"],
             max(kern["fm_band"]["move_loop"]["max_abs_err"],
                 kern["fm_whole"]["move_loop"]["max_abs_err"]), None),
-        row("fm_noise", "fm_noise.cu", "src/repro/kernels/fm_fused.py:139",
-            main_run["launches"]["fm_noise"], noise, noise["max_abs_err"],
-            None),
+        dict(row("fm_noise", "fm_fused.cu",
+                 "src/repro/kernels/fm_fused.py:139", 0, noise, fm_err,
+                 None),
+             inside="fm_fused_multi, fm_move_loop",
+             noise_tensors=main_run["noise_tensors"] +
+             hoisted["noise_tensors"]),
         row("ell_spmv", "ell_spmv.cu", "src/repro/kernels/ell_spmv.py:36",
             ell["launches"]["ell_spmv"], big["spmv"],
             max(c["spmv"]["max_abs_err"] for c in ell["cases"]),

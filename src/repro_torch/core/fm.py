@@ -35,7 +35,7 @@ from repro_torch import prng
 from repro_torch.kernels import ops
 from repro_torch.kernels.band_batch import RowExtents, check_spans, \
     row_extents, sep_gain_multi
-from repro_torch.kernels.fm_fused import fm_move_loop, fm_noise
+from repro_torch.kernels.fm_fused import fm_move_loop
 from repro_torch.util import pow2 as _pow2, resolve_device
 
 GAIN_MODES = ("pallas", "jnp")
@@ -82,11 +82,12 @@ def fm_refine_multi(nbr, lane_work, vwgt, parts, locked, keys, eps_frac,
     bool; keys (L, 2); eps_frac (L,) float32; max_moves, n_pert (L,)
     int32; ``extents``, the tiles' ``RowExtents`` on their device
     (``band_batch.row_extents``), which every pass's gain and move-loop
-    launches read and the card needs.  Draw every pass's noise, then per
-    pass recompute the gains (``sep_gain_multi``), run one
-    ``fm_move_loop``, revert to the best state.  The best separator weight
-    and imbalance carry from pass to pass.  On the card each pass is two
-    kernel launches.  Returns (parts int8, sep_w, imb), the fused kernel's bits.
+    launches read and the card needs.  Per pass p, recompute the gains
+    (``sep_gain_multi``), run ``fm_move_loop`` for pass p, which draws
+    that pass's noise from ``keys``, revert to the best state.  The best
+    separator weight and imbalance carry from pass to pass.  On the card
+    each pass is two kernel launches and no noise tensor is made.  Returns
+    (parts int8, sep_w, imb), the fused kernel's bits.
     Raises ``ValueError`` for an unknown ``gain_mode``, and for ``jnp`` on
     CUDA tensors.
     """
@@ -99,7 +100,6 @@ def fm_refine_multi(nbr, lane_work, vwgt, parts, locked, keys, eps_frac,
                          "only on the CPU; on the card use pallas or auto")
     vwgt_f = vwgt.to(torch.float32)
     eps_abs = eps_frac.to(torch.float32) * vwgt_f.sum(dim=1)
-    noise = fm_noise(keys, nbr.shape[1], passes)        # (L, passes, 2, n)
     ws = (vwgt_f * (parts == 2)).sum(1)
     bimb = ((vwgt_f * (parts == 0)).sum(1) -
             (vwgt_f * (parts == 1)).sum(1)).abs()
@@ -109,9 +109,9 @@ def fm_refine_multi(nbr, lane_work, vwgt, parts, locked, keys, eps_frac,
         pulled0, pulled1 = sep_gain_multi(nbr, lane_work, vwgt_f, bpart,
                                           extents)
         bpart, bws, bimb = fm_move_loop(
-            nbr, lane_work, vwgt_f, bpart, locked, pulled0, pulled1,
-            noise[:, p].contiguous(), pert, eps_abs, max_moves, bws, bimb,
-            pos_only=pos_only, extents=extents)
+            nbr, lane_work, vwgt_f, bpart, locked, pulled0, pulled1, keys,
+            p, pert, eps_abs, max_moves, bws, bimb, pos_only=pos_only,
+            extents=extents)
         pert = torch.zeros_like(n_pert)
     return bpart, bws, bimb
 

@@ -25,8 +25,8 @@ from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("bfs_multi", "fm_fused", "fm_noise", "sep_gain", "ell_spmv",
-           "diffusion", "matching")
+SOURCES = ("bfs_multi", "fm_fused", "sep_gain", "ell_spmv", "diffusion",
+           "matching")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -39,8 +39,7 @@ SIGNATURES = {
     "bfs_multi": {"bfs_multi_launch": [_P] * 4 + [_I] * 4 + [_P],
                   "bfs_cluster_launch": [_P] * 4 + [_I] * 5 + [_P]},
     "fm_fused": {"fm_fused_launch": [_P] * 15 + [_I] * 7 + [_P],
-                 "fm_move_loop_launch": [_P] * 19 + [_I] * 5 + [_P]},
-    "fm_noise": {"fm_noise_launch": [_P] * 2 + [_I] * 3 + [_P]},
+                 "fm_move_loop_launch": [_P] * 19 + [_I] * 6 + [_P]},
     "sep_gain": {"sep_gain_launch": [_P] * 7 + [_I] * 5 + [_P]},
     "ell_spmv": {"ell_spmv_launch": [_P] * 4 + [_I] * 3 + [_P]},
     "diffusion": {"diffusion_launch": [_P] * 5 + [_I] * 2 + [_F] * 2 + [_P]},

@@ -27,6 +27,8 @@
 //   with evict-first loads (__ldcs), so that x keeps L1 and L2; all of the
 //   row's x gathers are issued before the sum; no shuffles.  The grid is a
 //   few waves of resident blocks that walk the rows with a grid stride.
+//   The float32 row reader and the grid are ell_row.cuh's, shared with
+//   diffusion.cu.
 // * Other widths, or arrays not on 16 bytes, take the group path: a row is
 //   read by min(d, 32) neighbouring threads (a power of two) whose partial
 //   sums meet in shuffles.  That is a choice by shape, not a fallback.
@@ -37,6 +39,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "ell_row.cuh"
 
 namespace {
 
@@ -78,27 +82,18 @@ ell_spmv_group_kernel(const int* __restrict__ nbr, const T* __restrict__ val,
   if (i < n && sub == 0) store(&y[i], acc);
 }
 
-// One row of D slots by one thread: D / 4 int4 id loads and the values'
-// 16-byte loads, then every x gather, then the sum in slot order.
+// One row of D slots by one thread (ell_row.cuh's reader), then the sum in
+// slot order.
 template <int D>
 __device__ __forceinline__ float row_sum(const int* ids, const float* vals,
                                          const float* __restrict__ x, int n) {
   int u[D];
   float v[D], xv[D];
-#pragma unroll
-  for (int q = 0; q < D / 4; ++q) {
-    const int4 a = __ldcs(reinterpret_cast<const int4*>(ids) + q);
-    const float4 b = __ldcs(reinterpret_cast<const float4*>(vals) + q);
-    u[4 * q] = a.x, u[4 * q + 1] = a.y, u[4 * q + 2] = a.z, u[4 * q + 3] = a.w;
-    v[4 * q] = b.x, v[4 * q + 1] = b.y, v[4 * q + 2] = b.z, v[4 * q + 3] = b.w;
-  }
-#pragma unroll
-  for (int j = 0; j < D; ++j)
-    xv[j] = (unsigned)u[j] < (unsigned)n ? __ldg(x + u[j]) : 0.f;
+  load_row<D>(ids, vals, x, n, u, v, xv);
   float acc = 0.f;
 #pragma unroll
   for (int j = 0; j < D; ++j)
-    if ((unsigned)u[j] < (unsigned)n) acc = __fadd_rn(acc, product(v[j], xv[j]));
+    if (valid_id(u[j], n)) acc = __fadd_rn(acc, product(v[j], xv[j]));
   return acc;
 }
 
@@ -109,11 +104,7 @@ __device__ __forceinline__ float row_sum(const int* ids,
                                          int n) {
   int u[D];
   __nv_bfloat16 v[D], xv[D];
-#pragma unroll
-  for (int q = 0; q < D / 4; ++q) {
-    const int4 a = __ldcs(reinterpret_cast<const int4*>(ids) + q);
-    u[4 * q] = a.x, u[4 * q + 1] = a.y, u[4 * q + 2] = a.z, u[4 * q + 3] = a.w;
-  }
+  load_ids<D>(ids, u);
 #pragma unroll
   for (int q = 0; q < D / 8; ++q) {
     const uint4 b = __ldcs(reinterpret_cast<const uint4*>(vals) + q);
@@ -123,11 +114,11 @@ __device__ __forceinline__ float row_sum(const int* ids,
   }
 #pragma unroll
   for (int j = 0; j < D; ++j)
-    xv[j] = (unsigned)u[j] < (unsigned)n ? x[u[j]] : __float2bfloat16_rn(0.f);
+    xv[j] = valid_id(u[j], n) ? x[u[j]] : __float2bfloat16_rn(0.f);
   float acc = 0.f;
 #pragma unroll
   for (int j = 0; j < D; ++j)
-    if ((unsigned)u[j] < (unsigned)n) acc = __fadd_rn(acc, product(v[j], xv[j]));
+    if (valid_id(u[j], n)) acc = __fadd_rn(acc, product(v[j], xv[j]));
   return acc;
 }
 
@@ -141,24 +132,14 @@ ell_spmv_vector_kernel(const int* __restrict__ nbr, const T* __restrict__ val,
     store(&y[i], row_sum<D>(nbr + i * D, val + i * D, x, n));
 }
 
-bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
-
 // Blocks of the vector path: kWaves waves of the blocks the card holds at
 // once, and no more than there are rows for.
 template <typename T, int D>
 unsigned vector_blocks(int n) {
   static int resident = 0;  // blocks the card holds at once
-  if (resident == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, ell_spmv_vector_kernel<T, D>, kThreads, 0);
-    resident = sms * (per_sm > 0 ? per_sm : 1);
-  }
-  const int64_t need = ((int64_t)n + kThreads - 1) / kThreads;
-  return (unsigned)(need < (int64_t)kWaves * resident ? need
-                                                      : kWaves * resident);
+  if (resident == 0)
+    resident = resident_blocks(ell_spmv_vector_kernel<T, D>, kThreads);
+  return wave_blocks(n, kThreads, kWaves, resident);
 }
 
 template <typename T, int D>

@@ -1,12 +1,14 @@
 // Vertex-separator FM, one CTA per lane: the fused pass loop and the
-// hoisted path's one-pass move loop.
+// hoisted path's one-pass move loop, each drawing its tiebreak noise itself.
 //
 // Replaces: src/repro/kernels/fm_fused.py:209, fm_fused_multi
 // (_fm_fused_kernel with the per-lane fm_move_loop, fm_fused.py:48), the
 // TPU kernel that keeps one lane's state resident in VMEM across all passes
-// and moves.  The move loop is one __device__ function, `move_loop`, called
-// by both kernels here, as the reference shares fm_move_loop between its
-// fused kernel and its hoisted path (src/repro/core/fm.py:104):
+// and moves, and the noise the reference draws outside it
+// (fm_fused.py:139, fm_noise, jax.random).  The move loop is one
+// __device__ function, `move_loop`, called by both kernels here, as the
+// reference shares fm_move_loop between its fused kernel and its hoisted
+// path (src/repro/core/fm.py:104):
 // * fm_fused_kernel runs every pass: gain recompute, moves, revert;
 // * fm_move_loop_kernel runs one pass with the gains given (from
 //   sep_gain.cu) and bws / bimb carried in, so that a pass loop on the host
@@ -18,10 +20,26 @@
 // before: the lane's work is a chain of block-wide steps on one SM.  The
 // roofline bound counts only the work the moves need: the kernel tallies,
 // per lane, the arithmetic on the candidates it scores, on the slots the
-// moves update and on each pass's recompute, and the noise entries it reads
-// (each once).  chip_smoke.py turns that tally into the bound; it is
+// moves update and on each pass's recompute, and the noise entries the
+// candidates need drawn (two a listed or staged vertex a pass).
+// chip_smoke.py turns that tally into the bound; it is
 // operations, far below the time the chain takes: the moved row's and the
 // pulled rows' ids are device-memory reads that each move waits on.
+//
+// The noise: the reference draws, per pass p, uniform((2, n)) from the
+// subkey split(k_p)[1], with k_0 the lane's key and k_{q+1} =
+// split(k_q)[0], n the tile's padded n.  Here one thread derives pass p's
+// subkey at the pass start (`pass_key`) and the entry of side s and vertex
+// v is threefry_uniform(subkey, s * n + v) (threefry.cuh), the bits of
+// prng.py.  Every vertex's pair (both sides) is drawn while the pass start
+// builds the candidate list, into a per-vertex float2 array that the scan
+// reads as it read a noise tensor: in shared memory beside the hot state
+// where both fit (hot_bytes), else in the lane's scratch.  On an H100 this
+// was the fastest of four placements timed, ahead of drawing only the
+// listed vertices there and each staged vertex as it is staged, by 2.5% at
+// the band bucket and 5.4% at (8, 4096, 512) (PERF.md §6): a pass's 2n
+// draws at its start cost less than a staged vertex's draw on a move's
+// dependent chain.
 //
 // Design: every step costs O(what changes), not O(n) or O(d):
 // * A candidate list per lane holds the separator vertices that are neither
@@ -53,9 +71,11 @@
 // * the hot state (pulled0/1, the list, copies of the lane's vertex
 //   weights and of the tile's row extents, part, flags, the pulled slots:
 //   22n + 4d bytes) lives in shared memory where it fits (n <= 8192 at
-//   d <= 4096), so that a move's only device-memory reads are the moved
-//   row and the pulled rows; the journal and the undo's marks, and at
-//   larger n all of the state, live in a per-lane device-memory scratch
+//   d <= 4096), so that a move's device-memory reads are the moved row,
+//   the pulled rows and, where the noise pairs (8n) do not fit beside it,
+//   the scored candidates' pairs; the pairs where they do not fit, the
+//   journal and the undo's marks, and at larger n all of the state, live
+//   in a per-lane device-memory scratch
 //   (at the band bucket shared memory was 3-4% faster than the scratch
 //   alone: PERF.md §6);
 // * the argmax is two warp max-reductions of a key (the score's
@@ -81,10 +101,14 @@
 #include <stdint.h>
 
 #include "gain_row.cuh"
+#include "threefry.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+// Where the state lives (`place`, bits).
+constexpr int kHotShared = 1;    // the hot state in shared memory
+constexpr int kPairsInSmem = 2;  // the noise pairs too
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 // A recompute row longer than this many loops of its group is left to the
@@ -104,8 +128,24 @@ struct Shared {
   int cnt;                   // the list built at pass start
   int n_long;
   int long_rows[kMaxLong];
-  unsigned long long tally[2];  // operations, noise entries read
+  Key2x32 sub;                  // the pass's noise subkey
+  unsigned long long tally[2];  // operations, noise entries drawn
 };
+
+// Pass p's noise subkey from the lane's key words: split(k_p)[1], with k_0
+// the lane's key and k_{q+1} = split(k_q)[0].
+__device__ Key2x32 pass_key(const int64_t* key_words, int p) {
+  Key2x32 k = key_of(key_words);
+  for (int q = 0; q < p; ++q) k = threefry_split(k, 0u);
+  return threefry_split(k, 1u);
+}
+
+// Vertex v's noise pair: the entries of sides 0 and 1, at s * n + v of the
+// pass's uniform((2, n)).
+__device__ __forceinline__ float2 noise_pair(Key2x32 sub, int v, int n) {
+  return make_float2(threefry_uniform(sub, (uint64_t)v),
+                     threefry_uniform(sub, (uint64_t)n + (uint64_t)v));
+}
 
 __device__ __forceinline__ bool beats(float s, int i, float bs, int bi) {
   return s > bs || (s == bs && i < bi);
@@ -241,37 +281,45 @@ __device__ int recompute_pulled(const int* tile, const int* rlen,
 }
 
 // Per-lane mutable state: a device-memory scratch slice of the lane, with
-// the hot part in shared memory where it fits.
+// the hot part, and the noise pairs where they fit too, in shared memory.
 struct LaneState {
   const float* vw;  // the lane's vertex weights
   const int* rlen;  // the tile's row extents, nullptr for no tile
   float* pulled0;
   float* pulled1;
+  float2* nz;      // n: each vertex's noise pair this pass (sides 0, 1)
   int* cand;       // n: the candidate list, then the move's staged entries
   int* journal;    // 3n: the pass's part writes, vertex << 2 | old value
   int* first;      // n: the undo's earliest entry of each vertex
   int* pull_list;  // d: the move's pulled slots
   int8_t* part;
-  uint8_t* flags;  // bit 0 moved, bits 1-2 noise read, bit 3 locked
+  uint8_t* flags;  // bit 0 moved, bit 1 locked
 };
 
-// The lane's state; with `smem`, the hot state lives there and the vertex
-// weights and row extents are copied in (the copy is visible after the
-// caller's next barrier).
-__device__ LaneState lane_state(uint8_t* base, uint8_t* smem, const float* vw,
-                                const int* rlen, int n, int d) {
+// The lane's state; with kHotShared in `place`, the hot state lives in
+// `smem` and the vertex weights and row extents are copied in (the copy is
+// visible after the caller's next barrier); with kPairsInSmem, the noise
+// pairs live there too.
+__device__ LaneState lane_state(uint8_t* base, uint8_t* smem, int place,
+                                const float* vw, const int* rlen, int n,
+                                int d) {
   LaneState st;
   st.vw = vw;
   st.rlen = rlen;
   st.pulled0 = reinterpret_cast<float*>(base);
   st.pulled1 = st.pulled0 + n;
-  st.cand = reinterpret_cast<int*>(st.pulled1 + n);
+  st.nz = reinterpret_cast<float2*>(st.pulled1 + n);
+  st.cand = reinterpret_cast<int*>(st.nz + n);
   st.journal = st.cand + n;
   st.first = st.journal + 3 * (int64_t)n;
   st.pull_list = st.first + n;
   st.part = reinterpret_cast<int8_t*>(st.pull_list + d);
   st.flags = reinterpret_cast<uint8_t*>(st.part + n);
-  if (smem != nullptr) {  // the hot state: hot_bytes(n, d)
+  if (place & kHotShared) {  // the hot state: hot_bytes(n, d, pairs)
+    if (place & kPairsInSmem) {
+      st.nz = reinterpret_cast<float2*>(smem);
+      smem += 8 * (int64_t)n;
+    }
     st.pulled0 = reinterpret_cast<float*>(smem);
     st.pulled1 = st.pulled0 + n;
     st.cand = reinterpret_cast<int*>(st.pulled1 + n);
@@ -292,24 +340,31 @@ __device__ LaneState lane_state(uint8_t* base, uint8_t* smem, const float* vw,
 
 // Counts of the work the moves need (the roofline's tally): move-loop
 // steps, arithmetic on scored candidates, updated slots and pass
-// recomputes, and distinct (pass, vertex, side) noise entries read.
+// recomputes, and the noise entries the candidates need drawn (both sides
+// of every listed or staged vertex, each pass).
 struct Tally {
   int steps;
   long long ops;
-  long long noise_reads;
+  long long draws;
 };
 
 // The candidate list of a pass start: the separator vertices not locked,
-// with every vertex's flags reset to its lock.  sh.cnt must be 0 and
-// `part` visible; the caller's next barrier publishes sh.cnt and the list.
+// with every vertex's flags reset to its lock and its noise pair drawn from
+// sh.sub.  sh.cnt must be 0, `part` and sh.sub visible; the caller's next
+// barrier publishes sh.cnt, the list and the pairs.
 __device__ void build_candidates(const LaneState& st, const uint8_t* lk,
-                                 int n, Shared& sh) {
+                                 int n, Shared& sh, Tally& t) {
   const int lane = threadIdx.x & 31;
+  const Key2x32 sub = sh.sub;
   for (int base = 0; base < n; base += kThreads) {
     const int v = base + threadIdx.x;
     const bool locked = v < n && lk[v];
     const bool c = v < n && st.part[v] == 2 && !locked;
-    if (v < n) st.flags[v] = locked ? 8 : 0;
+    if (v < n) {
+      st.flags[v] = locked ? 2 : 0;
+      st.nz[v] = noise_pair(sub, v, n);
+    }
+    if (c) t.draws += 2;
     const unsigned b = __ballot_sync(kFull, c);
     int off = 0;
     if (lane == 0 && b) off = atomicAdd(&sh.cnt, __popc(b));
@@ -320,13 +375,12 @@ __device__ void build_candidates(const LaneState& st, const uint8_t* lk,
 
 // One pass of moves on one lane: the reference's per-lane fm_move_loop
 // (src/repro/kernels/fm_fused.py:48).  On entry the candidate list of
-// `part` holds cnt entries, pulled0/1 hold the gains of part, w0, w1, ws its
-// side and separator weights, and all of it is visible to the block.  Runs
-// up to max_moves moves; bws and bimb track the best feasible state and
+// `part` holds cnt entries, every vertex's noise pair is drawn, pulled0/1
+// hold the gains of part, w0, w1, ws its side and separator weights, and
+// all of it is visible to the block.  Runs up to max_moves moves; bws and bimb track the best feasible state and
 // `best_j` the journal's length there, `jlen` its length at the end.  Every
 // thread of the block calls it and gets the same scalars.
 __device__ void move_loop(const int* tile, const int* rlen, const float* vw,
-                          const float* nz0, const float* nz1,
                           const LaneState& st, int cnt,
                           int n, int d, float eps_abs, int max_moves,
                           int pert, int pos_only, float& w0, float& w1,
@@ -352,7 +406,7 @@ __device__ void move_loop(const int* tile, const int* rlen, const float* vw,
     int bi = INT_MAX, bp = 0, bl = 0;
     for (int k = tid; k < cnt; k += kThreads) {
       const int v = cand[k];
-      const uint8_t m = flags[v];
+      const float2 z = st.nz[v];
       const int len = extent(rlen, v, d);
       const float x = vw[v], q0 = pulled0[v], q1 = pulled1[v];
       const float g0 = __fsub_rn(x, q0), g1 = __fsub_rn(x, q1);
@@ -365,22 +419,15 @@ __device__ void move_loop(const int* tile, const int* rlen, const float* vw,
         ok1 = ok1 && g1 > 0.f;
         t.ops += 2;
       }
-      uint8_t seen = m;
       if (ok0) {
-        const float s = __fadd_rn(g0, __fmul_rn(nz0[v], amp));
+        const float s = __fadd_rn(g0, __fmul_rn(z.x, amp));
         if (beats(s, v, bs, bi)) { bs = s; bi = v; bp = k; bl = len; }
         t.ops += 3;  // multiply, add, compare
-        seen |= 2;
       }
       if (ok1) {
-        const float s = __fadd_rn(g1, __fmul_rn(nz1[v], amp));
+        const float s = __fadd_rn(g1, __fmul_rn(z.y, amp));
         if (beats(s, n + v, bs, bi)) { bs = s; bi = n + v; bp = k; bl = len; }
         t.ops += 3;
-        seen |= 4;
-      }
-      if (seen != m) {
-        t.noise_reads += ((seen ^ m) >> 1 & 1) + ((seen ^ m) >> 2 & 1);
-        flags[v] = seen;
       }
     }
     block_argmax(bs, bi, bp, bl, sh);
@@ -416,7 +463,10 @@ __device__ void move_loop(const int* tile, const int* rlen, const float* vw,
         for (int q = j - lane - 1; q >= 0 && first; --q) first = row[q] != u;
         if (first) {
           st.journal[jlen + atomicAdd(&sh.n_log, 1)] = u << 2 | (1 - side);
-          if (!(flags[u] & 9)) cand[cnt + atomicAdd(&sh.n_add, 1)] = u;
+          if (!(flags[u] & 3)) {  // neither moved nor locked: staged
+            cand[cnt + atomicAdd(&sh.n_add, 1)] = u;
+            t.draws += 2;
+          }
         }
       }
       if (tid == 0) st.journal[jlen + atomicAdd(&sh.n_log, 1)] = v << 2 | 2;
@@ -488,7 +538,7 @@ __device__ void finish_lane(int l, int n, const LaneState& st, float bws,
                             int8_t* parts_out, float* sep_w_out,
                             float* imb_out, long long* stats_out) {
   atomicAdd(&sh.tally[0], (unsigned long long)t.ops);
-  atomicAdd(&sh.tally[1], (unsigned long long)t.noise_reads);
+  atomicAdd(&sh.tally[1], (unsigned long long)t.draws);
   for (int v = threadIdx.x; v < n; v += kThreads)
     parts_out[(int64_t)l * n + v] = st.part[v];
   __syncthreads();
@@ -514,28 +564,29 @@ __device__ Tile lane_tile(const int* nbr, const int* row_len,
   return {nbr + (int64_t)w * n * d, row_len + (int64_t)w * n};
 }
 
-// All passes of one lane: per pass, recompute the pulled weights, build the
-// candidate list, run the move loop, undo back to the best state.
+// All passes of one lane: per pass, derive the noise subkey, recompute the
+// pulled weights, build the candidate list and draw the noise pairs, run the
+// move loop, undo back to the best state.
 __global__ void __launch_bounds__(kThreads, 1)
 fm_fused_kernel(const int* __restrict__ nbr, const int* __restrict__ row_len,
                 const int* __restrict__ lane_work,
                 const float* __restrict__ vwgt,
                 const int8_t* __restrict__ parts_in,
                 const uint8_t* __restrict__ locked,
-                const float* __restrict__ noise,
+                const int64_t* __restrict__ keys,
                 const float* __restrict__ eps_abs_in,
                 const int* __restrict__ max_moves_in,
                 const int* __restrict__ n_pert_in, int8_t* parts_out,
                 float* sep_w_out, float* imb_out, long long* stats_out,
                 uint8_t* scratch, int64_t stride, int W, int n, int d,
-                int group, int passes, int pos_only, int hot_in_smem) {
+                int group, int passes, int pos_only, int place) {
   __shared__ Shared sh;
   extern __shared__ __align__(16) uint8_t smem[];
   const int l = blockIdx.x;
   const int tid = threadIdx.x;
   const Tile tile = lane_tile(nbr, row_len, lane_work, l, W, n, d);
   const LaneState st =
-      lane_state(scratch + (int64_t)l * stride, hot_in_smem ? smem : nullptr,
+      lane_state(scratch + (int64_t)l * stride, smem, place,
                  vwgt + (int64_t)l * n, tile.rlen, n, d);
   const float* vw = st.vw;
   const int* rlen = st.rlen;
@@ -554,16 +605,18 @@ fm_fused_kernel(const int* __restrict__ nbr, const int* __restrict__ row_len,
 
   for (int p = 0; p < passes && max_moves > 0; ++p) {
     if (p > 0) part_sums(st.part, vw, n, sh, w0, w1, ws);
-    if (tid == 0) sh.cnt = 0;
+    if (tid == 0) {
+      sh.cnt = 0;
+      sh.sub = pass_key(keys + 2 * (int64_t)l, p);
+    }
     t.ops += 2LL * recompute_pulled(tile.ids, rlen, st.part, vw, st.pulled0,
                                     st.pulled1, n, d, group, sh);
-    build_candidates(st, lk, n, sh);
-    __syncthreads();  // the list and its count
-    const float* nz0 = noise + ((int64_t)l * passes + p) * 2 * n;
+    build_candidates(st, lk, n, sh, t);
+    __syncthreads();  // the list, its count and its noise pairs
     int best_j, jlen;
-    move_loop(tile.ids, rlen, vw, nz0, nz0 + n, st, sh.cnt, n, d, eps_abs,
-              max_moves, p == 0 ? n_pert : 0, pos_only, w0, w1, ws, bws,
-              bimb, sh, best_j, jlen, t);
+    move_loop(tile.ids, rlen, vw, st, sh.cnt, n, d, eps_abs, max_moves,
+              p == 0 ? n_pert : 0, pos_only, w0, w1, ws, bws, bimb, sh,
+              best_j, jlen, t);
     undo(st, best_j, jlen);
   }
   __syncthreads();
@@ -571,8 +624,8 @@ fm_fused_kernel(const int* __restrict__ nbr, const int* __restrict__ row_len,
               stats_out);
 }
 
-// One pass of one lane, with the pulled weights given (the hoisted path:
-// the gains come from sep_gain.cu).  bws and bimb are carried in from the
+// Pass p of one lane, with the pulled weights given (the hoisted path: the
+// gains come from sep_gain.cu).  bws and bimb are carried in from the
 // previous pass: bimb is a running minimum, not a function of part.
 __global__ void __launch_bounds__(kThreads, 1)
 fm_move_loop_kernel(const int* __restrict__ nbr,
@@ -583,7 +636,7 @@ fm_move_loop_kernel(const int* __restrict__ nbr,
                     const uint8_t* __restrict__ locked,
                     const float* __restrict__ pulled0_in,
                     const float* __restrict__ pulled1_in,
-                    const float* __restrict__ noise,
+                    const int64_t* __restrict__ keys,
                     const int* __restrict__ pert_in,
                     const float* __restrict__ eps_abs_in,
                     const int* __restrict__ max_moves_in,
@@ -591,14 +644,14 @@ fm_move_loop_kernel(const int* __restrict__ nbr,
                     const float* __restrict__ bimb_in, int8_t* parts_out,
                     float* sep_w_out, float* imb_out, long long* stats_out,
                     uint8_t* scratch, int64_t stride, int W, int n, int d,
-                    int pos_only, int hot_in_smem) {
+                    int p, int pos_only, int place) {
   __shared__ Shared sh;
   extern __shared__ __align__(16) uint8_t smem[];
   const int l = blockIdx.x;
   const int tid = threadIdx.x;
   const Tile tile = lane_tile(nbr, row_len, lane_work, l, W, n, d);
   const LaneState st =
-      lane_state(scratch + (int64_t)l * stride, hot_in_smem ? smem : nullptr,
+      lane_state(scratch + (int64_t)l * stride, smem, place,
                  vwgt + (int64_t)l * n, tile.rlen, n, d);
   const float* vw = st.vw;
   const int* rlen = st.rlen;
@@ -612,19 +665,21 @@ fm_move_loop_kernel(const int* __restrict__ nbr,
     st.pulled1[v] = pulled1_in[k];
   }
   if (tid < 2) sh.tally[tid] = 0;
-  if (tid == 0) sh.cnt = 0;
+  if (tid == 0) {
+    sh.cnt = 0;
+    sh.sub = pass_key(keys + 2 * (int64_t)l, p);
+  }
   float w0, w1, ws;
   part_sums(st.part, vw, n, sh, w0, w1, ws);  // syncs: state is copied
   float bws = bws_in[l], bimb = bimb_in[l];
   Tally t = {0, 0, 0};
   if (max_moves > 0) {
-    build_candidates(st, lk, n, sh);
-    __syncthreads();  // the list and its count
-    const float* nz0 = noise + (int64_t)l * 2 * n;
+    build_candidates(st, lk, n, sh, t);
+    __syncthreads();  // the list, its count and its noise pairs
     int best_j, jlen;
-    move_loop(tile.ids, rlen, vw, nz0, nz0 + n, st, sh.cnt, n, d,
-              eps_abs_in[l], max_moves, pert_in[l], pos_only, w0, w1, ws,
-              bws, bimb, sh, best_j, jlen, t);
+    move_loop(tile.ids, rlen, vw, st, sh.cnt, n, d, eps_abs_in[l], max_moves,
+              pert_in[l], pos_only, w0, w1, ws, bws, bimb, sh, best_j, jlen,
+              t);
     undo(st, best_j, jlen);
   }
   __syncthreads();
@@ -633,43 +688,48 @@ fm_move_loop_kernel(const int* __restrict__ nbr,
 }
 
 // Bytes of the hot state (pulled0/1, the list, the vertex weights and row
-// extents, the pulled slots, part, flags) and whether they fit in shared
-// memory beside `Shared`: a block has at most 232,448 bytes.
-int64_t hot_bytes(int n, int d) { return 22LL * n + 4LL * d; }
-bool hot_fits(int n, int d) {
-  return hot_bytes(n, d) + (int64_t)sizeof(Shared) <= 232448;
+// extents, the pulled slots, part, flags), with the noise pairs or without,
+// and whether they fit in shared memory beside `Shared`: a block has at
+// most 232,448 bytes.
+int64_t hot_bytes(int n, int d, bool pairs) {
+  return 22LL * n + 4LL * d + (pairs ? 8LL * n : 0LL);
 }
+bool fits(int64_t bytes) { return bytes + (int64_t)sizeof(Shared) <= 232448; }
 
 // Launch `kernel` with the hot state in dynamic shared memory where it
-// fits, else in the scratch.
+// fits, else in the scratch, and the noise pairs beside it where they fit
+// too.
 template <typename Kernel, typename... Args>
 cudaError_t launch_lanes(Kernel kernel, int L, int n, int d, cudaStream_t s,
                          Args... args) {
-  const bool smem = hot_fits(n, d);
-  const int bytes = smem ? (int)hot_bytes(n, d) : 0;
+  const bool hot = fits(hot_bytes(n, d, false));
+  const bool pairs = fits(hot_bytes(n, d, true));
+  const int place = (hot ? kHotShared : 0) | (pairs ? kPairsInSmem : 0);
+  const int bytes = hot ? (int)hot_bytes(n, d, pairs) : 0;
   if (bytes > 0) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
   }
-  kernel<<<L, kThreads, bytes, s>>>(args..., (int)smem);
+  kernel<<<L, kThreads, bytes, s>>>(args..., place);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Bytes of per-lane state: pulled0/1, the candidate list, the journal
-// (3n), the undo's marks, the pulled-slot list (d), part and flags.  The
-// wrapper uses the same formula.
-static int64_t state_bytes(int n, int d) { return 30LL * n + 4LL * d; }
+// Bytes of per-lane state: pulled0/1, the noise pairs (8n), the candidate
+// list, the journal (3n), the undo's marks, the pulled-slot list (d), part
+// and flags: 38n + 4d.  The wrapper (kernels/fm_fused.py, state_bytes)
+// uses the same formula.
+static int64_t state_bytes(int n, int d) { return 38LL * n + 4LL * d; }
 
 // The state lives in `scratch`, one 256-byte-aligned slice per lane.
-// group: threads a recompute row (a power of two <= 32, from the row
-// extents).
+// keys: (L, 2) int64 words, the lanes' PRNG keys.  group: threads a
+// recompute row (a power of two <= 32, from the row extents).
 extern "C" int fm_fused_launch(const void* nbr, const void* row_len,
                                const void* lane_work, const void* vwgt,
                                const void* parts_in, const void* locked,
-                               const void* noise, const void* eps_abs,
+                               const void* keys, const void* eps_abs,
                                const void* max_moves, const void* n_pert,
                                void* parts_out, void* sep_w, void* imb,
                                void* stats, void* scratch, int L, int W,
@@ -682,31 +742,32 @@ extern "C" int fm_fused_launch(const void* nbr, const void* row_len,
   return (int)launch_lanes(
       fm_fused_kernel, L, n, d, (cudaStream_t)stream, (const int*)nbr,
       (const int*)row_len, (const int*)lane_work, (const float*)vwgt,
-      (const int8_t*)parts_in, (const uint8_t*)locked, (const float*)noise,
+      (const int8_t*)parts_in, (const uint8_t*)locked, (const int64_t*)keys,
       (const float*)eps_abs, (const int*)max_moves, (const int*)n_pert,
       (int8_t*)parts_out, (float*)sep_w, (float*)imb, (long long*)stats,
       (uint8_t*)scratch, stride, W, n, d, group, passes, pos_only);
 }
 
-// One pass per lane with given pulled weights; noise is this pass's
-// (L, 2, n) slice and pert the lanes' perturbed-move counts.
+// Pass p per lane with given pulled weights: keys are the lanes' (L, 2)
+// PRNG keys, from which the kernel draws pass p's noise, and pert the
+// lanes' perturbed-move counts.
 extern "C" int fm_move_loop_launch(
     const void* nbr, const void* row_len, const void* lane_work,
     const void* vwgt, const void* parts_in, const void* locked,
-    const void* pulled0, const void* pulled1, const void* noise,
+    const void* pulled0, const void* pulled1, const void* keys,
     const void* pert, const void* eps_abs, const void* max_moves,
     const void* bws_in, const void* bimb_in, void* parts_out, void* sep_w,
     void* imb, void* stats, void* scratch, int L, int W, int n, int d,
-    int pos_only, void* stream) {
+    int p, int pos_only, void* stream) {
   if (L == 0) return (int)cudaGetLastError();
   const int64_t stride = (state_bytes(n, d) + 255) / 256 * 256;
   return (int)launch_lanes(
-      fm_move_loop_kernel, L, n, d, (cudaStream_t)stream, (const int*)nbr,
-      (const int*)row_len, (const int*)lane_work, (const float*)vwgt,
-      (const int8_t*)parts_in, (const uint8_t*)locked,
-      (const float*)pulled0, (const float*)pulled1, (const float*)noise,
+      fm_move_loop_kernel, L, n, d, (cudaStream_t)stream,
+      (const int*)nbr, (const int*)row_len, (const int*)lane_work,
+      (const float*)vwgt, (const int8_t*)parts_in, (const uint8_t*)locked,
+      (const float*)pulled0, (const float*)pulled1, (const int64_t*)keys,
       (const int*)pert, (const float*)eps_abs, (const int*)max_moves,
       (const float*)bws_in, (const float*)bimb_in, (int8_t*)parts_out,
       (float*)sep_w, (float*)imb, (long long*)stats, (uint8_t*)scratch,
-      stride, W, n, d, pos_only);
+      stride, W, n, d, p, pos_only);
 }

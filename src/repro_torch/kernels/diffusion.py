@@ -9,9 +9,12 @@ liquids injected at the side anchors diffuse along edges and evaporate,
 
 in float32, with ``sign(0) = 0`` and ``dt·μ`` formed as a Python product
 before it is rounded to float32, as the reference forms it.  On a CUDA
-tensor the wrapper launches ``csrc/diffusion.cu``; on a CPU tensor it runs
-``diffusion_step_plain``.  ``launches`` counts kernel launches, one per
-step.  The kernel takes any ``n``: no row padding and no ``block_rows``.
+tensor the wrapper launches ``csrc/diffusion.cu`` (one thread a row with
+16-byte loads for widths 4-16 when ids and values lie on 16 bytes, as
+``ell_spmv`` reads them; a group of threads a row otherwise); on a CPU
+tensor it runs ``diffusion_step_plain``.  ``launches`` counts kernel
+launches, one per step.  The kernel takes any ``n``: no row padding and no
+``block_rows``.
 """
 from __future__ import annotations
 

@@ -11,12 +11,13 @@ Lanes share ELL tiles: ``nbr`` holds one (n, d) tile per work and
 ``lane_work[l]`` names the tile of lane ``l``, so a work's k lanes do not
 carry k copies of it.  The kernels also take the tiles' ``RowExtents``
 (``band_batch.row_extents``, made on the host once a bucket), so that they
-read each row only to its last id.  The per-pass tiebreak noise is drawn
-outside the move loop by ``fm_noise`` with the reference's exact key
-sequence (one launch of ``csrc/fm_noise.cu`` on the card, counted in
-``noise_launches``), and every float sum is over integer-valued float32
-weights, so the kernel, the plain version and the reference agree bit for
-bit.
+read each row only to its last id.  The per-pass tiebreak noise is the
+reference's draw (``fm_noise_plain``: per pass, split each lane's key,
+draw ``uniform((2, n))`` from the second half), and the kernels draw it
+themselves from the lanes' keys (``csrc/fm_fused.cu`` on
+``csrc/threefry.cuh``), so no noise tensor is made on the card.  Every
+float sum is over integer-valued float32 weights, so the kernel, the plain
+version and the reference agree bit for bit.
 
 On a CUDA tensor the wrapper launches ``csrc/fm_fused.cu``; on a CPU
 tensor it runs ``fm_fused_plain``, which takes the extents and has no use
@@ -25,13 +26,13 @@ not read their inputs back to the host: ``lane_work`` and the extents are
 checked where the bucket is made (``core.fm.pack_fm_bucket``), and the
 kernels read a ``lane_work`` outside the tiles as an empty tile.
 
-``fm_move_loop`` is one pass of the same move loop with the pulled weights
-given: the hoisted path (``core.fm.fm_refine_multi``) alternates it with
-``band_batch.sep_gain_multi``.  Its kernel is a second entry of
-``fm_fused.cu`` that shares the move loop with the fused kernel, and its
-plain version ``fm_move_loop_plain`` is the body of ``fm_fused_plain``,
-so the two paths agree by construction.  ``move_loop_launches`` counts its
-launches.
+``fm_move_loop`` is pass ``p`` of the same move loop with the pulled
+weights given: the hoisted path (``core.fm.fm_refine_multi``) alternates
+it with ``band_batch.sep_gain_multi``.  Its kernel is a second entry of
+``fm_fused.cu`` that shares the move loop and the draws with the fused
+kernel, and its plain version ``fm_move_loop_plain`` is the body of
+``fm_fused_plain``, so the two paths agree by construction.
+``move_loop_launches`` counts its launches.
 """
 from __future__ import annotations
 
@@ -51,21 +52,26 @@ SMALL_NOISE = 1e-3
 launches = 0
 #: number of times ``fm_move_loop`` launched its CUDA kernel
 move_loop_launches = 0
-#: number of times ``fm_noise`` launched its CUDA kernel
-noise_launches = 0
 
 
-def fm_noise_plain(keys: torch.Tensor, n: int, passes: int) -> torch.Tensor:
-    """The noise in torch, on any device (the kernel's plain version).
+def fm_noise_plain(keys: torch.Tensor, n: int, passes: int,
+                   start: int = 0) -> torch.Tensor:
+    """The noise in torch, on any device: (L, 2) keys →
+    (L, passes - start, 2, n), the draws of passes ``start`` to
+    ``passes - 1``.
 
     The reference's sequence: per pass, split each lane's key in two,
     carry the first half and draw ``uniform((2, n))`` from the second.
+    The passes before ``start`` only carry the key.  The FM kernels draw
+    these entries themselves; this is the plain versions' draw and the
+    reference for the kernels'.
     """
     noises = []
-    for _ in range(passes):
+    for p in range(passes):
         both = prng.split(keys)                         # (L, 2, 2)
         keys, subs = both[:, 0], both[:, 1]
-        noises.append(prng.uniform(subs, (2, n)))
+        if p >= start:
+            noises.append(prng.uniform(subs, (2, n)))
     return torch.stack(noises, dim=1)
 
 
@@ -75,41 +81,28 @@ def _check_keys(keys: torch.Tensor) -> None:
                          f"{tuple(keys.shape)}")
 
 
-def fm_noise_kernel(keys: torch.Tensor, n: int, passes: int) -> torch.Tensor:
-    """Launch ``csrc/fm_noise.cu`` on the current stream (CUDA keys only)."""
-    global noise_launches
-    _check_keys(keys)
-    require_card(keys)
-    keys = keys.contiguous()
-    L = keys.shape[0]
-    noise = torch.empty((L, passes, 2, n), dtype=torch.float32,
-                        device=keys.device)
-    lib = build.load("fm_noise")
-    stream = torch.cuda.current_stream(keys.device).cuda_stream
-    err = lib.fm_noise_launch(keys.data_ptr(), noise.data_ptr(), L, int(n),
-                              int(passes), stream)
-    build.check(err, "fm_noise")
-    noise_launches += 1
-    return noise
-
-
 def fm_noise(keys: torch.Tensor, n: int, passes: int) -> torch.Tensor:
-    """Per-pass tiebreak noise of every lane: (L, 2) keys → (L, passes, 2, n).
+    """Per-pass tiebreak noise of every lane: (L, 2) keys → (L, passes, 2, n),
+    for the CPU paths (the oracle's input).
 
-    CUDA keys go to the kernel (one launch), CPU keys to the plain version.
+    CPU keys take the plain version.  CUDA keys raise ``ValueError``: on
+    the card the FM kernels draw the noise themselves, and the card's
+    work never goes to plain torch.
     """
     _check_keys(keys)
     if keys.device.type == "cuda":
-        return fm_noise_kernel(keys, n, passes)
+        raise ValueError("fm_noise draws on the CPU only: on the card the FM "
+                         "kernels draw the noise from the lanes' keys")
     return fm_noise_plain(keys, n, passes)
 
 
 def state_bytes(n: int, d: int) -> int:
-    """Bytes of one lane's kernel state (pulled0/1, the candidate list, the
-    move journal of at most 3n entries, the undo's marks, the pulled-slot
-    list, part and flags), kept in a device-memory scratch slice of
-    256-byte-aligned stride."""
-    return 30 * n + 4 * d
+    """Bytes of one lane's kernel state (pulled0/1, the noise pairs, the
+    candidate list, the move journal of at most 3n entries, the undo's
+    marks, the pulled-slot list, part and flags), kept in a device-memory
+    scratch slice of 256-byte-aligned stride; ``csrc/fm_fused.cu`` uses the
+    same formula."""
+    return 38 * n + 4 * d
 
 
 def _sums(vw: torch.Tensor, part: torch.Tensor):
@@ -118,22 +111,32 @@ def _sums(vw: torch.Tensor, part: torch.Tensor):
 
 
 def fm_move_loop_plain(nbr, lane_work, vwgt_f, part, locked, pulled0,
-                       pulled1, noise, pert, eps_abs, max_moves, bws, bimb,
-                       pos_only: bool = False,
+                       pulled1, keys, p: int, pert, eps_abs, max_moves, bws,
+                       bimb, pos_only: bool = False,
                        extents: Optional[RowExtents] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One pass of moves in torch, batched over lanes, on any device.
+    """Pass ``p`` of moves in torch, batched over lanes, on any device.
 
     The reference's per-lane ``fm_move_loop`` with the lane axis written
     out.  Takes the tiles ``nbr`` (W, n, d) with ``lane_work`` (L,),
     float32 ``vwgt_f`` (L, n), the pass-start state ``part`` (L, n) and
-    its pulled weights ``pulled0/1`` (L, n) float32, bool ``locked``,
-    this pass's ``noise`` (L, 2, n), int32 ``pert`` / ``max_moves`` (L,),
-    float32 ``eps_abs`` and the best so far ``bws`` / ``bimb`` (L,);
+    its pulled weights ``pulled0/1`` (L, n) float32, bool ``locked``, the
+    lanes' PRNG ``keys`` (L, 2) int64 and the pass index ``p``, whose noise
+    it draws (``fm_noise_plain``'s pass p), int32 ``pert`` / ``max_moves``
+    (L,), float32 ``eps_abs`` and the best so far ``bws`` / ``bimb`` (L,);
     ``extents``, the kernel's, has no use here.  A lane takes part in a
     step while it has budget left and its last move succeeded.  Returns
     (best part int8, bws, bimb); the inputs are not modified.
     """
+    noise = fm_noise_plain(keys, nbr.shape[1], p + 1, start=p)[:, 0]
+    return _move_loop(nbr, lane_work, vwgt_f, part, locked, pulled0,
+                      pulled1, noise, pert, eps_abs, max_moves, bws, bimb,
+                      pos_only)
+
+
+def _move_loop(nbr, lane_work, vwgt_f, part, locked, pulled0, pulled1,
+               noise, pert, eps_abs, max_moves, bws, bimb, pos_only):
+    """``fm_move_loop_plain`` given the pass's ``noise`` (L, 2, n)."""
     L = lane_work.shape[0]
     n, d = nbr.shape[1:]
     dev = nbr.device
@@ -218,7 +221,7 @@ def fm_move_loop_plain(nbr, lane_work, vwgt_f, part, locked, pulled0,
     return bpart.to(torch.int8), bws, bimb
 
 
-def fm_fused_plain(nbr, lane_work, vwgt_f, parts, locked, noise, eps_abs,
+def fm_fused_plain(nbr, lane_work, vwgt_f, parts, locked, keys, eps_abs,
                    max_moves, n_pert, passes: int, pos_only: bool = False,
                    extents: Optional[RowExtents] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -226,26 +229,27 @@ def fm_fused_plain(nbr, lane_work, vwgt_f, parts, locked, noise, eps_abs,
 
     Takes the kernel's inputs: tiles ``nbr`` (W, n, d) int32 with
     ``lane_work`` (L,), float32 ``vwgt_f`` (L, n), int8 ``parts``, bool
-    ``locked``, ``noise`` (L, passes, 2, n) from ``fm_noise``, float32
+    ``locked``, the lanes' PRNG ``keys`` (L, 2) int64, float32
     ``eps_abs`` (L,), int32 ``max_moves`` / ``n_pert`` (L,), and the
-    kernel's ``extents``, which it has no use for.  Per pass:
-    the pulled weights (``sep_gain_multi_plain``), one
-    ``fm_move_loop_plain``, and a revert to the best state.  Returns
-    (parts int8, sep_w, imb).
+    kernel's ``extents``, which it has no use for.  Draws every pass's
+    noise (``fm_noise_plain``), then per pass: the pulled weights
+    (``sep_gain_multi_plain``), one move loop, and a revert to the best
+    state.  Returns (parts int8, sep_w, imb).
     """
+    noise = fm_noise_plain(keys, nbr.shape[1], passes)
     w0, w1, ws = _sums(vwgt_f, parts.to(torch.int32))
     bpart, bws, bimb = parts, ws, (w0 - w1).abs()
     no_pert = torch.zeros_like(n_pert)
     for p in range(passes):
         pulled0, pulled1 = sep_gain_multi_plain(nbr, lane_work, vwgt_f, bpart)
-        bpart, bws, bimb = fm_move_loop_plain(
+        bpart, bws, bimb = _move_loop(
             nbr, lane_work, vwgt_f, bpart, locked, pulled0, pulled1,
             noise[:, p], n_pert if p == 0 else no_pert, eps_abs, max_moves,
             bws, bimb, pos_only)
     return bpart, bws, bimb
 
 
-def _check(nbr, lane_work, vwgt_f, parts, locked, noise, eps_abs,
+def _check(nbr, lane_work, vwgt_f, parts, locked, keys, eps_abs,
            max_moves, n_pert, passes, extents) -> None:
     W, n, d = nbr.shape
     L = lane_work.shape[0]
@@ -255,7 +259,7 @@ def _check(nbr, lane_work, vwgt_f, parts, locked, noise, eps_abs,
         "vwgt": (vwgt_f, torch.float32, (L, n)),
         "parts": (parts, torch.int8, (L, n)),
         "locked": (locked, torch.bool, (L, n)),
-        "noise": (noise, torch.float32, (L, passes, 2, n)),
+        "keys": (keys, torch.int64, (L, 2)),
         "eps_abs": (eps_abs, torch.float32, (L,)),
         "max_moves": (max_moves, torch.int32, (L,)),
         "n_pert": (n_pert, torch.int32, (L,)),
@@ -263,8 +267,10 @@ def _check(nbr, lane_work, vwgt_f, parts, locked, noise, eps_abs,
 
 
 def _check_move_loop(nbr, lane_work, vwgt_f, part, locked, pulled0, pulled1,
-                     noise, pert, eps_abs, max_moves, bws, bimb,
+                     keys, p, pert, eps_abs, max_moves, bws, bimb,
                      extents) -> None:
+    if isinstance(p, bool) or not isinstance(p, int) or p < 0:
+        raise ValueError(f"p: want a pass index, an int >= 0, got {p!r}")
     W, n, d = nbr.shape
     L = lane_work.shape[0]
     check_tensors(nbr, {
@@ -275,7 +281,7 @@ def _check_move_loop(nbr, lane_work, vwgt_f, part, locked, pulled0, pulled1,
         "locked": (locked, torch.bool, (L, n)),
         "pulled0": (pulled0, torch.float32, (L, n)),
         "pulled1": (pulled1, torch.float32, (L, n)),
-        "noise": (noise, torch.float32, (L, 2, n)),
+        "keys": (keys, torch.int64, (L, 2)),
         "pert": (pert, torch.int32, (L,)),
         "eps_abs": (eps_abs, torch.float32, (L,)),
         "max_moves": (max_moves, torch.int32, (L,)),
@@ -315,18 +321,19 @@ def _lane_outputs(L: int, n: int, d: int, dev):
             torch.empty(L * stride, dtype=torch.uint8, device=dev))
 
 
-def fm_fused_kernel(nbr, lane_work, vwgt_f, parts, locked, noise, eps_abs,
+def fm_fused_kernel(nbr, lane_work, vwgt_f, parts, locked, keys, eps_abs,
                     max_moves, n_pert, passes: int, pos_only: bool = False,
                     extents: Optional[RowExtents] = None):
     """Launch the CUDA kernel on the current stream (CUDA tensors only).
 
     Same inputs as ``fm_fused_plain``, with the tiles' ``extents``
-    required.  Returns its three outputs and a fourth, each lane's tally
-    of the work its moves needed, int64 (L, 3): move-loop steps,
-    arithmetic operations, noise entries read.
+    required.  Returns its three
+    outputs and a fourth, each lane's tally of the work its moves needed,
+    int64 (L, 3): move-loop steps, arithmetic operations, noise entries
+    drawn.
     """
     global launches
-    args = (nbr, lane_work, vwgt_f, parts, locked, noise, eps_abs,
+    args = (nbr, lane_work, vwgt_f, parts, locked, keys, eps_abs,
             max_moves, n_pert)
     _check(*args, passes, extents)
     row_len = _card_row_len(nbr, extents)
@@ -345,28 +352,30 @@ def fm_fused_kernel(nbr, lane_work, vwgt_f, parts, locked, noise, eps_abs,
 
 
 def fm_move_loop_kernel(nbr, lane_work, vwgt_f, part, locked, pulled0,
-                        pulled1, noise, pert, eps_abs, max_moves, bws, bimb,
-                        pos_only: bool = False,
+                        pulled1, keys, p: int, pert, eps_abs, max_moves, bws,
+                        bimb, pos_only: bool = False,
                         extents: Optional[RowExtents] = None):
     """Launch the one-pass CUDA kernel on the current stream (CUDA only).
 
     Same inputs as ``fm_move_loop_plain``, with the tiles' ``extents``
-    required; returns its three outputs and the lanes' tally of the work
-    their moves needed, as ``fm_fused_kernel``.
+    required; returns its three
+    outputs and the lanes' tally of the work their moves needed, as
+    ``fm_fused_kernel``.
     """
     global move_loop_launches
-    args = (nbr, lane_work, vwgt_f, part, locked, pulled0, pulled1, noise,
-            pert, eps_abs, max_moves, bws, bimb)
-    _check_move_loop(*args, extents)
+    _check_move_loop(nbr, lane_work, vwgt_f, part, locked, pulled0, pulled1,
+                     keys, p, pert, eps_abs, max_moves, bws, bimb, extents)
     row_len = _card_row_len(nbr, extents)
-    args = tuple(a.contiguous() for a in args)
+    args = tuple(a.contiguous() for a in (
+        nbr, lane_work, vwgt_f, part, locked, pulled0, pulled1, keys, pert,
+        eps_abs, max_moves, bws, bimb))
     L = lane_work.shape[0]
     W, n, d = nbr.shape
     outs = _lane_outputs(L, n, d, nbr.device)
     lib = build.load("fm_fused")
     stream = torch.cuda.current_stream(nbr.device).cuda_stream
     ptrs = [a.data_ptr() for a in (args[0], row_len) + args[1:] + outs]
-    err = lib.fm_move_loop_launch(*ptrs, L, W, n, d, int(bool(pos_only)),
+    err = lib.fm_move_loop_launch(*ptrs, L, W, n, d, p, int(bool(pos_only)),
                                   stream)
     build.check(err, "fm_move_loop")
     move_loop_launches += 1
@@ -374,17 +383,18 @@ def fm_move_loop_kernel(nbr, lane_work, vwgt_f, part, locked, pulled0,
 
 
 def fm_move_loop(nbr, lane_work, vwgt_f, part, locked, pulled0, pulled1,
-                 noise, pert, eps_abs, max_moves, bws, bimb,
+                 keys, p: int, pert, eps_abs, max_moves, bws, bimb,
                  pos_only: bool = False,
                  extents: Optional[RowExtents] = None):
-    """One pass of FM moves per lane, the hoisted path's move loop.
+    """Pass ``p`` of FM moves per lane, the hoisted path's move loop.
 
     Inputs as ``fm_move_loop_plain``, with the tiles' ``extents``, which
-    the kernel needs.  CUDA tensors go to the kernel, CPU tensors to the
-    plain version, which checks ``lane_work`` and the extents.  Returns
-    (best part int8, bws, bimb).
+    the kernel needs.  CUDA tensors go to the kernel, which draws the
+    pass's noise from ``keys``; CPU tensors go to the plain version, which
+    checks ``lane_work`` and the extents.  Returns (best part int8, bws,
+    bimb).
     """
-    args = (nbr, lane_work, vwgt_f, part, locked, pulled0, pulled1, noise,
+    args = (nbr, lane_work, vwgt_f, part, locked, pulled0, pulled1, keys, p,
             pert, eps_abs, max_moves, bws, bimb)
     _check_move_loop(*args, extents)
     if nbr.device.type == "cuda":
@@ -405,13 +415,13 @@ def fm_fused_multi(nbr, lane_work, vwgt, parts, locked, keys, eps_frac,
     eps_frac (L,) float32; max_moves, n_pert (L,) int32; ``extents``, the
     tiles' ``RowExtents`` on their device (``band_batch.row_extents``),
     which the card needs.  The balance slack ``eps_frac · Σvwgt`` is
-    formed here in float32 and the noise is drawn here, as the reference
-    does.  Returns (parts int8, sep_w, imb).
+    formed here in float32, as the reference does; the noise is drawn
+    from ``keys`` by the kernel (or the plain version).  Returns (parts
+    int8, sep_w, imb).
     """
     vwgt_f = vwgt.to(torch.float32)
     eps_abs = eps_frac.to(torch.float32) * vwgt_f.sum(dim=1)
-    noise = fm_noise(keys, nbr.shape[1], passes)
-    args = (nbr, lane_work, vwgt_f, parts, locked, noise, eps_abs,
+    args = (nbr, lane_work, vwgt_f, parts, locked, keys, eps_abs,
             max_moves, n_pert)
     if nbr.device.type == "cuda":
         return fm_fused_kernel(*args, passes=passes, pos_only=pos_only,

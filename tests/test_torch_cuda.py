@@ -70,20 +70,19 @@ def test_bfs_kernel_equals_plain(card, L, n, d, width):
 
 def _fm_args(card, nbr, vwgt, part, locked, mm, passes, seed):
     """The fused kernel's inputs on the card, one tile a lane, and the
-    tiles' extents."""
+    tiles' extents; the kernel draws its noise from the keys."""
     L, n, _ = nbr.shape
     t = [torch.from_numpy(a).to(card) for a in (nbr, vwgt, part, locked, mm)]
     keys = prng.split(prng.PRNGKey(seed, card), L)
     vw = t[1]
     args = (t[0], torch.arange(L, dtype=torch.int32, device=card), vw, t[2],
-            t[3], fm_fused.fm_noise(keys, n, passes),
-            torch.full((L,), 0.1, device=card) * vw.sum(1), t[4],
+            t[3], keys, torch.full((L,), 0.1, device=card) * vw.sum(1), t[4],
             torch.full((L,), 8, dtype=torch.int32, device=card))
     return args, band_batch.row_extents(nbr).to(card)
 
 
-def _move_loop_args(card, nbr, vwgt, part, locked, mm, seed):
-    """One pass's move-loop inputs on the card, the gains from the plain
+def _move_loop_args(card, nbr, vwgt, part, locked, mm, seed, p=0):
+    """Pass p's move-loop inputs on the card, the gains from the plain
     version, and the tiles' extents."""
     L, n, _ = nbr.shape
     t = [torch.from_numpy(a).to(card) for a in (nbr, vwgt, part, locked, mm)]
@@ -91,10 +90,9 @@ def _move_loop_args(card, nbr, vwgt, part, locked, mm, seed):
     vw = t[1]
     p0, p1 = band_batch.sep_gain_multi_plain(t[0], lw, vw, t[2])
     keys = prng.split(prng.PRNGKey(seed, card), L)
-    noise = fm_fused.fm_noise(keys, n, 1)[:, 0].contiguous()
     ws = (vw * (t[2] == 2)).sum(1)
     bimb = ((vw * (t[2] == 0)).sum(1) - (vw * (t[2] == 1)).sum(1)).abs()
-    args = (t[0], lw, vw, t[2], t[3], p0, p1, noise,
+    args = (t[0], lw, vw, t[2], t[3], p0, p1, keys, p,
             torch.full((L,), 8, dtype=torch.int32, device=card),
             torch.full((L,), 0.1, device=card) * vw.sum(1), t[4], ws, bimb)
     return args, band_batch.row_extents(nbr).to(card)
@@ -163,21 +161,46 @@ def test_fm_kernels_equal_plain_at_anchor_and_capped_buckets(card, bucket):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("L,passes,n", [(8, 3, 8192), (3, 1, 100),
-                                        (16, 2, 4097), (1, 3, 1)])
-def test_noise_kernel_equals_plain(card, L, passes, n):
+@pytest.mark.parametrize("L,n,d,passes", [
+    (3, 100, 8, 3),         # hot state and noise pairs in shared memory
+    (4, 4096, 16, 2),       # the same, near the pairs' limit
+    (2, 8192, 1024, 3),     # the band bucket's shape: the pairs in scratch
+    (2, 32768, 8, 3)])      # all of the state in scratch
+def test_fm_kernels_draw_the_plain_noise(card, L, n, d, passes):
+    """Both FM kernels, drawing their noise in place, equal their plain
+    versions, which draw with ``fm_noise_plain``, at every pass."""
+    lanes = _lanes(3 * L + n + d, L, n, d)
     for seed in (0, 7, 2 ** 31 - 1):
-        keys = prng.split(prng.PRNGKey(seed, card), L)
-        before = fm_fused.noise_launches
-        got = fm_fused.fm_noise(keys, n, passes)
-        assert fm_fused.noise_launches == before + 1
-        assert torch.equal(got, fm_fused.fm_noise_plain(keys, n, passes))
+        args, extents = _fm_args(card, *lanes, passes, seed)
+        got = fm_fused.fm_fused_kernel(*args, passes=passes, extents=extents)
+        for a, b in zip(got[:3], fm_fused.fm_fused_plain(*args,
+                                                         passes=passes)):
+            assert torch.equal(a, b)
+        for p in range(passes):
+            args, extents = _move_loop_args(card, *lanes, seed, p)
+            got = fm_fused.fm_move_loop_kernel(*args, extents=extents)
+            for a, b in zip(got[:3], fm_fused.fm_move_loop_plain(*args)):
+                assert torch.equal(a, b)
 
 
-def test_nested_dissection_card_equals_cpu(card):
+def test_fm_noise_refuses_card_keys(card):
+    """On the card the kernels draw the noise: ``fm_noise`` makes no noise
+    tensor there and runs no plain torch."""
+    keys = prng.split(prng.PRNGKey(3, card), 4)
+    with pytest.raises(ValueError):
+        fm_fused.fm_noise(keys, 64, 3)
+
+
+def _no_plain_noise(*_, **__):
+    raise AssertionError("a noise tensor was drawn on the card path")
+
+
+def test_nested_dissection_card_equals_cpu(card, monkeypatch):
     for g in (grid3d(7, 7, 7), rgg2d(400, seed=2)):
         band_batch.launches = fm_fused.launches = matching.launches = 0
-        p_card = nested_dissection(g, seed=1, nproc=4, device=card)
+        with monkeypatch.context() as m:
+            m.setattr(fm_fused, "fm_noise_plain", _no_plain_noise)
+            p_card = nested_dissection(g, seed=1, nproc=4, device=card)
         assert band_batch.launches > 0 and fm_fused.launches > 0
         assert matching.launches > 0
         assert np.array_equal(p_card, nested_dissection(g, seed=1, nproc=4,
@@ -278,7 +301,9 @@ def test_spmv_kernel_rounds_each_bfloat16_product(card):
     assert exact.tolist() == [2 ** -14] * 2
 
 
-@pytest.mark.parametrize("n,d", [(1000, 4), (4097, 9), (300, 33)])
+@pytest.mark.parametrize("n,d", [
+    (1000, 4), (4097, 8), (333, 12), (100003, 16),    # the vector path
+    (4097, 3), (5001, 5), (300, 33), (4097, 9)])      # the group path
 def test_diffusion_kernel_equals_plain(card, n, d):
     rng = np.random.default_rng(n * d)
     nbr = rng.integers(0, n, (n, d)).astype(np.int32)
@@ -298,10 +323,29 @@ def test_diffusion_kernel_equals_plain(card, n, d):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
+def test_diffusion_group_path_for_unaligned_arrays(card):
+    """Ids and values that do not start on 16 bytes take the group path."""
+    rng = np.random.default_rng(5)
+    n, d = 2049, 8
+    nbr = torch.from_numpy(rng.integers(-1, n, (n + 1, d)).astype(
+        np.int32)).to(card)[1:]                     # offset by one row ...
+    val = torch.from_numpy(np.abs(rng.standard_normal(n * d + 1)).astype(
+        np.float32)).to(card)[1:].view(n, d)        # ... and by 4 bytes
+    x = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(card)
+    inj = torch.zeros(n, device=card)
+    inj[:3], inj[-3:] = 0.5, -0.5
+    got, want = x, x
+    for _ in range(3):
+        got = diffusion.diffusion_step_kernel(nbr, val, got, inj)
+        want = diffusion.diffusion_step_plain(nbr, val, want, inj)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
 def test_nested_dissection_hoisted_card_equals_cpu(card, monkeypatch):
     g = grid3d(7, 7, 7)
     want = nested_dissection(g, seed=1, nproc=4, device="cpu")
     monkeypatch.setenv("REPRO_FM_MODE", "hoisted")
+    monkeypatch.setattr(fm_fused, "fm_noise_plain", _no_plain_noise)
     band_batch.gain_launches = fm_fused.move_loop_launches = 0
     fm_fused.launches = 0
     got = nested_dissection(g, seed=1, nproc=4, device=card)

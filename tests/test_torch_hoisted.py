@@ -156,12 +156,12 @@ def test_move_loop_carries_bimb_and_leaves_inputs():
     lw = torch.arange(3, dtype=torch.int32)
     vw = t[1].float()
     p0, p1 = band_batch.sep_gain_multi(t[0], lw, vw, t[2])
-    noise = fm_fused.fm_noise(key_from_array(keys), N, 1)[:, 0].contiguous()
     bws = torch.full((3,), -1.0)                # nothing can beat these
     bimb = torch.tensor([0.5, 1.5, 2.5])
     inputs = [x.clone() for x in (t[2], p0, p1, bws, bimb)]
     part_out, bws_out, bimb_out = fm_fused.fm_move_loop(
-        t[0], lw, vw, t[2], t[3], p0, p1, noise, torch.from_numpy(n_pert),
+        t[0], lw, vw, t[2], t[3], p0, p1, key_from_array(keys), 0,
+        torch.from_numpy(n_pert),
         torch.from_numpy(eps) * vw.sum(1), torch.from_numpy(mm), bws, bimb)
     assert torch.equal(part_out, t[2])
     assert torch.equal(bws_out, bws) and torch.equal(bimb_out, bimb)

@@ -3,7 +3,8 @@
 Exact equality is the stated tolerance: the port must reproduce the
 reference's random bits, or no ordering could match.  Covers the shapes
 the ordering draws: (2, n) FM noise, (n, d) matching tiebreaks, (n,)
-coins and grant tiebreaks, and lane batches of keys.
+coins and grant tiebreaks, and lane batches of keys; and a scalar model
+of the rule by which the FM kernels draw their noise in place.
 """
 import os
 
@@ -19,7 +20,7 @@ from repro.kernels.fm_fused import fm_noise as jax_fm_noise  # noqa: E402
 from repro.util import mix_seeds as jax_mix_seeds, pow2 as jax_pow2  # noqa: E402
 from repro_torch import prng  # noqa: E402
 from repro_torch.convert import key_from_array  # noqa: E402
-from repro_torch.kernels.fm_fused import fm_noise  # noqa: E402
+from repro_torch.kernels.fm_fused import fm_noise, fm_noise_plain  # noqa: E402
 from repro_torch.util import mix_seeds, pow2  # noqa: E402
 
 SEEDS = [0, 1, 5, 97, 12345, 2 ** 31 - 1, 2 ** 31 + 7, 4_000_000_000]
@@ -70,6 +71,59 @@ def test_fm_noise_matches_reference(n, passes):
     got = fm_noise(key_from_array(np.asarray(jkeys)), n, passes)
     assert got.dtype == torch.float32
     assert np.array_equal(got.numpy(), want)
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _threefry(k0, k1, x0, x1):
+    """Threefry-2x32 on Python ints, as ``csrc/threefry.cuh`` writes it."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0, x1 = (x0 + ks[0]) & _M32, (x1 + ks[1]) & _M32
+    for step in range(5):
+        for r in ((13, 15, 26, 6), (17, 29, 16, 24))[step % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = (((x1 << r) | (x1 >> (32 - r))) & _M32) ^ x0
+        x0 = (x0 + ks[(step + 1) % 3]) & _M32
+        x1 = (x1 + ks[(step + 2) % 3] + step + 1) & _M32
+    return x0, x1
+
+
+def _kernel_noise_entry(key, p, s, n, v):
+    """The FM kernels' in-place draw, one entry at a time: pass p's subkey
+    is split(k_p)[1], with k_0 the lane's key and k_{q+1} = split(k_q)[0];
+    side s of vertex v is the uniform at flat index s * n + v."""
+    k = key
+    for _ in range(p):
+        k = _threefry(*k, 0, 0)
+    sub = _threefry(*k, 0, 1)
+    idx = s * n + v
+    b0, b1 = _threefry(*sub, idx >> 32, idx & _M32)
+    bits = np.uint32(((b0 ^ b1) >> 9) | 0x3F800000)
+    return bits.view(np.float32) - np.float32(1.0)
+
+
+@pytest.mark.parametrize("n", [64, 1000, 8192])
+@pytest.mark.parametrize("passes", [1, 2, 3])
+def test_kernel_draw_rule_equals_fm_noise(passes, n):
+    """The rule the FM kernels draw by, on sampled (lane, pass, side,
+    vertex), equals ``fm_noise_plain`` and the reference's ``fm_noise``."""
+    L = 4
+    jkeys = jax.random.split(jax.random.PRNGKey(31 * n + passes), L)
+    want = np.asarray(jax_fm_noise(jkeys, n, passes))
+    keys = key_from_array(np.asarray(jkeys))
+    plain = fm_noise_plain(keys, n, passes).numpy()
+    rng = np.random.default_rng(n + passes)
+    samples = [(0, 0, 0, 0), (L - 1, passes - 1, 1, n - 1)] + [
+        tuple(int(x) for x in t) for t in zip(
+            rng.integers(0, L, 40), rng.integers(0, passes, 40),
+            rng.integers(0, 2, 40), rng.integers(0, n, 40))]
+    for lane, p, s, v in samples:
+        key = tuple(int(w) for w in keys[lane])
+        got = _kernel_noise_entry(key, p, s, n, v)
+        assert got == plain[lane, p, s, v] == want[lane, p, s, v], \
+            (lane, p, s, v)
+        assert got.tobytes() == plain[lane, p, s, v].tobytes()
 
 
 def test_seed_helpers_are_copies():
