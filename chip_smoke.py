@@ -59,9 +59,35 @@ Phases, each of which must pass:
    same permutation as phase 5, the matching, gain and move-loop kernels
    launched and the fused kernel not, no noise tensor drawn, and the same
    split;
-7. a ``{"kernels": [...]}`` line with each kernel's launches, error, times,
-   bound and library time, the card's name and power limit, and as the
-   last line ``{"ok": true, "device": {...}}``.
+7. the ordering service on the card (``OrderingService()``, the port's
+   ``service`` package): the reference service bench's full stream (8
+   graphs, 24 requests at nproc 4, three arrival waves of 8 with a
+   ``drain()`` after each) and two ``grid3d(30, 30, 30)`` requests at
+   nproc 8, seeds 0 and 1, with the first wave; the kernel launch counts
+   set to 0 just before and read just after.  Every result equals the
+   looped ``nested_dissection`` on the card; 10 orderings computed and 16
+   served from the cache; some launch shared by two requests; launches
+   == live buckets in every wave; no degrade and no isolation.  Prints
+   both paths' walls, per stage (match, bfs, fm) the calls, kernel
+   launches and split, the waves, the multi-request waves, the exec
+   percentiles by size class, and every bucket the waves produced;
+8. the matching, BFS and FM kernels on the bucket groups phase 7's waves
+   gave them (``PINNED``: the root buckets of the two grid3d(30³)
+   requests together, and the buckets with the most lanes), as the
+   executors pack them: each equals its plain version exactly (the
+   matching and BFS in both designs, each timed alone, and through the
+   wrapper), and each lane equals its work's singleton call; then both
+   designs of the matching and BFS at 2^18 slots a lane, d 8, 16 and 32,
+   at L = 1 and at the service's most lanes (``band_batch.lane_plan``'s
+   threshold);
+9. the reference bench's chaos run (its ``chaos_plan``, its 6 graphs at
+   nproc 2) on the card: every ``ok`` result bit-identical to the
+   fault-free run, the cache clean, an FM group degraded to hoisted, no
+   call of the oracle or of a plain version, every FM call on the card;
+10. a ``{"kernels": [...]}`` line with each kernel's launches, error,
+   times, bound and library time (rows 0-2 also with their phase 7
+   launches and phase 8 multi-lane times), the card's name and power
+   limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without that last line.  Imports neither jax
 nor the reference package.
@@ -921,16 +947,17 @@ def _ordering(phase: str, counters: dict) -> dict:
     import torch
     from repro_torch.core.nd import nested_dissection
     from repro_torch.graphs.generators import grid3d
+    from repro_torch.obs.instrument import instrument
     from repro_torch.sparse.symbolic import nnz_opc
     g = grid3d(30, 30, 30)
-    stage_s = {}
     torch.cuda.synchronize()
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
     t0 = time.perf_counter()
-    perm = nested_dissection(g, seed=0, nproc=8, device="cuda",
-                             stage_s=stage_s)
+    with instrument() as ins:
+        perm = nested_dissection(g, seed=0, nproc=8, device="cuda")
     wall = time.perf_counter() - t0
+    stage_s = ins.stage_s
     launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
     if not np.array_equal(np.sort(perm), np.arange(g.n)):
         raise AssertionError(f"{phase}: not a permutation")
@@ -1137,6 +1164,495 @@ def per_call(res: dict) -> None:
             res["launches"][kernel] / max(split["calls"], 1)
 
 
+# ---------------------------------------------------------------- service
+def bench_graphs():
+    """The reference service bench's full stream's 8 unique graphs
+    (``benchmarks/service_bench.py``, its ``REPRO_BENCH_FULL`` branch)."""
+    from repro_torch.graphs import generators as G
+    return [G.grid3d(12, 12, 12), G.grid2d(48, 48), G.circuit(4000, seed=3),
+            G.rgg2d(3000, seed=2), G.grid3d(10, 10, 14),
+            G.cage_like(2500, seed=5), G.grid2d(40, 52),
+            G.grid3d(11, 11, 11)]
+
+
+#: the service phase's problems beyond the bench stream: grid3d(30³) at
+#: nproc 8, seeds 0 and 1, submitted with the stream's first arrival wave
+BIG_SEEDS = (0, 1)
+
+#: the buckets the service phase's waves produce, as (kind, n_pad, d_pad,
+#: lanes), logged from its first card run and pinned: ``root`` is the
+#: largest bucket (by n_pad, then d_pad) holding lanes of both
+#: grid3d(30³) requests, ``wide`` the bucket with the most lanes (ties:
+#: the first seen).  The waves are a function of the requests and the
+#: pump policy; the policy's clocks (30 s park aging, deadline rescue)
+#: do not fire in a run of this length.
+PINNED = {"bfs_root": ("bfs", 32768, 8, 2),
+          "fm_root": ("fm", 8192, 1024, 16),
+          "match_root": ("match", 32768, 8, 2),
+          "bfs_wide": ("bfs", 256, 8, 52),
+          "fm_wide": ("fm", 128, 16, 456),
+          "match_wide": ("match", 256, 8, 58)}
+
+
+def _lanes_of(kind: str, works) -> int:
+    """Lanes of one bucket's call: a work each for match and bfs, the
+    works' instances padded to 8 for fm (``pack_fm_bucket``)."""
+    if kind != "fm":
+        return len(works)
+    from repro_torch.util import pow2
+    real = sum(pow2(w.k_inst, 2) for w in works)
+    return -(-real // 8) * 8
+
+
+@contextlib.contextmanager
+def wave_groups(log: list, keep: dict, big_tags):
+    """While the block runs, log every router wave's bucket groups into
+    ``log`` (one dict per wave: kind → [(n_pad, d_pad, lanes, requests)])
+    and keep, per kind, the works of two groups for the multi-lane
+    checks: ``root``, the largest (by n_pad, then d_pad) holding lanes
+    of both ``big_tags``, and
+    ``wide``, the one with the most lanes.  Works are held by
+    reference, not copied."""
+    from collections import defaultdict
+    from repro_torch.service import router
+    real = router.execute_wave
+
+    def logged(works, level=None, tags=None, recovery=None, device=None):
+        groups = defaultdict(list)
+        for w, tag in zip(works, tags):
+            for item in (w if isinstance(w, list) else [w]):
+                groups[(router.work_kind(item), item.bucket_key())].append(
+                    (tag, item))
+        wave = defaultdict(list)
+        for (kind, bucket), items in groups.items():
+            ws = [w for _, w in items]
+            tags_g = {t for t, _ in items}
+            lanes = _lanes_of(kind, ws)
+            wave[kind].append((bucket[0], bucket[1], lanes, len(tags_g)))
+            if set(big_tags) <= tags_g and bucket[:2] > keep.get(
+                    ("root", kind), ((0, 0), None))[0]:
+                keep[("root", kind)] = (bucket[:2], ws)
+            if lanes > keep.get(("wide", kind), (0, None))[0]:
+                keep[("wide", kind)] = (lanes, ws)
+        log.append(dict(wave))
+        return real(works, level, tags, recovery, device)
+    router.execute_wave = logged
+    try:
+        yield
+    finally:
+        router.execute_wave = real
+
+
+def _kernel_counts():
+    """name → (module, attribute) of every launch count of the ordering's
+    kernels."""
+    from repro_torch.kernels import band_batch, fm_fused, matching
+    return {"heavy_edge_matching_multi": (matching, "launches"),
+            "bfs_multi": (band_batch, "launches"),
+            "fm_fused_multi": (fm_fused, "launches"),
+            "sep_gain_multi": (band_batch, "gain_launches"),
+            "fm_move_loop": (fm_fused, "move_loop_launches")}
+
+
+@contextlib.contextmanager
+def counted(counts: dict):
+    """Set every kernel launch count to 0 as the block starts and read
+    them into ``counts`` as it ends."""
+    import torch
+    table = _kernel_counts()
+    torch.cuda.synchronize()
+    for mod, attr in table.values():
+        setattr(mod, attr, 0)
+    yield
+    counts.update({k: getattr(mod, attr) for k, (mod, attr) in table.items()})
+
+
+def _exec_by_class(stats: dict) -> dict:
+    return {cls: {k: d[k] for k in ("count", "p50_exec_ms", "p95_exec_ms")}
+            for cls, d in stats["by_class"].items()}
+
+
+def phase_service(device: str = "cuda", big_side: int = 30) -> dict:
+    """Phase 7: the ordering service on the card at the bench's full
+    stream plus two grid3d(30³) requests, against the looped driver on
+    the same 10 problems."""
+    import numpy as np
+    from repro_torch.core.nd import NDConfig, nested_dissection
+    from repro_torch.graphs.generators import grid3d
+    from repro_torch.obs.instrument import instrument
+    from repro_torch.service import OrderingService
+    from repro_torch.service.fingerprint import request_fingerprint
+    uniq = bench_graphs()
+    big = grid3d(big_side, big_side, big_side)
+    problems = [(g, i, 4) for i, g in enumerate(uniq)] + \
+        [(big, s, 8) for s in BIG_SEEDS]
+    big_tags = [request_fingerprint(big, s, 8, NDConfig()) for s in BIG_SEEDS]
+    svc = OrderingService(device=device)
+    wave_log, keep, counts, splits, stages = [], {}, {}, {}, {}
+    rids = []
+    with env(REPRO_FM_MODE=None, REPRO_FM_GAIN=None), \
+            instrument() as ins, wave_groups(wave_log, keep, big_tags), \
+            fm_split(splits), stage_split(stages), counted(counts):
+        t0 = time.perf_counter()
+        for k in range(3):              # three arrival waves of 8
+            for i, g in enumerate(uniq):
+                rids.append(svc.submit(g, seed=i, nproc=4))
+            if k == 0:
+                rids += [svc.submit(big, seed=s, nproc=8)
+                         for s in BIG_SEEDS]
+            svc.drain()
+        wall = time.perf_counter() - t0
+    st = svc.stats()
+    if min(counts[k] for k in ("heavy_edge_matching_multi", "bfs_multi",
+                               "fm_fused_multi")) <= 0:
+        raise AssertionError(f"service phase skipped a kernel: {counts}")
+    if st["computed"] != 10 or st["cache_hits"] != 16:
+        raise AssertionError(f"service phase: computed {st['computed']}, "
+                             f"cache hits {st['cache_hits']} (want 10, 16)")
+    if st["degraded"] or st["router"]["isolations"] or st["failed"]:
+        raise AssertionError(f"service phase degraded or isolated work "
+                             f"without a fault: {st}")
+    waves = ins.waves
+    bad = [w for w in waves for k in w["launches"]
+           if w["launches"][k] != w["buckets"][k]]
+    if bad or sum(len(w["launches"]) for w in waves) == 0:
+        raise AssertionError(f"service phase: launches != buckets in "
+                             f"{len(bad)} waves")
+    shared = sum(w["shared_launches"] for w in waves)
+    if shared <= 0:
+        raise AssertionError("service phase: no launch served two requests")
+
+    # the looped driver on the same 10 problems, with the same splits
+    loop_counts, loop_splits, loop_stages = {}, {}, {}
+    with env(REPRO_FM_MODE=None, REPRO_FM_GAIN=None), \
+            fm_split(loop_splits), stage_split(loop_stages), \
+            counted(loop_counts):
+        t0 = time.perf_counter()
+        refs = [nested_dissection(g, seed=s, nproc=p, device=device)
+                for g, s, p in problems]
+        loop_wall = time.perf_counter() - t0
+    perms = {}
+    for rid in rids:
+        res = svc.poll(rid)
+        if res is None or res.status != "ok":
+            raise AssertionError(f"service request {rid} did not resolve ok")
+        perms.setdefault(res.fingerprint, res.perm)
+    for (g, s, p), ref in zip(problems, refs):
+        fp = request_fingerprint(g, s, p, NDConfig())
+        if not np.array_equal(perms[fp], ref):
+            raise AssertionError(f"service != looped nested_dissection for "
+                                 f"n={g.n} seed={s} nproc={p}")
+    res = {"requests": len(rids), "computed": st["computed"],
+           "cache_hits": st["cache_hits"], "wall_s": wall,
+           "looped_wall_s": loop_wall, "waves": len(waves),
+           "multi_request_waves": sum(1 for w in waves
+                                      if w["requests"] >= 2),
+           "shared_launches": shared,
+           "exec_by_class": _exec_by_class(st),
+           "launches": counts, "looped_launches": loop_counts}
+    for name, split, stage in (("service", splits, stages),
+                               ("looped", loop_splits, loop_stages)):
+        res[f"{name}_split"] = {
+            "match": stage["match"], "bfs": stage["bfs"],
+            "fm": {k: v for k, v in split.items()}}
+    res["dispatches"] = {
+        kind: sum(w["launches"].get(kind, 0) for w in waves)
+        for kind in ("match", "bfs", "fm")}
+    buckets = {}
+    for wave in wave_log:
+        for kind, groups in wave.items():
+            for n_pad, d_pad, lanes, reqs in groups:
+                key = f"{kind} {n_pad}x{d_pad}"
+                b = buckets.setdefault(key, [0, 0, 0])
+                b[0] += 1
+                b[1] = max(b[1], lanes)
+                b[2] = max(b[2], reqs)
+    log(f"phase 7 service == looped nested_dissection on the card for 10 "
+        f"problems (8 bench graphs nproc 4, grid3d(30³) nproc 8 seeds "
+        f"{list(BIG_SEEDS)}): {json.dumps(res)}")
+    log(f"phase 7 service buckets (kind n_pad x d_pad: calls, most lanes, "
+        f"most requests): {json.dumps(buckets)}")
+    res["buckets"] = buckets
+    res["keep"] = keep
+    return res
+
+
+# ---------------------------------------------------------------- lanes
+def _lane_case(kind: str, works) -> dict:
+    """One bucket group of the service's waves as the executor packs it:
+    the kernel through its wrapper == its plain version on the card ==
+    each design's C entry, and each lane == that work's singleton call,
+    all exactly; CUDA-event times of the designs alone and the wrapper."""
+    import torch
+    from repro_torch.core import band, coarsen
+    from repro_torch.kernels import band_batch as bb
+    from repro_torch.kernels import matching
+    from repro_torch.kernels.band_batch import lane_plan
+    card = torch.device("cuda")
+    L = len(works)
+    if kind == "match":
+        n_pad, d_pad, rounds = works[0].bucket_key()
+        buf = coarsen.pack_match_bucket(works, n_pad, d_pad, card).cuda()
+        args = coarsen.match_parts(buf, L, n_pad, d_pad)
+        extra, source = (rounds,), "matching"
+        kernel = matching.heavy_edge_matching_multi_kernel
+        plain = matching.heavy_edge_matching_multi_plain
+        designs = _match_designs(*args, rounds)
+    else:
+        n_pad, d_pad, width = works[0].bucket_key()
+        buf = band.pack_bfs_bucket(works, n_pad, d_pad, card).cuda()
+        args = band.bfs_parts(buf, L, n_pad, d_pad)
+        extra, source = (width,), "bfs_multi"
+        kernel, plain = bb.bfs_multi_kernel, bb.bfs_multi_plain
+        designs = _bfs_designs(*args, width)
+    got = kernel(*args, *extra)
+    want = plain(*args, *extra)
+    if not torch.equal(got, want):
+        raise AssertionError(f"{kind} kernel differs from its plain version "
+                             f"at {(L, n_pad, d_pad)}")
+    for j in range(L):
+        one = kernel(*(a[j:j + 1] for a in args), *extra)
+        if not torch.equal(one[0], got[j]):
+            raise AssertionError(f"{kind} lane {j} of {(L, n_pad, d_pad)} "
+                                 f"differs from its singleton call")
+    plan = lane_plan(n_pad, d_pad)
+    ms = {}
+    for name, (entry, e_args, out) in designs.items():
+        if name not in ("grid", _design_key(plan)):
+            continue
+        ms[name] = entry_ms(source, entry, *e_args, reps=20)
+        if not torch.equal(out, want):
+            raise AssertionError(f"{kind}'s {name} design differs from its "
+                                 f"plain version at {(L, n_pad, d_pad)}")
+    return dict(shape=[L, n_pad, d_pad], plan=plan, ms=ms[_design_key(plan)],
+                designs_ms=ms, call_ms=cuda_ms(lambda: kernel(*args, *extra),
+                                               reps=20),
+                plain_ms=cuda_ms(lambda: plain(*args, *extra), reps=2),
+                max_abs_err=0)
+
+
+def _fm_lane_case(works) -> dict:
+    """``_fm_case`` on one FM bucket group of the service's waves, and
+    each work's lanes of the group's call == that work's own call."""
+    import torch
+    from repro_torch.core.fm import pack_fm_bucket
+    from repro_torch.kernels import fm_fused as ff
+    passes, pos_only = works[0].passes, works[0].pos_only
+
+    def call(ws):
+        host, counts = pack_fm_bucket(ws)
+        t = {k: v.to("cuda") for k, v in host.items()}
+        return ff.fm_fused_multi(**t, passes=passes,
+                                 pos_only=pos_only), counts
+    out = _fm_case(works)
+    group, counts = call(works)
+    off = 0
+    for w, k in zip(works, counts):
+        one, _ = call([w])
+        for a, b in zip(group, one):
+            if not torch.equal(a[off:off + k], b[:k]):
+                raise AssertionError(f"fm lanes {off}-{off + k} of "
+                                     f"{out['shape']} differ from the "
+                                     f"work's own call")
+        off += k
+    return out
+
+
+def _pinned(service: dict) -> list:
+    """(case name, kind, works) of the groups the service phase kept,
+    with their (kind, n_pad, d_pad, lanes) held to ``PINNED``."""
+    cases = []
+    for (which, kind), (_, works) in sorted(service["keep"].items()):
+        n_pad, d_pad = works[0].bucket_key()[:2]
+        cases.append((f"{kind}_{which}", kind, works,
+                      (kind, n_pad, d_pad, _lanes_of(kind, works))))
+    shapes = {name: pin for name, _, _, pin in cases}
+    log(f"phase 8 service groups (kind, n_pad, d_pad, lanes): "
+        f"{json.dumps(shapes)}")
+    if shapes != PINNED:
+        raise AssertionError(f"the service's buckets moved: {shapes}, "
+                             f"pinned {PINNED}")
+    return cases
+
+
+def _plan_cases(lanes_max: dict) -> dict:
+    """Both designs of the matching and the BFS at 2^18 slots a lane,
+    d 8, 16 and 32, at L = 1 and at the service's most lanes for the
+    kernel: random buckets, each design held to the plain version."""
+    import torch
+    from repro_torch import prng
+    out = {}
+    for kind in ("match", "bfs"):
+        for d in (8, 16, 32):
+            n = 2 ** 18 // d
+            for L in sorted({1, lanes_max[kind]}):
+                nbr, wgt = (t.cuda() for t in _match_inputs(L, n, d, L + d))
+                if kind == "match":
+                    keys = prng.split(prng.PRNGKey(d, "cuda"), L)
+                    from repro_torch.kernels import matching
+                    want = matching.heavy_edge_matching_multi_plain(
+                        nbr, wgt, keys, 8)
+                    designs, source = _match_designs(nbr, wgt, keys, 8), \
+                        "matching"
+                else:
+                    import numpy as np
+                    from repro_torch.kernels import band_batch as bb
+                    rng = np.random.default_rng(L + d)
+                    src = torch.from_numpy(
+                        (rng.random((L, n)) < 0.01).astype(np.int32)).cuda()
+                    want = bb.bfs_multi_plain(nbr, src, 3)
+                    designs, source = _bfs_designs(nbr, src, 3), "bfs_multi"
+                ms = {}
+                for name, (entry, e_args, res) in designs.items():
+                    if name not in ("grid", "cluster_8", "cluster_16"):
+                        continue
+                    ms[name] = entry_ms(source, entry, *e_args, reps=10)
+                    if not torch.equal(res, want):
+                        raise AssertionError(f"{kind} {name} differs from "
+                                             f"its plain version at "
+                                             f"{(L, n, d)}")
+                out[f"{kind} L{L} {n}x{d}"] = ms
+    return out
+
+
+def phase_lanes(service: dict) -> dict:
+    """Phase 8: the matching, BFS and FM kernels on the bucket groups the
+    service phase's waves gave them (many lanes, lanes of two requests),
+    and ``lane_plan``'s two designs at 2^18 slots."""
+    out = {}
+    for name, kind, works, _ in _pinned(service):
+        out[name] = _fm_lane_case(works) if kind == "fm" else \
+            _lane_case(kind, works)
+        shown = {k: v for k, v in out[name].items() if k != "move_loop"}
+        log(f"phase 8 {name} == plain, each lane == its singleton: "
+            f"{json.dumps(shown)}")
+    lanes_max = {kind: max(most for key, (_, most, _) in
+                           service["buckets"].items()
+                           if key.startswith(kind + " "))
+                 for kind in ("match", "bfs")}
+    out["plan"] = _plan_cases(lanes_max)
+    log(f"phase 8 lane_plan at 2^18 slots (ms alone, L 1 and the "
+        f"service's most lanes {lanes_max}): {json.dumps(out['plan'])}")
+    return out
+
+
+# ---------------------------------------------------------------- chaos
+def chaos_plan():
+    """The reference service bench's seeded chaos schedule
+    (``benchmarks/service_bench.py``'s ``chaos_plan``)."""
+    from repro_torch.service import faults
+    return faults.FaultPlan(seed=11, specs=[
+        faults.FaultSpec(site="fm", kind="transient", rate=0.15, count=4),
+        faults.FaultSpec(site="fm", kind="nan", at=(2,)),
+        faults.FaultSpec(site="bfs", kind="delay", rate=0.1,
+                         delay_s=0.01, count=6),
+        faults.FaultSpec(site="wave", kind="transient", at=(1,)),
+        faults.FaultSpec(site="result", kind="corrupt_perm", at=(0,)),
+    ])
+
+
+@contextlib.contextmanager
+def plain_calls(calls: list, modes: list):
+    """Count into ``calls[0]`` every call of a kernel's plain version or
+    the oracle, and record each FM call's (mode, device) into ``modes``,
+    while the block runs."""
+    from repro_torch.kernels import band_batch, fm_fused, matching, ops, ref
+    with contextlib.ExitStack() as stack:
+        for module, name in (
+                (matching, "heavy_edge_matching_multi_plain"),
+                (band_batch, "bfs_multi_plain"),
+                (band_batch, "sep_gain_multi_plain"),
+                (fm_fused, "fm_fused_plain"),
+                (fm_fused, "fm_move_loop_plain"), (ref, "fm_fused_ref")):
+            fn = getattr(module, name)
+
+            def counted_fn(*args, _fn=fn, **kw):
+                calls[0] += 1
+                return _fn(*args, **kw)
+            setattr(module, name, counted_fn)
+            stack.callback(setattr, module, name, fn)
+        batch = ops.fm_refine_batch
+
+        def recorded(*args, mode=None, device=None, **kw):
+            modes.append((mode, str(device)))
+            return batch(*args, mode=mode, device=device, **kw)
+        ops.fm_refine_batch = recorded
+        stack.callback(setattr, ops, "fm_refine_batch", batch)
+        yield
+
+
+def phase_chaos(device: str = "cuda") -> dict:
+    """Phase 9: the reference bench's chaos run (its ``chaos_plan``, its
+    six graphs at nproc 2, a coalesced duplicate pair and two
+    infeasible-deadline requests) on the card.  Every ``ok`` result is
+    the fault-free looped ordering, the cache holds no faulted entry, an
+    FM group degrades to hoisted, and no work reaches the oracle, a
+    plain version or the CPU."""
+    import numpy as np
+    from repro_torch.core.nd import nested_dissection
+    from repro_torch.graphs import generators as G
+    from repro_torch.service import OrderingService, faults
+    from repro_torch.service.fingerprint import request_fingerprint
+    graphs = [G.grid2d(14, 14), G.grid3d(6, 6, 6), G.grid2d(16, 12),
+              G.grid2d(13, 11), G.grid2d(12, 12), G.grid3d(5, 5, 6)]
+    seeds = [100 + k for k in range(len(graphs))]
+    with env(REPRO_FM_MODE=None, REPRO_FM_GAIN=None):
+        refs = [nested_dissection(g, seed=s, nproc=2, device=device)
+                for g, s in zip(graphs, seeds)]
+        svc = OrderingService(device=device)
+        for g in (G.grid2d(10, 10), G.grid2d(18, 15)):
+            svc.submit(g, seed=0, nproc=2)
+        svc.drain()
+        calls, modes = [0], []
+        t0 = time.perf_counter()
+        with faults.fault_injection(chaos_plan()) as inj, \
+                plain_calls(calls, modes):
+            rids = [svc.submit(g, seed=s, nproc=2)
+                    for g, s in zip(graphs, seeds)]
+            dup_rids = [svc.submit(graphs[0], seed=seeds[0], nproc=2)
+                        for _ in range(2)]
+            shed_rids = [svc.submit(G.grid2d(15, 13 + k), seed=0, nproc=2,
+                                    deadline_s=0.0) for k in range(2)]
+            svc.drain()
+        wall = time.perf_counter() - t0
+    results = [svc.poll(r) for r in rids + dup_rids + shed_rids]
+    if any(r is None for r in results):
+        raise AssertionError("chaos: a request hung without a status")
+    statuses = [r.status for r in results]
+    for res, ref in zip(results, refs + [refs[0]] * 2):
+        if res.status == "ok" and not np.array_equal(res.perm, ref):
+            raise AssertionError("chaos: an ok result differs from the "
+                                 "fault-free run")
+    for g, s, ref in zip(graphs, seeds, refs):
+        cached = svc.cache.get(request_fingerprint(g, s, 2, svc.default_cfg))
+        if cached is not None and not np.array_equal(cached, ref):
+            raise AssertionError("chaos: a faulted entry reached the cache")
+    if any(svc.poll(r).status != "shed" for r in shed_rids):
+        raise AssertionError("chaos: infeasible requests were not shed")
+    st = svc.stats()
+    fm_modes = sorted({m for m, _ in modes})
+    devices = sorted({d for _, d in modes})
+    out = {"requests": len(results), "wall_s": wall,
+           "injected": inj.snapshot(),
+           "terminal": {k: statuses.count(k)
+                        for k in ("ok", "shed", "failed")},
+           "retries": st["fault_retries"], "degraded": st["degraded"],
+           "isolations": st["router"]["isolations"],
+           "fm_modes": fm_modes, "fm_devices": devices,
+           "plain_or_oracle_calls": calls[0]}
+    log(f"phase 9 chaos on {device}: {json.dumps(out)}")
+    if inj.injected == 0:
+        raise AssertionError("chaos: the plan injected nothing")
+    if st["degraded"] < 1 or "hoisted" not in fm_modes:
+        raise AssertionError(f"chaos: no FM group degraded to hoisted: "
+                             f"{out}")
+    if device == "cuda" and ("oracle" in fm_modes or calls[0] or
+                             devices != ["cuda"]):
+        raise AssertionError(f"chaos: card work reached the oracle, a "
+                             f"plain version or the CPU: {out}")
+    return out
+
+
 def gpu_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1170,6 +1686,9 @@ def main() -> int:
     phase_small_parity()
     main_run = phase_main()
     hoisted = phase_hoisted(main_run)
+    service = phase_service()
+    lanes = phase_lanes(service)
+    phase_chaos()
     src = "src/repro_torch/kernels/csrc"
     big = ell["cases"][-1]                      # grid3d(100, 100, 100)
 
@@ -1228,6 +1747,16 @@ def main() -> int:
             ell["launches"]["diffusion_step"], big["diffusion"],
             max(c["diffusion"]["max_abs_err"] for c in ell["cases"]), None),
     ]
+    # the multi-lane cases of rows 0-2 (phase 8): shapes, times, and the
+    # service path's launches (phase 7)
+    for r, kind, count in ((rows[0], "match", "heavy_edge_matching_multi"),
+                           (rows[1], "bfs", "bfs_multi"),
+                           (rows[2], "fm", "fm_fused_multi")):
+        r["service_launches"] = service["launches"][count]
+        r["multi_lane"] = {
+            name: {k: lanes[name][k] for k in ("shape", "ms", "call_ms",
+                                                "plain_ms")}
+            for name in (f"{kind}_root", f"{kind}_wide")}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(gpu_line())

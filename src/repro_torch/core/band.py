@@ -13,16 +13,37 @@ kernel on the card.  The band itself is built on the host.
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections import defaultdict
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.graph import Graph
-from repro_torch.kernels.band_batch import bfs_multi
+from repro_torch.kernels.band_batch import bfs_multi, bfs_multi_plain
+from repro_torch.obs.instrument import _note_launch
 from repro_torch.util import download, host_tensor, pow2, resolve_device, \
     upload
+
+
+def bfs_distance(nbr, src_mask, width: int) -> torch.Tensor:
+    """dist[v] = min(graph distance to src, width+1), by width relaxations.
+
+    The plain oracle of one band distance, on the CPU only (the
+    reference's ``core.band.bfs_distance``): ``bfs_multi_plain`` on one
+    lane.  ``nbr`` (n, d) ELL ids with -1 padding, ``src_mask`` (n,)
+    bool.  Vertices farther than ``width`` keep ``band_batch.UNREACH``.  Raises
+    ``ValueError`` for CUDA tensors: the card's distances come from
+    ``kernels.band_batch.bfs_multi``.
+    """
+    nbr = torch.as_tensor(nbr)
+    src_mask = torch.as_tensor(src_mask)
+    if nbr.is_cuda or src_mask.is_cuda:
+        raise ValueError("bfs_distance is the plain oracle and runs only "
+                         "on the CPU")
+    return bfs_multi_plain(nbr[None], src_mask[None].int(), width)[0]
 
 
 @dataclasses.dataclass
@@ -64,17 +85,31 @@ def pack_bfs_bucket(works: Sequence[BFSWork], n_pad: int, d_pad: int,
 
 def execute_bfs_works(works: Sequence[BFSWork],
                       device=None) -> List[np.ndarray]:
-    """Run BFS works, one ``bfs_multi`` call per (n_pad, d_pad, width)."""
+    """Run BFS works, one ``bfs_multi`` call per (n_pad, d_pad, width).
+
+    Each bucket's upload, kernel and download is one
+    ``obs.timed_dispatch`` and one launch record (``obs.instrument``);
+    the ``bfs`` stage is billed from the start of the bucket's packing.
+    """
     dev = resolve_device(device)
     results: List[Optional[np.ndarray]] = [None] * len(works)
     groups = defaultdict(list)
     for i, w in enumerate(works):
         groups[w.bucket_key()].append(i)
     for (n_pad, d_pad, width), idxs in groups.items():
-        buf = upload(pack_bfs_bucket([works[i] for i in idxs], n_pad,
-                                          d_pad, dev), dev)
-        dist = download(bfs_multi(*bfs_parts(buf, len(idxs), n_pad, d_pad),
-                                  width))
+        L = len(idxs)
+        t0 = time.perf_counter()
+        host = pack_bfs_bucket([works[i] for i in idxs], n_pad, d_pad, dev)
+
+        def dispatch(host=host, L=L, n_pad=n_pad, d_pad=d_pad, width=width):
+            buf = upload(host, dev)
+            return download(bfs_multi(*bfs_parts(buf, L, n_pad, d_pad),
+                                      width))
+
+        dist = obs.timed_dispatch(
+            "bfs", "bfs", ("bfs", dev.type), dispatch, since=t0, lanes=L,
+            lanes_pad=L, bucket=(n_pad, d_pad), width=width)
+        _note_launch("bfs", 0, L, L, (n_pad, d_pad), width, 0)
         for j, i in enumerate(idxs):
             results[i] = dist[j, :works[i].nbr.shape[0]]
     return results                                           # type: ignore

@@ -20,16 +20,18 @@ sequential wrapper (``coarsen_multilevel``) executes each work immediately.
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections import defaultdict
 from typing import Generator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch import prng
+from repro_torch import obs, prng
 from repro_torch.core.graph import Graph
 from repro_torch.core.matching import heavy_edge_matching, \
     heavy_edge_matching_multi
+from repro_torch.obs.instrument import _note_launch
 from repro_torch.util import download, host_tensor, pow2, resolve_device, \
     upload
 
@@ -114,9 +116,11 @@ def execute_match_works(works: Sequence[MatchWork],
                         device=None) -> List[np.ndarray]:
     """Run matching works, one batched matching per (n_pad, d_pad, rounds).
 
-    Returns, per work in input order, the flat (n,) matching with
-    match[v] = v for singletons (out-of-range ids from padded lanes are
-    masked back to self, as in ``match_graph``).
+    Each bucket's upload, kernel and download is one
+    ``obs.timed_dispatch`` and one launch record (``obs.instrument``);
+    the ``match`` stage is billed from the start of the bucket's packing.  Returns, per work in input order, the
+    flat (n,) matching with match[v] = v for singletons (out-of-range ids
+    from padded lanes are masked back to self, as in ``match_graph``).
     """
     dev = resolve_device(device)
     results: List[Optional[np.ndarray]] = [None] * len(works)
@@ -124,10 +128,21 @@ def execute_match_works(works: Sequence[MatchWork],
     for i, w in enumerate(works):
         groups[w.bucket_key()].append(i)
     for (n_pad, d_pad, rounds), idxs in groups.items():
-        buf = upload(pack_match_bucket([works[i] for i in idxs], n_pad,
-                                            d_pad, dev), dev)
-        m = download(heavy_edge_matching_multi(
-            *match_parts(buf, len(idxs), n_pad, d_pad), rounds=rounds))
+        L = len(idxs)
+        t0 = time.perf_counter()
+        host = pack_match_bucket([works[i] for i in idxs], n_pad, d_pad,
+                                 dev)
+
+        def dispatch(host=host, L=L, n_pad=n_pad, d_pad=d_pad,
+                     rounds=rounds):
+            buf = upload(host, dev)
+            return download(heavy_edge_matching_multi(
+                *match_parts(buf, L, n_pad, d_pad), rounds=rounds))
+
+        m = obs.timed_dispatch(
+            "match", "match", ("match", dev.type), dispatch, since=t0,
+            lanes=L, lanes_pad=L, bucket=(n_pad, d_pad), rounds=rounds)
+        _note_launch("match", 0, L, L, (n_pad, d_pad), rounds, 0)
         for j, i in enumerate(idxs):
             n = works[i].nbr.shape[0]
             mi = m[j, :n].astype(np.int64)

@@ -25,17 +25,19 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import time
 from collections import defaultdict
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch import prng
+from repro_torch import obs, prng
 from repro_torch.kernels import ops
 from repro_torch.kernels.band_batch import RowExtents, check_spans, \
     row_extents, sep_gain_multi
 from repro_torch.kernels.fm_fused import fm_move_loop
+from repro_torch.obs.instrument import _note_launch
 from repro_torch.util import pow2 as _pow2, resolve_device
 
 GAIN_MODES = ("pallas", "jnp")
@@ -256,8 +258,12 @@ def execute_fm_works(works: Sequence[FMWork], device=None, *,
                      ) -> List[Tuple[np.ndarray, float, float]]:
     """Run FM works, one ``ops.fm_refine_batch`` call per bucket.
 
-    Returns, for each work in input order, the best ``(part, sep_w, imb)``
-    across its instances — exactly what ``refine_parts`` returns.
+    Each bucket's call, with its download, is one ``obs.timed_dispatch``
+    (the fault-injection seam) and one launch record
+    (``obs.instrument``); the ``fm`` stage is billed from the start of
+    the bucket's packing.  Returns, for each work in input
+    order, the best ``(part, sep_w, imb)`` across its instances —
+    exactly what ``refine_parts`` returns.
     ``mode`` defaults to ``REPRO_FM_MODE`` (``ops.fm_mode_default``); an
     explicit ``gain_mode`` without a ``mode`` forces the hoisted path, the
     only one with a gain backend, as in the reference.
@@ -272,12 +278,24 @@ def execute_fm_works(works: Sequence[FMWork], device=None, *,
     groups = defaultdict(list)
     for i, w in enumerate(works):
         groups[w.bucket_key()].append(i)
-    for (_, _, passes, pos_only), idxs in groups.items():
+    for bucket, idxs in groups.items():
+        passes, pos_only = bucket[2:]
+        t0 = time.perf_counter()
         host, counts = pack_fm_bucket([works[i] for i in idxs])
-        parts, sep_w, imb = ops.fm_refine_batch(
-            **host, passes=passes, pos_only=pos_only, mode=mode,
-            gain_mode=gain_mode, device=dev)
-        parts, sep_w, imb = download(parts, sep_w, imb)
+        L_real, L_pad = sum(counts), host["parts"].shape[0]
+
+        def dispatch(host=host, passes=passes, pos_only=pos_only):
+            return download(*ops.fm_refine_batch(
+                **host, passes=passes, pos_only=pos_only, mode=mode,
+                gain_mode=gain_mode, device=dev))
+
+        # the first dispatch of a mode on a device loads (or builds) its
+        # CUDA library: the load key bills it as the compile
+        parts, sep_w, imb = obs.timed_dispatch(
+            "fm", "fm", ("fm", mode, gain_mode, dev.type), dispatch,
+            since=t0, lanes=L_real, lanes_pad=L_pad, mode=mode,
+            max_moves=int(host["max_moves"].max()), bucket=bucket)
+        _note_launch("fm", 0, L_real, L_pad, bucket, passes, 0)
         off = 0
         for i, k in zip(idxs, counts):
             n = works[i].nbr.shape[0]

@@ -13,14 +13,17 @@ quality in the paper (its Tables 2–3 vary nothing else).
 The separator pipeline is *stage-separated*: ``separator_task`` is a
 generator that runs the host control plane (coarsen → initial separator →
 per-level band extract + FM) but **yields** its device work (``MatchWork``
-/ ``BFSWork`` / ``FMWork``) instead of dispatching it.  The sequential
-driver (``compute_separator``) executes each yielded work immediately.
+/ ``BFSWork`` / ``FMWork``) instead of dispatching it.  ``nd_task``
+wraps it in the whole recursion as one task tree, which yields a node's
+separator works and ``_Spawn``s its subtrees.  Two drivers run that one
+tree: ``nested_dissection`` here, depth-first with one work a call, and
+the service's ``WaveRouter``, which stacks the works of many live
+subtrees (of many requests) into the lanes of one kernel call.
 """
 from __future__ import annotations
 
 import dataclasses
-import time
-from typing import Dict, Generator, Optional, Tuple, Union
+from typing import Generator, List, Optional, Tuple, Union
 
 import numpy as np
 
@@ -157,44 +160,13 @@ def separator_task(g: Graph, seed: int, nproc: int, cfg: NDConfig,
     return part
 
 
-_STAGE = {MatchWork: "match", BFSWork: "bfs", FMWork: "fm"}
-
-
-def execute_work(work: Work, device=None,
-                 stage_s: Optional[Dict[str, float]] = None):
-    """Synchronous single-work execution (the non-batched driver).
-
-    With ``stage_s``, adds the work's wall time (upload, device run and
-    download, which ends in a copy to the host) under its stage name.
-    """
-    t0 = time.perf_counter()
+def execute_work(work: Work, device=None):
+    """Synchronous single-work execution (the non-batched driver)."""
     if isinstance(work, FMWork):
-        out = execute_fm_works([work], device)[0]
-    elif isinstance(work, MatchWork):
-        out = execute_match_works([work], device)[0]
-    else:
-        out = execute_bfs_works([work], device)[0]
-    if stage_s is not None:
-        name = _STAGE[type(work)]
-        stage_s[name] = stage_s.get(name, 0.0) + time.perf_counter() - t0
-    return out
-
-
-def compute_separator(g: Graph, seed: int, nproc: int, cfg: NDConfig,
-                      device=None,
-                      stage_s: Optional[Dict[str, float]] = None
-                      ) -> Optional[np.ndarray]:
-    """Multilevel + band-FM vertex separator of g.  Returns part or None.
-
-    Drives ``separator_task`` one work at a time on ``device``.
-    """
-    gen = separator_task(g, seed, nproc, cfg)
-    try:
-        work = next(gen)
-        while True:
-            work = gen.send(execute_work(work, device, stage_s))
-    except StopIteration as stop:
-        return stop.value
+        return execute_fm_works([work], device)[0]
+    if isinstance(work, MatchWork):
+        return execute_match_works([work], device)[0]
+    return execute_bfs_works([work], device)[0]
 
 
 def _interface_frozen(g: Graph, nproc: int) -> np.ndarray:
@@ -289,63 +261,115 @@ def component_seed(seed: int, c: int) -> int:
 
 
 # ------------------------------------------------------------------ #
-# sequential driver
+# the ND recursion as one task tree, and its sequential driver
 # ------------------------------------------------------------------ #
-def nested_dissection(g: Graph, seed: int = 0, nproc: int = 1,
-                      cfg: Optional[NDConfig] = None, device=None,
-                      stage_s: Optional[Dict[str, float]] = None
-                      ) -> np.ndarray:
-    """Full ordering.  Returns perm (perm[k] = vertex eliminated k-th).
+@dataclasses.dataclass
+class _Spawn:
+    """Yielded by a task to run subtasks; resumed with the list of their
+    return values once they have all completed.
 
-    The device works run on ``device`` (default: the card; raises if
-    there is none and the caller did not ask for ``"cpu"``).  With
-    ``stage_s``, the wall seconds of the match, bfs and fm works are
-    added to it by stage.
+    The wave router advances them concurrently — this is how the two
+    dissection children of every node, and the components of a
+    disconnected graph, join the same wave frontier.
     """
-    dev = resolve_device(device)
-    cfg = cfg or NDConfig()
-    ordering = Ordering(g.n)
-    _nd_rec(g, np.arange(g.n, dtype=np.int64), seed, nproc, cfg,
-            ordering, ordering.root, 0, dev, stage_s)
-    perm = ordering.assemble()
-    if not np.array_equal(np.sort(perm), np.arange(g.n)):
-        raise AssertionError("nested dissection produced no permutation")
-    return perm
+    tasks: List
 
 
-def _nd_rec(g: Graph, gids: np.ndarray, seed: int, nproc: int, cfg: NDConfig,
-            ordering: Ordering, node, start: int, device,
-            stage_s: Optional[Dict[str, float]]) -> None:
-    n = g.n
-    if n <= cfg.leaf_size:
+def nd_task(g: Graph, gids: np.ndarray, seed: int, nproc: int,
+            cfg: NDConfig, ordering: Ordering, node, start: int,
+            hints=None, rec=None, path: str = ""):
+    """One ND tree node as a task: order ``g`` into ``ordering``.
+
+    Leaves and connected-component splits are handled inline on the
+    host; separators run through ``separator_task`` (yielding its device
+    works to the driver); the two separated halves, or the components,
+    spawn as sibling subtasks.  Every node's result is a pure function
+    of its subgraph and seed, and ``Ordering.assemble`` sorts fragments
+    by start, so any driver that runs every work and every spawned task
+    builds the same permutation.
+
+    ``hints`` / ``rec`` thread the warm-start surface through the
+    recursion: ``path`` names this node in the ND tree (root ``""``,
+    dissection children ``.0``/``.1``, components ``.c<k>``); a hint at
+    this path short-circuits the separator pipeline through
+    ``separator_task(warm_part=...)`` (re-validated on ``g``, so stale
+    hints fall back cold per node), and ``rec`` records every *resolved*
+    split so a completed tree can seed later structurally identical
+    requests.
+    """
+    if g.n <= cfg.leaf_size:
         ordering.add_leaf(node, start, gids[leaf_perm(g, seed)])
         return
     comp = g.components()
     ncomp = int(comp.max()) + 1
     if ncomp > 1:                       # independent parts: no separator
+        subs = []
         off = start
         for c in range(ncomp):
             sub, old = g.induced_subgraph(comp == c)
             child = ordering.add_internal(node, off, sub.n)
-            _nd_rec(sub, gids[old], component_seed(seed, c), nproc, cfg,
-                    ordering, child, off, device, stage_s)
+            subs.append(nd_task(sub, gids[old], component_seed(seed, c),
+                                nproc, cfg, ordering, child, off,
+                                hints, rec, f"{path}.c{c}"))
             off += sub.n
+        yield _Spawn(subs)
         return
-    part = compute_separator(g, seed, effective_nproc(n, nproc, cfg), cfg,
-                             device, stage_s)
+    part = yield from separator_task(
+        g, seed, effective_nproc(g.n, nproc, cfg), cfg,
+        warm_part=None if hints is None else hints.get(path))
     part = resolve_separator(g, seed, part, cfg)
-    if part is None:
+    if part is None:                    # could not split
         ordering.add_leaf(node, start, gids[leaf_perm(g, seed)])
         return
+    if rec is not None:
+        rec[path] = part
     (g0, old0), (g1, old1), (gs, olds) = split_by_separator(g, part)
     p0, p1 = child_nprocs(nproc)
     s0, s1 = child_seeds(seed)
     c0 = ordering.add_internal(node, start, g0.n)
-    _nd_rec(g0, gids[old0], s0, p0, cfg, ordering, c0, start, device,
-            stage_s)
     c1 = ordering.add_internal(node, start + g0.n, g1.n)
-    _nd_rec(g1, gids[old1], s1, p1, cfg, ordering, c1, start + g0.n,
-            device, stage_s)
     # separator ordered last (highest indices)
     sperm = separator_perm(gs, seed)
     ordering.add_leaf(node, start + g0.n + g1.n, gids[olds[sperm]], "sep")
+    yield _Spawn([
+        nd_task(g0, gids[old0], s0, p0, cfg, ordering, c0, start,
+                hints, rec, path + ".0"),
+        nd_task(g1, gids[old1], s1, p1, cfg, ordering, c1, start + g0.n,
+                hints, rec, path + ".1"),
+    ])
+
+
+def _run_depth_first(task, device):
+    """Run one task tree to its end and return its value: each work
+    alone, each spawned subtask to its end before the next."""
+    try:
+        item = next(task)
+        while True:
+            if isinstance(item, _Spawn):
+                item = task.send([_run_depth_first(sub, device)
+                                  for sub in item.tasks])
+            else:
+                item = task.send(execute_work(item, device))
+    except StopIteration as stop:
+        return stop.value
+
+
+def nested_dissection(g: Graph, seed: int = 0, nproc: int = 1,
+                      cfg: Optional[NDConfig] = None, device=None
+                      ) -> np.ndarray:
+    """Full ordering.  Returns perm (perm[k] = vertex eliminated k-th).
+
+    Runs ``nd_task``'s tree depth-first, one work a kernel call, on
+    ``device`` (default: the card; raises if there is none and the
+    caller did not ask for ``"cpu"``).  Each work's stage seconds reach
+    ``obs.instrument`` through the executors' dispatches.
+    """
+    dev = resolve_device(device)
+    cfg = cfg or NDConfig()
+    ordering = Ordering(g.n)
+    _run_depth_first(nd_task(g, np.arange(g.n, dtype=np.int64), seed,
+                             nproc, cfg, ordering, ordering.root, 0), dev)
+    perm = ordering.assemble()
+    if not np.array_equal(np.sort(perm), np.arange(g.n)):
+        raise AssertionError("nested dissection produced no permutation")
+    return perm

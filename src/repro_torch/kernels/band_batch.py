@@ -43,10 +43,16 @@ CLUSTER_MAX = 16
 #: the slots (rows × width) a CTA of a lane's cluster takes until the
 #: cluster is full: two passes of its 1,024 threads at 8 slots each
 CTA_SLOTS = 2 ** 14
-#: the largest lane (n × d slots) the cluster designs take: at 2^18 slots
-#: they and the grid designs are within 5% of each other on an H100, at
-#: 2^20 the grid designs are 1.4-2× faster (PERF.md, ``chip_smoke.py``
-#: phase 3)
+#: the largest lane (n × d slots) the cluster designs take.  On an H100
+#: at 2^18 slots, one lane of the main path's buckets: the matching's
+#: designs are within 3% (or the clusters ahead), the BFS is 2-20% faster
+#: on clusters; with the service's 52-58 lanes the cluster designs are
+#: 1.1-1.3× (BFS) and 1.7-2.3× (matching) faster.  Random lanes with no
+#: locality are the exception: there one lane's BFS is 1.3-1.7× faster
+#: on the grid design (the matching ties, or is 12% faster at d 32).  At
+#: 2^20 the grid designs are 1.3-2.2× faster.  The two kernels agree at
+#: every shape the ordering gives them, so they share this plan
+#: (PERF.md §6, ``chip_smoke.py`` phases 3 and 8)
 CLUSTER_MAX_SLOTS = 2 ** 18
 
 

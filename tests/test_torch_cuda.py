@@ -456,3 +456,172 @@ def test_kernels_read_a_bad_lane_work_as_an_empty_tile(card):
     torch.cuda.synchronize()
     for a, b in zip(got[:3], want):
         assert torch.equal(a, b)
+
+
+# ------------------------------------------------------------------ #
+# the service slice: many lanes a call, lanes of many requests
+# ------------------------------------------------------------------ #
+#: multi-lane buckets of the service's waves on the card (``chip_smoke.py``
+#: phases 7-8): two grid3d(30³) roots together, the widest matching and
+#: BFS buckets, and a wider-row bucket of many lanes
+SERVICE_BUCKETS = [(2, 32768, 8), (58, 256, 8), (52, 256, 8),
+                   (43, 256, 16), (2, 16384, 16)]
+
+
+def _force_design(monkeypatch, design):
+    """Make both kernels take ``design`` whatever the lanes' size."""
+    def plan(n, d):
+        if design == "grid":
+            return "grid", None
+        return "cluster", band_batch.cluster_size(n, d)
+    monkeypatch.setattr(band_batch, "lane_plan", plan)
+    monkeypatch.setattr(matching, "lane_plan", plan)
+
+
+@pytest.mark.parametrize("design", ["cluster", "grid"])
+@pytest.mark.parametrize("L,n,d", SERVICE_BUCKETS)
+def test_multi_lane_matching_and_bfs_lanes_equal_singletons(
+        card, monkeypatch, design, L, n, d):
+    """Each lane of an L-lane call equals the same lane alone, bit for
+    bit, and the call equals the plain version, in both designs."""
+    _force_design(monkeypatch, design)
+    nbr, wgt = (torch.from_numpy(a).to(card)
+                for a in _match_bucket(L * n + d, L, n, d, "small"))
+    keys = prng.split(prng.PRNGKey(L + d, card), L)
+    got = matching.heavy_edge_matching_multi(nbr, wgt, keys, rounds=8)
+    assert torch.equal(got, matching.heavy_edge_matching_multi_plain(
+        nbr, wgt, keys, 8))
+    src = (torch.rand((L, n), generator=torch.Generator().manual_seed(L))
+           < 0.02).to(torch.int32).to(card)
+    dist = band_batch.bfs_multi(nbr, src, 3)
+    assert torch.equal(dist, band_batch.bfs_multi_plain(nbr, src, 3))
+    for j in range(L):
+        one = slice(j, j + 1)
+        assert torch.equal(matching.heavy_edge_matching_multi(
+            nbr[one], wgt[one], keys[one], rounds=8)[0], got[j])
+        assert torch.equal(band_batch.bfs_multi(nbr[one], src[one], 3)[0],
+                           dist[j])
+
+
+def test_fm_bucket_of_many_works_lanes_equal_singletons(card):
+    """FM works of different graphs, budgets and lane counts in one
+    bucket (padded with dummy lanes): each work's lanes equal its own
+    call's, on the card."""
+    from repro_torch.core.initsep import grow_part
+    from repro_torch.graphs.generators import grid2d
+    works = []
+    for k, g in enumerate([grid2d(11, 11), grid2d(10, 12), grid2d(12, 9),
+                           grid2d(9, 13)]):
+        nbr, _ = g.to_ell()
+        works.append(fm.FMWork(nbr=nbr, vwgt=g.vwgt, part=grow_part(g, k),
+                               locked=np.zeros(g.n, bool), seed=k,
+                               k_inst=2 + 2 * k, max_moves=[None, 7][k % 2]))
+    assert len({w.bucket_key() for w in works}) == 1
+
+    def call(ws):
+        host, counts = fm.pack_fm_bucket(ws)
+        t = {k: v.to(card) for k, v in host.items()}
+        return fm_fused.fm_fused_multi(**t, passes=3), counts
+    group, counts = call(works)
+    assert group[0].shape[0] % 8 == 0 and group[0].shape[0] > sum(counts)
+    off = 0
+    for w, k in zip(works, counts):
+        one, _ = call([w])
+        for a, b in zip(group, one):
+            assert torch.equal(a[off:off + k], b[:k])
+        off += k
+    for w, (part, sep_w, imb) in zip(works, fm.execute_fm_works(works,
+                                                                 card)):
+        alone = fm.execute_fm_works([w], card)[0]
+        assert np.array_equal(part, alone[0])
+        assert (sep_w, imb) == alone[1:]
+
+
+def _service_graphs():
+    from repro_torch.graphs import generators as G
+    return [G.grid2d(12, 12), G.grid3d(6, 6, 6), G.circuit(300, seed=3),
+            G.rgg2d(250, seed=2), G.grid3d(5, 5, 6), G.grid2d(11, 14)]
+
+
+def test_order_batch_on_card_equals_looped(card):
+    from repro_torch.service import OrderingService, order_batch
+    graphs = _service_graphs()
+    seeds = list(range(len(graphs)))
+    before = matching.launches
+    perms = order_batch(graphs, seeds, 4, device=card)
+    assert matching.launches > before
+    refs = [nested_dissection(g, s, 4, device=card)
+            for g, s in zip(graphs, seeds)]
+    for p, r in zip(perms, refs):
+        assert np.array_equal(p, r)
+    svc = OrderingService()                 # the card by default
+    assert svc.device.type == "cuda"
+    rids = [svc.submit(g, seed=s, nproc=4) for g, s in zip(graphs, seeds)]
+    svc.drain()
+    for rid, r in zip(rids, refs):
+        assert np.array_equal(svc.poll(rid).perm, r)
+
+
+def test_persistent_fm_fault_on_card_degrades_then_isolates(
+        card, monkeypatch):
+    """On the card the FM ladder is fused → hoisted: a persistent fault
+    at both rungs degrades the group to hoisted, then isolates it and
+    excises the tree, which re-runs cold; no FM call runs the oracle or
+    leaves the card, and the result is the fault-free one."""
+    from repro_torch.graphs.generators import grid2d
+    from repro_torch.service import OrderingService, faults
+    g = grid2d(12, 12)
+    ref = nested_dissection(g, 3, 2, device=card)
+    calls = []
+    real = ops.fm_refine_batch
+
+    def recorded(*args, mode=None, device=None, **kw):
+        calls.append((mode, torch.device(device).type))
+        return real(*args, mode=mode, device=device, **kw)
+    monkeypatch.setattr(ops, "fm_refine_batch", recorded)
+    plan = faults.FaultPlan(seed=1, specs=[
+        faults.FaultSpec(site="fm", kind="persistent", at=(0, 1, 2))])
+    with faults.fault_injection(plan) as inj:
+        svc = OrderingService(device=card)
+        assert svc._router.recovery.modes == ("fused", "hoisted")
+        rid = svc.submit(g, seed=3, nproc=2)
+        res = svc.drain()[rid]
+    assert inj.injected == 3
+    assert res.status == "ok" and np.array_equal(res.perm, ref)
+    assert svc._router.recovery.isolations >= 1
+    modes = {m for m, _ in calls}
+    assert "hoisted" in modes and modes <= {"fused", "hoisted"}
+    assert {dev for _, dev in calls} == {"cuda"}
+
+
+def test_service_drain_thread_on_card(card):
+    """A worker thread drains the card's service (its kernels on that
+    thread's current stream) while the caller submits and reads stats:
+    every request resolves to the looped ordering."""
+    import threading
+    from repro_torch.graphs.generators import grid2d
+    from repro_torch.service import OrderingService
+    svc = OrderingService(device=card)
+    graphs = [grid2d(10, 12), grid2d(11, 11), grid2d(9, 13)]
+    stop, errors, rids = threading.Event(), [], []
+
+    def drainer():
+        try:
+            while not stop.is_set() or svc.queue_depth():
+                svc.drain()
+        except Exception as e:          # surface worker crashes
+            errors.append(e)
+
+    worker = threading.Thread(target=drainer)
+    worker.start()
+    try:
+        for k in range(12):
+            rids.append((svc.submit(graphs[k % 3], seed=k), k))
+            svc.stats()
+    finally:
+        stop.set()
+        worker.join(timeout=300)
+    assert not worker.is_alive() and errors == []
+    for rid, k in rids:
+        want = nested_dissection(graphs[k % 3], k, 1, device=card)
+        assert np.array_equal(svc.poll(rid).perm, want)

@@ -25,6 +25,7 @@ from repro.sparse.symbolic import nnz_opc as jax_nnz_opc  # noqa: E402
 from repro_torch.convert import graph_from_arrays  # noqa: E402
 from repro_torch.core import nd  # noqa: E402
 from repro_torch.graphs import generators as gen  # noqa: E402
+from repro_torch.obs.instrument import instrument  # noqa: E402
 from repro_torch.sparse.mindeg import min_degree  # noqa: E402
 from repro_torch.sparse.symbolic import nnz_opc  # noqa: E402
 from repro_torch.util import resolve_device  # noqa: E402
@@ -42,12 +43,15 @@ GRAPHS = {
 def test_nested_dissection_equals_reference(name, seed, nproc):
     jg = GRAPHS[name](jgen)
     g = graph_from_arrays(jg.xadj, jg.adjncy, jg.vwgt, jg.adjwgt)
-    stage_s = {}
-    got = nd.nested_dissection(g, seed=seed, nproc=nproc, device="cpu",
-                               stage_s=stage_s)
+    with instrument() as ins:
+        got = nd.nested_dissection(g, seed=seed, nproc=nproc, device="cpu")
     want = jax_nd(jg, seed=seed, nproc=nproc)
     assert np.array_equal(got, want), f"{name} seed={seed} nproc={nproc}"
-    assert set(stage_s) <= {"match", "bfs", "fm"} and stage_s["fm"] > 0
+    assert set(ins.stage_s) <= {"match", "bfs", "fm"}
+    assert ins.stage_s["fm"] > 0
+    # the looped driver runs one work a call: one lane a match/bfs call
+    assert all(r["lanes"] == 1 for r in ins.launches if r["kind"] != "fm")
+    assert not ins.waves
     assert nnz_opc(g, got) == jax_nnz_opc(jg, want)
 
 
@@ -99,6 +103,14 @@ def test_fallback_and_small_graph_policies():
     assert sorted(perm) == list(range(9))
 
 
+#: the service slice's modules, which the import gate must reach
+SERVICE_SLICE = [f"repro_torch.{m}" for m in (
+    "obs", "obs.tracer", "obs.metrics", "obs.instrument", "train",
+    "train.fault", "core.dnd", "service", "service.api", "service.batch",
+    "service.cache", "service.faults", "service.fingerprint",
+    "service.router", "service.sched_policy", "service.scheduler")]
+
+
 def test_import_pulls_in_neither_jax_nor_reference():
     code = (
         "import importlib, pkgutil, sys\n"
@@ -108,8 +120,9 @@ def test_import_pulls_in_neither_jax_nor_reference():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "n = sum(m.startswith('repro_torch') for m in sys.modules)\n"
-        "print(n, bad)\n"
-        "sys.exit(1 if bad or n < 20 else 0)\n")
+        f"missing = [m for m in {SERVICE_SLICE!r} if m not in sys.modules]\n"
+        "print(n, bad, missing)\n"
+        "sys.exit(1 if bad or missing or n < 20 else 0)\n")
     src = os.path.join(os.path.dirname(__file__), os.pardir, "src")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120,
