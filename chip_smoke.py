@@ -84,10 +84,38 @@ Phases, each of which must pass:
    nproc 2) on the card: every ``ok`` result bit-identical to the
    fault-free run, the cache clean, an FM group degraded to hoisted, no
    call of the oracle or of a plain version, every FM call on the card;
-10. a ``{"kernels": [...]}`` line with each kernel's launches, error,
+10. the distributed ordering (``core.dnd``, ``core.dgraph``) on the
+   card: (b) ``distributed_nested_dissection(distribute(grid3d(30, 30,
+   30), 8), seed=0)`` with the default ``DNDConfig``, with every kernel
+   launch count set to 0 just before and read just after — a
+   permutation, the same under the depth-first driver, every gather of a
+   graph spread over two parts or more within the gather-free tests'
+   bound (one-part subtrees, already on one process, are handed to the
+   sequential orderer whole, as in the reference), alternating-colour band
+   refinements with 0 conflicts and 0 repairs, launches == buckets in
+   every wave, the four distributed kernels and the FM, BFS and matching
+   kernels launched, no plain version called; its NNZ and OPC beside
+   phase 5's host ND, and its wall split by stage (dmatch, dbfs, dhalo,
+   fm, match, bfs, rebuild, endgame, host); (c) ``distributed_order_batch``
+   of that graph at seeds 0 and 1 and ``grid2d(28, 28)`` at P 8 equals
+   each ordered alone, and ``OrderingService().submit_distributed`` of it
+   returns the same permutation, then a cache hit; (d) ``grid2d(28, 28)``
+   at P 8 with the gather-free configuration gives the same permutation
+   on the card and on the CPU; (a) the four kernels (``csrc/dgraph.cu``:
+   the ELL relaxation, the halo exchange, the distributed BFS at width 3,
+   the matching at 8 rounds, dense, at its lossless cap and at a cap that
+   drops proposals) equal their plain versions exactly at the root bucket
+   of ``distribute(grid3d(30, 30, 30), 8)`` (8, 4096, 8, 2048), at
+   ``distribute(grid3d(100, 100, 100), 8)`` (8, 131072, 8, 32768) and at
+   the buckets with the most lanes (b)'s waves gave the BFS and the
+   matching, each lane equal to its singleton call, each timed alone
+   (its C entry) and through its wrapper;
+11. a ``{"kernels": [...]}`` line with each kernel's launches, error,
    times, bound and library time (rows 0-2 also with their phase 7
-   launches and phase 8 multi-lane times), the card's name and power
-   limit, and as the last line ``{"ok": true, "device": {...}}``.
+   launches and phase 8 multi-lane times, rows 7-10 with their phase 10
+   launches and their times at the other two places), the card's name
+   and power limit, and as the last line ``{"ok": true, "device":
+   {...}}``.
 
 Any failure exits non-zero without that last line.  Imports neither jax
 nor the reference package.
@@ -1653,6 +1681,414 @@ def phase_chaos(device: str = "cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------- distributed
+#: the distributed kernels' launch counts (kernels.dgraph_ops)
+DIST_COUNTS = {"ell_relax_step": "relax_launches",
+               "halo_exchange_stacked": "halo_launches",
+               "distributed_bfs_stacked": "dbfs_launches",
+               "distributed_matching_stacked": "dmatch_launches"}
+#: the phase's configuration of the gather-free tests (DNDConfig)
+GATHER_FREE = dict(centralize_threshold=256, band_central_threshold=128)
+#: OPS of one hash_mix of three values (three mix steps of a multiply, an
+#: add and a xor around lowbias32's two multiplies, three xors and three
+#: shifts) and its float conversion
+OPS_PER_HASH = 35
+
+
+class StageByKind:
+    """An event-bus collector that bills each dispatch's stage seconds to
+    the kind of the launch record that follows it (``dmatch`` apart from
+    ``match``, ``dbfs`` from ``bfs``, ``dhalo``), and the host stages
+    ``rebuild`` and ``endgame`` by name."""
+
+    def __init__(self):
+        self.seconds, self._pending = {}, 0.0
+
+    def on_event(self, kind: str, payload: dict) -> None:
+        if kind == "stage":
+            if payload["name"] in ("rebuild", "endgame"):
+                self._add(payload["name"], payload["seconds"])
+            else:
+                self._pending = payload["seconds"]
+        elif kind == "launch":
+            self._add(payload["kind"], self._pending)
+            self._pending = 0.0
+
+    def _add(self, name, sec):
+        self.seconds[name] = self.seconds.get(name, 0.0) + float(sec)
+
+
+@contextlib.contextmanager
+def dist_calls(largest: dict, calls: list, gathers: list):
+    """Keep, per distributed collective, the arguments of its call with the
+    most lanes; count into ``calls[0]`` every call of a plain version of
+    any kernel of the ordering; and record into ``gathers`` each
+    centralizing gather of ``core.dnd`` as (kind, parts of the gathered
+    graph, vertices), while the block runs."""
+    from repro_torch.core import dgraph, dnd
+    from repro_torch.kernels import dgraph_ops
+    from repro_torch.service import router
+    with contextlib.ExitStack() as stack:
+        for name in ("to_host", "unshard_vector"):
+            fn = getattr(dnd, name)
+
+            def noted(dg, *args, _fn=fn, _name=name, **kw):
+                gathers.append((_name, dg.nparts, dg.n_global))
+                return _fn(dg, *args, **kw)
+            stack.callback(setattr, dnd, name, fn)
+            setattr(dnd, name, noted)
+        for name in ("halo_exchange_stacked", "distributed_bfs_stacked",
+                     "distributed_matching_stacked"):
+            fn = getattr(dgraph, name)
+
+            def kept(dgs, *args, _fn=fn, _name=name, **kw):
+                if len(dgs) > len(largest.get(_name, ((),))[0]):
+                    largest[_name] = (list(dgs), args)
+                return _fn(dgs, *args, **kw)
+            stack.callback(setattr, router, name, getattr(router, name))
+            setattr(router, name, kept)
+        for name in ("ell_relax_plain", "halo_plain", "dbfs_plain",
+                     "dmatch_plain"):
+            fn = getattr(dgraph_ops, name)
+
+            def counted_fn(*args, _fn=fn, **kw):
+                calls[0] += 1
+                return _fn(*args, **kw)
+            stack.callback(setattr, dgraph_ops, name, fn)
+            setattr(dgraph_ops, name, counted_fn)
+        stack.enter_context(plain_calls(calls, []))
+        yield
+
+
+def _dnd(dg, seed=0, cfg=None, device="cuda"):
+    from repro_torch.core.dnd import distributed_nested_dissection
+    return distributed_nested_dissection(dg, seed, cfg, device=device)
+
+
+def _dist_main(main_run: dict) -> dict:
+    """(b): the full-width distributed ordering of grid3d(30³) at P 8 with
+    the default DNDConfig, both drivers, with its checks and split."""
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.core import dgraph
+    from repro_torch.core.dnd import DNDConfig
+    from repro_torch.graphs.generators import grid3d
+    from repro_torch.kernels import dgraph_ops
+    from repro_torch.sparse.symbolic import nnz_opc
+    g = grid3d(30, 30, 30)
+    dg = dgraph.distribute(g, 8)
+    cfg = DNDConfig()
+    counters = {**{k: (dgraph_ops, a) for k, a in DIST_COUNTS.items()},
+                **_kernel_counts()}
+    largest, calls, by_kind, gathers = {}, [0], StageByKind(), []
+    with env(REPRO_FM_MODE=None, REPRO_FM_GAIN=None), \
+            dist_calls(largest, calls, gathers):
+        torch.cuda.synchronize()
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        obs.register_collector(by_kind)
+        t0 = time.perf_counter()
+        try:
+            with dgraph.instrument() as ins:
+                perm = _dnd(dg, 0, cfg)
+        finally:
+            obs.unregister_collector(by_kind)
+        wall = time.perf_counter() - t0
+        launches = {k: getattr(m, a) for k, (m, a) in counters.items()}
+        n_gathers = len(gathers)
+        t1 = time.perf_counter()
+        perm_dfs = _dnd(dg, 0, DNDConfig(frontier=False))
+        wall_dfs = time.perf_counter() - t1
+    if not np.array_equal(np.sort(perm), np.arange(g.n)):
+        raise AssertionError("distributed: not a permutation")
+    if not np.array_equal(perm, perm_dfs):
+        raise AssertionError("distributed: frontier != depth-first")
+    # the gather-free tests' bound.  A subtree whose process group is one
+    # part lives on one process already: its gather is the hand-off to the
+    # sequential orderer (§3.1), outside the bound, which holds for every
+    # gather of a graph spread over two parts or more
+    bound = max(cfg.centralize_threshold, cfg.band_central_threshold,
+                2 * cfg.fold_threshold, cfg.coarse_target)
+    max_gather = max(s for _, s in ins.gathers)
+    mine = gathers[:n_gathers]
+    if sorted((k, n) for k, _, n in mine) != sorted(ins.gathers):
+        raise AssertionError("distributed: the gathers seen by core.dnd "
+                             "differ from track_gathers'")
+    spread = max([n for _, p, n in mine if p > 1], default=0)
+    one_part = max([n for _, p, n in mine if p == 1], default=0)
+    alt = [s for s in ins.band_stats if s["schedule"] == "alt"]
+    conflicts = sum(sum(s["conflicts"]) for s in ins.band_stats)
+    repairs = sum(sum(s["repairs"]) for s in ins.band_stats)
+    over = [w for w in ins.waves for k in w["launches"]
+            if w["launches"][k] != w["buckets"][k]]
+    nnz, opc = nnz_opc(g, perm)
+    split = {k: by_kind.seconds.get(k, 0.0) for k in (
+        "dmatch", "dbfs", "dhalo", "fm", "match", "bfs", "rebuild",
+        "endgame")}
+    split["host"] = wall - sum(v for k, v in split.items()
+                               if k != "endgame")
+    res = {"graph": "grid3d(30,30,30)", "nparts": 8, "seed": 0,
+           "bucket": list(dgraph.dgraph_bucket(dg)), "wall_s": wall,
+           "wall_dfs_s": wall_dfs, "split_s": split,
+           "waves": len(ins.waves), "launches": launches,
+           "max_gather": max_gather, "max_gather_of_parts": spread,
+           "max_gather_of_one_part": one_part, "gather_bound": bound,
+           "alt_refines": len(alt), "conflicts": conflicts,
+           "repairs": repairs, "plain_calls": calls[0],
+           "largest_sharded_band": max((s["n"] for s in alt), default=0),
+           "nnz": int(nnz), "opc": int(opc),
+           "opc_ratio_vs_host_nd": opc / main_run["opc"],
+           "nnz_ratio_vs_host_nd": nnz / main_run["nnz"],
+           "largest_lanes": {k: len(v[0]) for k, v in largest.items()}}
+    log(f"phase 10 distributed main path: {json.dumps(res)}")
+    if spread > bound:
+        raise AssertionError(f"distributed: a gather of {spread} vertices "
+                             f"spread over parts, over the bound {bound}")
+    if not alt or conflicts or repairs:
+        raise AssertionError(f"distributed: {len(alt)} alternating-colour "
+                             f"refinements, {conflicts} conflicts, "
+                             f"{repairs} repairs")
+    if over:
+        raise AssertionError(f"distributed: launches != buckets in {over}")
+    if min(launches[k] for k in ("heavy_edge_matching_multi", "bfs_multi",
+                                 "fm_fused_multi", *DIST_COUNTS)) <= 0:
+        raise AssertionError(f"distributed: a kernel never launched: "
+                             f"{launches}")
+    if calls[0]:
+        raise AssertionError(f"distributed: {calls[0]} plain calls on the "
+                             f"card")
+    res.update(perm=perm, dg=dg, largest=largest)
+    return res
+
+
+def _dist_requests(main: dict) -> dict:
+    """(c) a batch of three requests and the service; (d) card == cpu."""
+    import numpy as np
+    from repro_torch.core import dgraph
+    from repro_torch.core.dnd import DNDConfig, distributed_order_batch
+    from repro_torch.graphs.generators import grid2d
+    from repro_torch.service import OrderingService
+    dg, cfg = main["dg"], DNDConfig()
+    small = dgraph.distribute(grid2d(28, 28), 8)
+    t0 = time.perf_counter()
+    batch = distributed_order_batch([dg, dg, small], [0, 1, 0], device="cuda")
+    t_batch = time.perf_counter() - t0
+    alone = [main["perm"], _dnd(dg, 1, cfg), _dnd(small, 0, cfg)]
+    if not all(np.array_equal(a, b) for a, b in zip(batch, alone)):
+        raise AssertionError("distributed_order_batch != each request alone")
+    svc = OrderingService(device="cuda")
+    t0 = time.perf_counter()
+    rid = svc.submit_distributed(dg, seed=0)
+    svc.drain()
+    t_svc = time.perf_counter() - t0
+    rid2 = svc.submit_distributed(dg, seed=0)
+    r1, r2 = svc.poll(rid), svc.poll(rid2)
+    if r1.status != "ok" or not np.array_equal(r1.perm, main["perm"]):
+        raise AssertionError("submit_distributed != the ordering alone")
+    if not (r2 is not None and r2.cached and
+            np.array_equal(r2.perm, r1.perm)):
+        raise AssertionError("the second submit_distributed was no hit")
+    gf = DNDConfig(**GATHER_FREE)
+    t0 = time.perf_counter()
+    with dgraph.instrument() as ins:
+        on_card = _dnd(small, 0, gf, "cuda")
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = _dnd(small, 0, gf, "cpu")
+    t_cpu = time.perf_counter() - t0
+    if not np.array_equal(on_card, on_cpu):
+        raise AssertionError("grid2d(28,28) P 8: card != cpu")
+    # the reference's gather-free checks (test_dnd_gatherfree.py
+    # ::_check_nd) on the card's run: every gather within the bound
+    bound = max(gf.centralize_threshold, gf.band_central_threshold,
+                2 * gf.fold_threshold, gf.coarse_target)
+    max_gather = max(s for _, s in ins.gathers)
+    alt = sum(1 for s in ins.band_stats if s["schedule"] == "alt")
+    conflicts = sum(sum(s["conflicts"]) for s in ins.band_stats)
+    repairs = sum(sum(s["repairs"]) for s in ins.band_stats)
+    out = {"batch_s": t_batch, "service_s": t_svc, "cache_hit": r2.cached,
+           "grid2d28_card_s": t_card, "grid2d28_cpu_s": t_cpu,
+           "grid2d28_max_gather": max_gather, "grid2d28_gather_bound": bound,
+           "grid2d28_alt_refines": alt, "grid2d28_conflicts": conflicts,
+           "grid2d28_repairs": repairs}
+    log(f"phase 10 requests: batch of 3 == each alone, service == alone "
+        f"then a hit, grid2d(28,28) card == cpu: {json.dumps(out)}")
+    if not (max_gather <= bound and max_gather < small.n_global // 2):
+        raise AssertionError(f"grid2d(28,28) P 8: a gather of {max_gather} "
+                             f"vertices, over the bound {bound}")
+    if not alt or conflicts or repairs:
+        raise AssertionError(f"grid2d(28,28) P 8: {alt} alternating-colour "
+                             f"refinements, {conflicts} conflicts, "
+                             f"{repairs} repairs")
+    return out
+
+
+def _dlanes_of(dgs, device="cuda"):
+    import numpy as np
+    import torch
+
+    def st(arrs):
+        return torch.from_numpy(np.stack([np.asarray(a, np.int32)
+                                          for a in arrs])).to(device)
+    return {"nbr": st([d.nbr_gst for d in dgs]),
+            "ew": st([d.ewgt_gst for d in dgs]),
+            "gg": st([d.ghost_gid for d in dgs]),
+            "vd": st([d.vtxdist for d in dgs]),
+            "nl": st([d.n_loc for d in dgs])}
+
+
+def _exact(name, got, want, where):
+    import torch
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name} differs from its plain version at "
+                             f"{where}")
+
+
+def _dist_kernel_case(dgs, srcs, seeds, width=3, rounds=8) -> dict:
+    """(a) at one bucket: rows 7-10 == their plain versions on the card,
+    exactly, each lane == its singleton call, the matching dense and with
+    a forced cap; CUDA-event times alone (C entry) and through the
+    wrapper; the plain versions' times; bounds; the halo's library call."""
+    import numpy as np
+    import torch
+    from repro_torch.core import dgraph
+    from repro_torch.kernels import dgraph_ops as K
+    t = _dlanes_of(dgs)
+    L, P, nlm, d = t["nbr"].shape
+    G = t["gg"].shape[2]
+    where = (L, P, nlm, d, G)
+    src = torch.from_numpy(np.stack([np.asarray(s, np.int32)
+                                     for s in srcs])).cuda()
+    sd = torch.tensor([s & 0x7FFFFFFF for s in seeds], dtype=torch.int32,
+                      device="cuda")
+    rng = np.random.default_rng(L)
+    x = torch.from_numpy(rng.integers(0, 1 << 20, (L, P, nlm)).astype(
+        np.int32)).cuda()
+    cells, real = L * P * nlm, int((t["nbr"] >= 0).sum())
+    out = {"shape": list(where)}
+    # --- row 8, halo
+    halo = K.halo(x, t["gg"], t["vd"])
+    _exact("halo", halo, K.halo_plain(x, t["gg"], t["vd"]), where)
+    hbuf = torch.empty_like(halo)
+    flat_idx = (K.owner_slots(t["gg"].reshape(L, P * G), t["vd"], nlm)
+                + torch.arange(L, device="cuda")[:, None] * P * nlm)
+    gok = t["gg"].reshape(L, P * G) >= 0
+    flat_idx = torch.where(gok, flat_idx, 0).reshape(-1)
+    xf = x.reshape(-1)
+    nbytes = 4 * (2 * cells + 2 * L * P * G + L * (P + 1))
+    out["halo"] = dict(
+        ms=entry_ms("dgraph", "halo_launch", x, t["gg"], t["vd"], hbuf, L,
+                    P, nlm, G, reps=20),
+        call_ms=cuda_ms(lambda: K.halo(x, t["gg"], t["vd"]), reps=20),
+        plain_ms=cuda_ms(lambda: K.halo_plain(x, t["gg"], t["vd"]), 5),
+        library_ms=cuda_ms(lambda: torch.index_select(xf, 0, flat_idx), 20),
+        max_abs_err=0, **bound(nbytes, L * P * G * 2 * max(1, P.bit_length())))
+    # --- row 7, relax: each part against its halo-extended vector
+    ext = halo.reshape(L * P, nlm + G)
+    nbr2 = t["nbr"].reshape(L * P, nlm, d)
+    rel = K.ell_relax(nbr2, ext, K.BIG)
+    _exact("ell_relax", rel, K.ell_relax_plain(nbr2, ext, K.BIG), where)
+    rbuf = torch.empty_like(rel)
+    out["relax"] = dict(
+        ms=entry_ms("dgraph", "ell_relax_launch", nbr2, ext, rbuf, L * P,
+                    nlm, d, nlm + G, K.BIG, reps=20),
+        call_ms=cuda_ms(lambda: K.ell_relax(nbr2, ext, K.BIG), reps=20),
+        plain_ms=cuda_ms(lambda: K.ell_relax_plain(nbr2, ext, K.BIG), 5),
+        library_ms=None, max_abs_err=0,
+        **bound(4 * (L * P * nlm * d + L * P * (nlm + G) + cells),
+                real + 2 * cells))
+    # --- row 9, the distributed BFS
+    dist = K.dbfs(t["nbr"], src, t["gg"], t["vd"], width)
+    _exact("dbfs", dist, K.dbfs_plain(t["nbr"], src, t["gg"], t["vd"],
+                                      width), where)
+    bufs = torch.empty((2, L, P, nlm), dtype=torch.int32, device="cuda")
+    gidx = torch.empty((L, P, G), dtype=torch.int64, device="cuda")
+    out["dbfs"] = dict(
+        ms=entry_ms("dgraph", "dbfs_launch", t["nbr"], src, t["gg"], t["vd"],
+                    bufs[0], bufs[1], gidx, L, P, nlm, d, G, width, reps=20),
+        call_ms=cuda_ms(lambda: K.dbfs(t["nbr"], src, t["gg"], t["vd"],
+                                       width), reps=20),
+        plain_ms=cuda_ms(lambda: K.dbfs_plain(t["nbr"], src, t["gg"],
+                                              t["vd"], width), 3),
+        library_ms=None, max_abs_err=0, width=width,
+        **bound(4 * (L * P * nlm * d + 2 * cells + L * P * G + L * (P + 1)),
+                width * (real + 2 * cells)))
+    # --- row 10, the matching: dense, at the lossless cap, at a forced cap
+    margs = (t["nbr"], t["ew"], t["gg"], t["vd"], t["nl"], sd)
+    lossless = dgraph._match_proposal_cap(dgs, nlm)
+    tally = []
+    want = K.dmatch_plain(*margs, rounds, 0, tally=tally)
+    for cap in (0, lossless, max(1, lossless // 4)):
+        got = K.dmatch(*margs, rounds, cap)
+        _exact(f"dmatch cap {cap}", got,
+               want if cap in (0, lossless) else
+               K.dmatch_plain(*margs, rounds, cap), where)
+    mbuf = torch.empty((L, P, nlm), dtype=torch.int32, device="cuda")
+    scratch = torch.empty(L * P * G + 3 * cells, dtype=torch.int64,
+                          device="cuda")
+    hashes = sum(2 * rows + 2 * scanned + props
+                 for rows, scanned, props in tally)
+    out["dmatch"] = dict(
+        ms=entry_ms("dgraph", "dmatch_launch", *margs, mbuf, scratch, L, P,
+                    nlm, d, G, rounds, 0, reps=10),
+        call_ms=cuda_ms(lambda: K.dmatch(*margs, rounds, 0), reps=10),
+        plain_ms=cuda_ms(lambda: K.dmatch_plain(*margs, rounds, 0), 2),
+        library_ms=None, max_abs_err=0, rounds=rounds,
+        caps=[0, lossless, max(1, lossless // 4)],
+        matched=int((want >= 0).sum()),
+        **bound(4 * (2 * L * P * nlm * d + L * P * G + L * (P + 1) + L * P
+                     + L + cells), OPS_PER_HASH * hashes))
+    # each lane == its singleton call
+    if L > 1:
+        for j in range(L):
+            one = {k: v[j:j + 1] for k, v in t.items()}
+            s1 = src[j:j + 1]
+            if not (torch.equal(K.halo(x[j:j + 1], one["gg"], one["vd"])[0],
+                                halo[j]) and
+                    torch.equal(K.dbfs(one["nbr"], s1, one["gg"], one["vd"],
+                                       width)[0], dist[j]) and
+                    torch.equal(K.dmatch(one["nbr"], one["ew"], one["gg"],
+                                         one["vd"], one["nl"], sd[j:j + 1],
+                                         rounds, 0)[0], want[j])):
+                raise AssertionError(f"lane {j} of {where} differs from its "
+                                     f"singleton call")
+    return out
+
+
+def phase_dist(main_run: dict) -> dict:
+    """Phase 10: the distributed ordering (``core.dnd``) on the card."""
+    import numpy as np
+    from repro_torch.core import dgraph
+    from repro_torch.graphs.generators import grid3d
+    main = _dist_main(main_run)
+    reqs = _dist_requests(main)
+    cases = {}
+    root = main["dg"]
+    g100 = dgraph.distribute(grid3d(100, 100, 100), 8)
+    for name, dg in (("root_30", root), ("grid3d_100", g100)):
+        rng = np.random.default_rng(dg.n_loc_max)
+        src = (rng.random((dg.nparts, dg.n_loc_max)) < 0.01).astype(
+            np.int32)
+        cases[name] = _dist_kernel_case([dg], [src], [5])
+        log(f"phase 10 {name}: {json.dumps(cases[name])}")
+    # the frontier waves' many-lane buckets: the call of each collective
+    # with the most lanes, at its inputs
+    dgs_b, (srcs, width) = main["largest"]["distributed_bfs_stacked"]
+    dgs_m, (seeds, rounds) = main["largest"]["distributed_matching_stacked"]
+    lanes_case = _dist_kernel_case(dgs_b, srcs, [7] * len(dgs_b), width)
+    m_case = _dist_kernel_case(
+        dgs_m, [np.zeros((d.nparts, d.n_loc_max), np.int32) for d in dgs_m],
+        seeds, width, rounds)
+    lanes_case["dmatch_lanes"] = dict(m_case["dmatch"],
+                                      shape=m_case["shape"])
+    cases["many_lanes"] = lanes_case
+    log(f"phase 10 many-lane buckets: {json.dumps(lanes_case)}")
+    return {"main": {k: v for k, v in main.items()
+                     if k not in ("perm", "dg", "largest")},
+            "requests": reqs, "cases": cases}
+
+
 def gpu_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1689,6 +2125,7 @@ def main() -> int:
     service = phase_service()
     lanes = phase_lanes(service)
     phase_chaos()
+    dist = phase_dist(main_run)
     src = "src/repro_torch/kernels/csrc"
     big = ell["cases"][-1]                      # grid3d(100, 100, 100)
 
@@ -1747,6 +2184,32 @@ def main() -> int:
             ell["launches"]["diffusion_step"], big["diffusion"],
             max(c["diffusion"]["max_abs_err"] for c in ell["cases"]), None),
     ]
+    # rows 7-10 (phase 10): launches on the distributed main path, times
+    # at its root bucket, and at grid3d(100³) and the many-lane buckets
+    dlaunch, dcases = dist["main"]["launches"], dist["cases"]
+    for name, case, replaces in (
+            ("ell_relax_step", "relax", "src/repro/kernels/ops.py:93"),
+            ("halo_exchange_stacked", "halo",
+             "src/repro/core/dgraph.py:857"),
+            ("distributed_bfs_stacked", "dbfs",
+             "src/repro/core/dgraph.py:953"),
+            ("distributed_matching_stacked", "dmatch",
+             "src/repro/core/dgraph.py:1161")):
+        root = dcases["root_30"][case]
+        r = row(name, "dgraph.cu", replaces, dlaunch[name], root, 0,
+                root["library_ms"])
+        r["call_ms"] = root["call_ms"]
+        r["shape"] = dcases["root_30"]["shape"]
+        wide = dcases["many_lanes"]
+        many = wide["dmatch_lanes"] if case == "dmatch" else wide[case]
+        r["at"] = {
+            "grid3d_100": {k: dcases["grid3d_100"][case][k] for k in (
+                "ms", "call_ms", "plain_ms", "bound_ms")},
+            "many_lanes": dict(
+                {k: many[k] for k in ("ms", "call_ms", "plain_ms",
+                                      "bound_ms")},
+                shape=many.get("shape", wide["shape"]))}
+        rows.append(r)
     # the multi-lane cases of rows 0-2 (phase 8): shapes, times, and the
     # service path's launches (phase 7)
     for r, kind, count in ((rows[0], "match", "heavy_edge_matching_multi"),

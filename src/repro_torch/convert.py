@@ -1,14 +1,16 @@
 """The state carried across from the reference package.
 
 The ordering has no weights; what crosses between the two packages is a
-graph and a PRNG key.  Both arrive as plain numpy arrays, so a test can
-build its inputs once and hand the same values to each side.
+graph (host or distributed) and a PRNG key.  Each arrives as plain numpy
+arrays, so a test can build its inputs once and hand the same values to
+each side.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core.dgraph import DGraph
 from repro_torch.core.graph import Graph
 
 
@@ -18,6 +20,14 @@ def graph_from_arrays(xadj, adjncy, vwgt, adjwgt) -> Graph:
                  np.asarray(adjncy, np.int32).copy(),
                  np.asarray(vwgt, np.int64).copy(),
                  np.asarray(adjwgt, np.int64).copy())
+
+
+def dgraph_from_arrays(vtxdist, nbr_gst, ewgt_gst, ghost_gid, n_loc,
+                       n_ghost, vwgt) -> DGraph:
+    """A port ``DGraph`` from the seven fields of a reference ``DGraph``,
+    each copied with the reference's dtype."""
+    return DGraph(*(np.array(a, copy=True) for a in (
+        vtxdist, nbr_gst, ewgt_gst, ghost_gid, n_loc, n_ghost, vwgt)))
 
 
 def key_from_array(u32_pair, device=None) -> torch.Tensor:

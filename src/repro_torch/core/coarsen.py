@@ -172,6 +172,20 @@ def coarsen_once(g: Graph, match: np.ndarray):
     return cg, cmap
 
 
+def coarse_vtxdist(fine_vtxdist: np.ndarray, match: np.ndarray) -> np.ndarray:
+    """Coarse ownership ranges for a shard-distributed coarsening step.
+
+    Each coarse vertex lives on the owner of its representative (the min
+    endpoint of its matched pair, as in ``coarsen_once``).  Unique reps in
+    ascending order are already grouped by owner — vtxdist ranges are sorted
+    — so the ``coarsen_once`` numbering keeps coarse ids shard-contiguous
+    and the coarse vtxdist is a rank query of the fine boundaries.
+    """
+    rep = np.minimum(np.arange(len(match)), match)
+    reps = np.unique(rep)
+    return np.searchsorted(reps, np.asarray(fine_vtxdist)).astype(np.int64)
+
+
 @dataclasses.dataclass
 class Level:
     graph: Graph

@@ -26,7 +26,7 @@ from typing import Dict, List, Sequence
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("bfs_multi", "fm_fused", "sep_gain", "ell_spmv", "diffusion",
-           "matching")
+           "matching", "dgraph")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -45,6 +45,10 @@ SIGNATURES = {
     "diffusion": {"diffusion_launch": [_P] * 5 + [_I] * 2 + [_F] * 2 + [_P]},
     "matching": {"matching_grid_launch": [_P] * 5 + [_I] * 4 + [_P],
                  "matching_cluster_launch": [_P] * 5 + [_I] * 5 + [_P]},
+    "dgraph": {"ell_relax_launch": [_P] * 3 + [_I] * 5 + [_P],
+               "halo_launch": [_P] * 4 + [_I] * 4 + [_P],
+               "dbfs_launch": [_P] * 7 + [_I] * 6 + [_P],
+               "dmatch_launch": [_P] * 8 + [_I] * 7 + [_P]},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

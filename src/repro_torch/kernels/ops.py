@@ -15,7 +15,7 @@ card each runs its CUDA kernel, on the CPU the kernel's plain version.
 The reference's TPU tiling knobs are gone from the signatures: the CUDA
 kernels take any ``n`` unpadded, so there is no ``block_rows``, no
 ``interpret`` and no row padding (``_pad_rows``).  ``ell_relax_step``
-waits for the distributed slice, its only user.
+is the distributed BFS's relaxation (``kernels.dgraph_ops``).
 """
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ import os
 import torch
 
 from repro_torch.kernels.band_batch import RowExtents
+from repro_torch.kernels.dgraph_ops import ell_relax
 from repro_torch.kernels.diffusion import diffusion_step
 from repro_torch.kernels.ell_spmv import ell_spmv
 from repro_torch.kernels.fm_fused import fm_fused_multi, fm_noise
@@ -102,6 +103,22 @@ def fm_refine_batch(nbr, lane_work, vwgt, parts, locked, keys, eps_frac,
                         parts, locked, fm_noise(keys, nbr.shape[1], passes),
                         eps_frac.to(torch.float32) * vwgt_f.sum(1),
                         max_moves, n_pert, passes=passes, pos_only=pos_only)
+
+
+def ell_relax_step(nbr, dist_ext, big, device=None) -> torch.Tensor:
+    """One min-plus ELL relaxation: min over valid neighbours of ext + 1.
+
+    ``nbr`` (n, d) compact ids with -1 padding (read as ``big``);
+    ``dist_ext`` (m,) is any vector the ids index into — in the
+    distributed sweep the halo-extended local+ghost vector.  Lane-stacked
+    form: ``nbr`` (L, n, d) with ``dist_ext`` (L, m) relaxes every lane
+    against its own vector, and each lane equals its 2-D relaxation bit
+    for bit.  Returns int32 (n,) or (L, n).
+    """
+    (nbr, ext) = _on(device, nbr, dist_ext, dtype=torch.int32)
+    if nbr.dim() == 2:
+        return ell_relax(nbr[None], ext[None], int(big))[0]
+    return ell_relax(nbr, ext, int(big))
 
 
 def spmv(nbr, val, x, device=None) -> torch.Tensor:

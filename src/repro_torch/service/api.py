@@ -1,8 +1,9 @@
 """Ordering service front end: submit / pump / drain / poll / stats.
 
-The port of the reference's ``service/api.py`` (host-graph requests; the
-reference's ``submit_distributed`` waits for the distributed slice).
-Usage:
+The port of the reference's ``service/api.py``: host-graph requests
+(``submit``) and distributed ones (``submit_distributed``, a sharded
+``core.dgraph.DGraph`` ordered by ``core.dnd``'s task tree on the same
+router).  Usage:
 
     svc = OrderingService()           # the card; device="cpu" for the host
     rids = [svc.submit(g, seed=0, nproc=16, deadline_s=0.5)
@@ -63,12 +64,16 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 
 from repro_torch import obs
+from repro_torch.core.dgraph import DGraph
+from repro_torch.core.dnd import DNDConfig, distributed_order_task
 from repro_torch.core.graph import Graph
 from repro_torch.core.nd import NDConfig
 from repro_torch.core.ordering import Ordering
 from repro_torch.service import faults
 from repro_torch.service.cache import FingerprintCache, WarmStartIndex
-from repro_torch.service.fingerprint import (request_fingerprint,
+from repro_torch.service.fingerprint import (dgraph_fingerprint,
+                                             dgraph_structural_fingerprint,
+                                             request_fingerprint,
                                              structural_fingerprint)
 from repro_torch.service.router import TaskFailure, WaveRouter
 from repro_torch.service.scheduler import request_task
@@ -143,11 +148,23 @@ class _PendingReq:
 
 
 @dataclasses.dataclass
+class _PendingDistReq:
+    request_id: int
+    t_submit: float
+    dg: DGraph
+    seed: int
+    cfg: DNDConfig
+    deadline: Optional[float] = None
+    slo: str = ""
+
+
+@dataclasses.dataclass
 class _Admission:
     """One unique fingerprint waiting in an admission queue."""
     fp: str
+    kind: str                       # "host" | "dist"
     meta: ReqMeta
-    reqs: List[_PendingReq]         # coalesced requests
+    reqs: List                      # coalesced _PendingReq / _PendingDistReq
     struct_fp: str                  # topology-modulo-weights key
     n: int
     fault_readmits: int = 0         # cold re-admissions after failures
@@ -158,7 +175,7 @@ class _Inflight:
     """One admitted fingerprint living on the router."""
     adm: _Admission
     t_admit: float
-    assemble: Callable              # () -> perm
+    assemble: Callable              # (root result) -> perm
     rec: Optional[dict]             # recorded splits (path -> part)
     warm_tree: object               # cache.WarmTree or None
     warm_used: bool
@@ -276,11 +293,43 @@ class OrderingService:
                 return rid
             obs.REGISTRY.inc("repro_service_requests_total", result="miss")
             req = _PendingReq(rid, t0, g, seed, nproc, cfg, deadline, slo)
-            self._enqueue(fp, req, g.n, slo,
+            self._enqueue(fp, "host", req, g.n, slo,
                           lambda: structural_fingerprint(g))
             return rid
 
-    def _enqueue(self, fp: str, req: _PendingReq, n: int, slo: str,
+    def submit_distributed(self, dg: DGraph, seed: int = 0,
+                           cfg: Optional[DNDConfig] = None,
+                           deadline_s: Optional[float] = None,
+                           slo: str = "") -> int:
+        """Enqueue a distributed (sharded ``DGraph``) ordering request.
+
+        Same cache/coalescing/SLO semantics as ``submit``; the task
+        tree (top sharded dissection plus its centralized endgame) is
+        one suspendable unit on the shared router, so distributed
+        orderings park and resume between waves exactly like host ones.
+        """
+        cfg = cfg or DNDConfig()
+        t0 = time.perf_counter()
+        fp = dgraph_fingerprint(dg, seed, cfg)          # pure: no lock
+        deadline = None if deadline_s is None else t0 + deadline_s
+        with self._lock:
+            rid = self._next_rid
+            self._next_rid += 1
+            self._n_submitted += 1
+            perm = self.cache.get(fp)
+            if perm is not None:
+                obs.REGISTRY.inc("repro_service_requests_total",
+                                 result="hit")
+                self._resolve(rid, perm, True, t0, fp, queue_wait=0.0,
+                              n=dg.n_global, deadline=deadline)
+                return rid
+            obs.REGISTRY.inc("repro_service_requests_total", result="miss")
+            req = _PendingDistReq(rid, t0, dg, seed, cfg, deadline, slo)
+            self._enqueue(fp, "dist", req, dg.n_global, slo,
+                          lambda: dgraph_structural_fingerprint(dg))
+            return rid
+
+    def _enqueue(self, fp: str, kind: str, req, n: int, slo: str,
                  struct_fp_fn) -> None:
         """Coalesce a missed request into its admission queue (or onto
         the already in-flight computation of the same fingerprint)."""
@@ -302,7 +351,7 @@ class OrderingService:
         meta = ReqMeta(tag=fp, size_class=cls, t_enqueue=req.t_submit,
                        deadline=req.deadline, slo=slo)
         self._queues[cls][fp] = _Admission(
-            fp, meta, [req], struct_fp_fn(), n)
+            fp, kind, meta, [req], struct_fp_fn(), n)
 
     def poll(self, rid: int) -> Optional[OrderResult]:
         """Result for a request id, or None while still queued."""
@@ -430,13 +479,19 @@ class OrderingService:
                 obs.REGISTRY.inc("repro_service_warm_total", result="miss")
         rec = {} if self._warm_record else None
         head = adm.reqs[0]
-        ordering = Ordering(head.graph.n)
-        gen = request_task(head.graph, head.seed, head.nproc, head.cfg,
-                           ordering, hints=hints, rec=rec)
+        if adm.kind == "host":
+            ordering = Ordering(head.graph.n)
+            gen = request_task(head.graph, head.seed, head.nproc,
+                               head.cfg, ordering, hints=hints, rec=rec)
+            assemble = lambda result, o=ordering: o.assemble()  # noqa: E731
+        else:
+            gen = distributed_order_task(head.dg, head.seed, head.cfg,
+                                         hints=hints, rec=rec)
+            assemble = lambda result: result.assemble()         # noqa: E731
         self._router.submit(gen, tag=adm.fp)
         with self._lock:
             self._inflight[adm.fp] = _Inflight(
-                adm, now, ordering.assemble, rec, warm_tree,
+                adm, now, assemble, rec, warm_tree,
                 warm_used=hints is not None)
 
     def _finish(self, fp: str, result) -> Dict[int, OrderResult]:
@@ -461,7 +516,7 @@ class OrderingService:
                                              result.error)
             t_chk = time.perf_counter()
             try:
-                perm = inflight.assemble()
+                perm = inflight.assemble(result)
             except Exception as err:
                 return self._fail_or_readmit(fp, inflight, exec_s, err)
             inj = faults.active()
@@ -472,7 +527,7 @@ class OrderingService:
                     fp, inflight, exec_s, faults.CorruptResult(
                         f"assembled result for {fp[:16]} is not a "
                         f"permutation of [0, {adm.n})"))
-            if inflight.warm_used:
+            if inflight.warm_used and adm.kind == "host":
                 # OPC guard: a warm-started tree must match the recorded
                 # quality of its source (OPC is structure+perm only, so
                 # the comparison is exact across weight changes);
@@ -492,9 +547,12 @@ class OrderingService:
             self.cache.put(fp, perm)
             if (self._warm_record and inflight.rec is not None
                     and not inflight.warm_used):
-                # record the cold tree's splits (and its OPC, the guard's
-                # yardstick) for future structural near-hits
-                opc = float(nnz_opc(adm.reqs[0].graph, perm)[1])
+                # record the cold tree's splits for future structural
+                # near-hits; OPC (the guard's yardstick) for host graphs
+                # only: the distributed guard would need a centralizing
+                # gather, so dist entries rely on per-node validation
+                opc = (float(nnz_opc(adm.reqs[0].graph, perm)[1])
+                       if adm.kind == "host" else -1.0)
                 self.warm.put(adm.struct_fp, inflight.rec, opc, adm.n, fp)
             retries, degraded = self._router.recovery.pop_tag(fp)
             for k, req in enumerate(adm.reqs):

@@ -6,8 +6,9 @@ request fingerprints to the same key in both packages.  A request is
 fully determined by (CSR graph content, seed, nproc, NDConfig), so a
 collision-resistant hash of exactly those bytes is a sound cache key:
 two requests with equal fingerprints produce identical orderings (the
-whole pipeline is deterministic given the seed).  The reference's
-``dgraph_*`` fingerprints wait for the distributed slice.
+whole pipeline is deterministic given the seed).  A distributed
+request is keyed by its whole sharded ``DGraph`` (layout included), the
+seed and its ``DNDConfig`` (``dgraph_fingerprint``).
 """
 from __future__ import annotations
 
@@ -56,5 +57,36 @@ def request_fingerprint(g: Graph, seed: int, nproc: int,
     h = hashlib.blake2b(digest_size=16)
     h.update(graph_fingerprint(g).encode())
     h.update(f"|seed={seed}|nproc={nproc}|".encode())
+    h.update(repr(dataclasses.astuple(cfg)).encode())
+    return h.hexdigest()
+
+
+def dgraph_structural_fingerprint(dg) -> str:
+    """Topology-modulo-weights key of a sharded ``DGraph``.
+
+    Hashes the shard layout and adjacency (``vtxdist``, padded neighbor
+    table, ghost ids, per-shard valid counts) but neither edge nor
+    vertex weights — the distributed analogue of
+    ``structural_fingerprint``, keying warm-start reuse of a previous
+    ordering tree's centralized-endgame splits.
+    """
+    h = hashlib.blake2b(digest_size=16)
+    _update(h, dg.vtxdist, dg.nbr_gst, dg.ghost_gid, dg.n_loc, dg.n_ghost)
+    return h.hexdigest()
+
+
+def dgraph_fingerprint(dg, seed: int, cfg) -> str:
+    """Cache key for a distributed ordering request.
+
+    Hashes the full sharded representation (shard layout included: the
+    same global graph distributed differently takes different multilevel
+    paths, so layout must be part of the key) plus seed and ``DNDConfig``.
+    Equal fingerprints imply bit-identical orderings — the distributed
+    pipeline is deterministic given (dg, seed, cfg).
+    """
+    h = hashlib.blake2b(digest_size=16)
+    _update(h, dg.vtxdist, dg.nbr_gst, dg.ewgt_gst, dg.ghost_gid, dg.n_loc,
+            dg.n_ghost, dg.vwgt)
+    h.update(f"|seed={seed}|".encode())
     h.update(repr(dataclasses.astuple(cfg)).encode())
     return h.hexdigest()

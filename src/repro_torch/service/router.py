@@ -1,16 +1,22 @@
 """Unified wave router: one shared lane stack for the whole service.
 
-The port of the reference's ``service/router.py``, centralized stages
-only.  One **WaveRouter** owns the frontier of *all*
-concurrently-submitted task trees and executes every wave through one
-stage table: ``FMWork`` (bare or in per-phase lists), ``BFSWork`` and
-``MatchWork`` run through the bucketed executors of ``core.fm``,
-``core.band`` and ``core.coarsen``, one dispatch per ELL bucket, so
-same-bucket works of every live task — siblings at any depth, different
-*requests* — stack into the lanes of one kernel call.  FM buckets key on
-``(n_pad, d_pad, passes, pos_only)`` only: move budgets are per-lane
-data of the FM kernels, so works with different ``max_moves`` share a
-launch.
+The port of the reference's ``service/router.py``.  One
+**WaveRouter** owns the frontier of *all* concurrently-submitted task
+trees and executes every wave through one stage table:
+
+  * centralized work — ``FMWork`` (bare or in per-phase lists),
+    ``BFSWork`` and ``MatchWork`` — runs through the bucketed executors
+    of ``core.fm``, ``core.band`` and ``core.coarsen``, one dispatch per
+    ELL bucket.  FM buckets key on ``(n_pad, d_pad, passes, pos_only)``
+    only: move budgets are per-lane data of the FM kernels, so works
+    with different ``max_moves`` share a launch;
+  * distributed work — ``DMatchWork`` / ``DBFSWork`` / ``DHaloWork`` of
+    ``core.dnd`` — groups by ``dgraph_bucket`` (plus rounds / width /
+    dtype) and each group runs as ONE lane-stacked collective call of
+    ``core.dgraph``, however many requests contributed lanes.
+
+Same-bucket works of every live task — siblings at any depth, different
+*requests* — stack into the lanes of one kernel call.
 
 Launches per wave are therefore bounded by live shape buckets, not by
 requests.  Per-lane results are pure functions of each lane's own inputs
@@ -23,14 +29,14 @@ caller names ``"cpu"``).  Its recovery ladder (retry, FM kernel-path
 degrade, isolate, excise) never moves work to another device: on the
 card the FM ladder is fused → hoisted, both CUDA kernels, and a group
 that fails at hoisted is isolated and then excised; on the CPU it keeps
-the reference's third rung, the plain torch oracle.
+the reference's third rung, the plain torch oracle.  The distributed
+kinds' ladder is retry and isolate, as in the reference: it has no
+plain rung.
 
-Left for the distributed slice: the ``DMatchWork`` / ``DBFSWork`` /
-``DHaloWork`` stages and ``RouterConfig``'s ``mesh`` and
-``match_compact`` (with the ``apply()`` that pushes the latter down).
-The reference's ``jit_cache_capacity`` bounds its JAX jit-builder cache,
-which has no counterpart under PyTorch; its ``frontier_waves``,
-``max_wave_works`` and ``pump_wave_budget`` are read by nothing.
+``RouterConfig`` leaves out the reference's ``mesh`` (read by nothing
+there), its ``jit_cache_capacity`` (which bounds a JAX jit-builder cache
+with no counterpart under PyTorch), and its ``frontier_waves``,
+``max_wave_works`` and ``pump_wave_budget``, which nothing reads.
 
 Tasks are generators yielding typed work descriptors (or ``_Spawn``
 lists of subtasks) and receiving results — the protocol
@@ -49,7 +55,10 @@ import numpy as np
 from repro_torch import obs
 from repro_torch.core.band import BFSWork, execute_bfs_works
 from repro_torch.core.coarsen import MatchWork, execute_match_works
-from repro_torch.core.dnd import _Spawn
+from repro_torch.core.dgraph import (dgraph_bucket, distributed_bfs_stacked,
+                                     distributed_matching_stacked,
+                                     halo_exchange_stacked)
+from repro_torch.core.dnd import DBFSWork, DHaloWork, DMatchWork, _Spawn
 from repro_torch.core.fm import FMWork, execute_fm_works
 from repro_torch.kernels.ops import FM_MODES, fm_mode_default
 from repro_torch.obs.instrument import _note_wave, instrument
@@ -88,6 +97,12 @@ def work_kind(work) -> str:
         return "bfs"
     if isinstance(work, MatchWork):
         return "match"
+    if isinstance(work, DMatchWork):
+        return "dmatch"
+    if isinstance(work, DBFSWork):
+        return "dbfs"
+    if isinstance(work, DHaloWork):
+        return "dhalo"
     raise TypeError(f"unknown work kind: {type(work).__name__}")
 
 
@@ -266,8 +281,11 @@ def execute_wave(works: List, level: Optional[int] = None,
 
     ``FMWork`` (bare or in per-phase lists), ``BFSWork`` and
     ``MatchWork`` run through the bucketed executors, one dispatch per
-    bucket.  Per-lane results are independent of wave composition, so
-    wave execution is bit-identical to singleton execution.
+    bucket; ``DMatchWork`` / ``DBFSWork`` / ``DHaloWork`` group by
+    ``(kind, dgraph_bucket, rounds | width | dtype)``, one lane-stacked
+    collective call per group.  Per-lane results are independent of
+    wave composition, so wave execution is bit-identical to singleton
+    execution.
 
     ``tags`` (optional, aligned with ``works``) attributes each work to
     its originating request: the wave summary then carries ``requests``
@@ -371,7 +389,7 @@ def execute_wave(works: List, level: Optional[int] = None,
             fm_items.append((i, None, w))
         elif isinstance(w, BFSWork):
             bfs_items.append((i, w))
-        else:
+        elif isinstance(w, MatchWork):
             mt_items.append((i, w))
 
     # the wave's launch counts are *measured*: every executor below
@@ -416,6 +434,46 @@ def execute_wave(works: List, level: Optional[int] = None,
                  len({w.bucket_key() for _, w in mt_items}))
             for i, w in mt_items:
                 group_tags[("match", w.bucket_key())].add(tag_of(i))
+
+        # distributed data plane: lane-stack per bucket, ONE call a group
+        groups: Dict[Tuple, List[int]] = defaultdict(list)
+        for i, w in enumerate(works):
+            if isinstance(w, DMatchWork):
+                groups[("dmatch", dgraph_bucket(w.dg), w.rounds)].append(i)
+            elif isinstance(w, DBFSWork):
+                groups[("dbfs", dgraph_bucket(w.dg), w.width)].append(i)
+            elif isinstance(w, DHaloWork):
+                groups[("dhalo", dgraph_bucket(w.dg),
+                        str(np.asarray(w.x).dtype))].append(i)
+        counts: Dict[str, List[int]] = defaultdict(list)
+        for key, idxs in groups.items():
+            kind = key[0]
+            counts[kind].append(len(idxs))
+
+            def run_group(sub: List[int], kind=kind, key=key) -> List:
+                lane_tags = (None if tags is None
+                             else [tags[i] for i in sub])
+                dgs = [works[i].dg for i in sub]
+                if kind == "dmatch":
+                    return distributed_matching_stacked(
+                        dgs, [works[i].seed for i in sub], key[2],
+                        tags=lane_tags, device=dev)
+                if kind == "dbfs":
+                    return distributed_bfs_stacked(
+                        dgs, [works[i].src for i in sub], key[2],
+                        tags=lane_tags, device=dev)
+                return halo_exchange_stacked(
+                    dgs, [works[i].x for i in sub], tags=lane_tags,
+                    device=dev)
+
+            outs = guarded(kind, idxs,
+                           lambda idxs=idxs: run_group(idxs),
+                           lambda i: run_group([i])[0])
+            for i, r in zip(idxs, outs):
+                results[i] = r
+            group_tags[key].update(tag_of(i) for i in idxs)
+        for kind, ns in counts.items():
+            note(kind, sum(ns), len(ns))
     for launch in wave_ins.launches:
         summary["launches"][launch["kind"]] = \
             summary["launches"].get(launch["kind"], 0) + 1

@@ -12,6 +12,8 @@ held to the reference tests' tolerances (1e-5 float32 SpMV, 5e-2
 bfloat16, 1e-4 diffusion), at sizes that are no multiple of any block,
 and the bfloat16 SpMV's rounding of each product is checked exactly.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -625,3 +627,161 @@ def test_service_drain_thread_on_card(card):
     for rid, k in rids:
         want = nested_dissection(graphs[k % 3], k, 1, device=card)
         assert np.array_equal(svc.poll(rid).perm, want)
+
+
+# ------------------------------------------------------------------ #
+# the distributed plane (csrc/dgraph.cu): rows 7-10, kernel == plain
+# ------------------------------------------------------------------ #
+def _dlanes(dgs):
+    from repro_torch.core import dgraph as D
+
+    def st(field):
+        return torch.from_numpy(np.stack([np.asarray(getattr(d, field),
+                                                     np.int32)
+                                          for d in dgs]))
+    return {f: st(f) for f in ("nbr_gst", "ewgt_gst", "ghost_gid",
+                               "vtxdist", "n_loc")}, D
+
+
+def _dgraphs(name):
+    from repro_torch.core import dgraph as D
+    from repro_torch.graphs.generators import grid2d
+    if name == "grid3d_16":
+        return [D.distribute(grid3d(16, 16, 16), 8)]
+    if name == "stack3":
+        return [D.distribute(grid2d(13, 11), 4), D.distribute(grid2d(12, 12),
+                                                              4),
+                D.distribute(grid2d(10, 14), 4)]
+    g20 = D.distribute(grid2d(20, 20), 8)      # empty trailing parts
+    return [D.dgraph_fold(D.dgraph_induced(g20, D.shard_gids(g20) < 150)[0])]
+
+
+DCASES = ("grid3d_16", "stack3", "folded")
+
+
+@pytest.mark.parametrize("name", DCASES)
+def test_halo_and_relax_kernels_equal_plain(card, name):
+    from repro_torch.kernels import dgraph_ops as K
+    t, _ = _dlanes(_dgraphs(name))
+    L, P, nlm, d = t["nbr_gst"].shape
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.integers(0, 99, (L, P, nlm)).astype(np.int32))
+    want = K.halo_plain(x, t["ghost_gid"], t["vtxdist"])
+    before = K.halo_launches
+    got = K.halo(x.to(card), t["ghost_gid"].to(card), t["vtxdist"].to(card))
+    assert K.halo_launches == before + 1
+    assert torch.equal(got.cpu(), want)
+    ext = want.reshape(L * P, -1)
+    nbr = t["nbr_gst"].reshape(L * P, nlm, d)
+    before = K.relax_launches
+    got = K.ell_relax(nbr.to(card), ext.to(card), 2 ** 30)
+    assert K.relax_launches == before + 1
+    assert torch.equal(got.cpu(), K.ell_relax_plain(nbr, ext, 2 ** 30))
+
+
+@pytest.mark.parametrize("width", [0, 1, 3])
+@pytest.mark.parametrize("name", DCASES)
+def test_distributed_bfs_kernel_equals_plain(card, name, width):
+    from repro_torch.kernels import dgraph_ops as K
+    t, _ = _dlanes(_dgraphs(name))
+    L, P, nlm, _ = t["nbr_gst"].shape
+    rng = np.random.default_rng(width)
+    src = torch.from_numpy((rng.random((L, P, nlm)) < 0.05).astype(np.int32))
+    want = K.dbfs_plain(t["nbr_gst"], src, t["ghost_gid"], t["vtxdist"],
+                        width)
+    before = (K.dbfs_launches, K.relax_launches)
+    got = K.dbfs(t["nbr_gst"].to(card), src.to(card),
+                 t["ghost_gid"].to(card), t["vtxdist"].to(card), width)
+    assert (K.dbfs_launches, K.relax_launches) == (before[0] + 1,
+                                                   before[1] + width)
+    assert torch.equal(got.cpu(), want)
+    for j in range(L):                  # each lane == its singleton call
+        one = K.dbfs(t["nbr_gst"][j:j + 1].to(card), src[j:j + 1].to(card),
+                     t["ghost_gid"][j:j + 1].to(card),
+                     t["vtxdist"][j:j + 1].to(card), width)
+        assert torch.equal(one[0].cpu(), want[j])
+
+
+@pytest.mark.parametrize("rounds", [0, 1, 8])
+@pytest.mark.parametrize("name", DCASES)
+def test_distributed_matching_kernel_equals_plain(card, name, rounds):
+    from repro_torch.kernels import dgraph_ops as K
+    dgs = _dgraphs(name)
+    t, D = _dlanes(dgs)
+    L, _, nlm, _ = t["nbr_gst"].shape
+    seeds = torch.arange(11, 11 + L, dtype=torch.int32)
+    args = [t[f] for f in ("nbr_gst", "ewgt_gst", "ghost_gid", "vtxdist",
+                           "n_loc")] + [seeds]
+    # dense, the lossless cap, and a cap that drops proposals
+    for cap in (0, D._match_proposal_cap(dgs, nlm), 3):
+        want = K.dmatch_plain(*args, rounds, cap)
+        before = K.dmatch_launches
+        got = K.dmatch(*(a.to(card) for a in args), rounds, cap)
+        assert K.dmatch_launches == before + 1 + 3 * rounds
+        assert torch.equal(got.cpu(), want), cap
+        for j in range(L):
+            one = K.dmatch(*(a[j:j + 1].to(card) for a in args), rounds,
+                           cap)
+            assert torch.equal(one[0].cpu(), want[j])
+
+
+def test_distributed_nd_card_equals_cpu(card):
+    from repro_torch.core import dgraph as D
+    from repro_torch.core.dnd import DNDConfig, \
+        distributed_nested_dissection
+    from repro_torch.graphs.generators import grid2d
+    dg = D.distribute(grid2d(28, 28), 8)
+    cfg = DNDConfig(centralize_threshold=256, band_central_threshold=128)
+    want = distributed_nested_dissection(dg, 0, cfg, device="cpu")
+    for frontier in (True, False):
+        got = distributed_nested_dissection(
+            dg, 0, dataclasses.replace(cfg, frontier=frontier))
+        assert np.array_equal(got, want)
+
+
+def test_distributed_kernels_read_outside_ids_as_padding(card):
+    from repro_torch.kernels import dgraph_ops as K
+    t, _ = _dlanes(_dgraphs("stack3"))
+    L, P, nlm, d = t["nbr_gst"].shape
+    W = nlm + t["ghost_gid"].shape[2]
+    nb = t["nbr_gst"].clone()
+    nb[..., -1] = torch.where(nb[..., -1] < 0, W + 7, nb[..., -1])
+    src = (torch.arange(L * P * nlm).reshape(L, P, nlm) % 11 == 0).int()
+    seeds = torch.arange(L, dtype=torch.int32)
+    rest = [t[f] for f in ("ewgt_gst", "ghost_gid", "vtxdist", "n_loc")]
+    for matching in (False, True):
+        a = nb.to(card)
+        if matching:
+            got = K.dmatch(a, *(r.to(card) for r in rest), seeds.to(card), 8)
+            want = K.dmatch_plain(nb, *rest, seeds, 8)
+        else:
+            got = K.dbfs(a, src.to(card), t["ghost_gid"].to(card),
+                         t["vtxdist"].to(card), 3)
+            want = K.dbfs_plain(nb, src, t["ghost_gid"], t["vtxdist"], 3)
+        assert torch.equal(got.cpu(), want)
+
+
+def test_distributed_kernels_without_ghost_slots(card):
+    """G == 0 (an empty ghost table, whose pointer may be null): every
+    kernel still equals its plain version; the BFS keeps its sources at
+    0 and stays inside each part."""
+    from repro_torch.kernels import dgraph_ops as K
+    t, _ = _dlanes(_dgraphs("stack3"))
+    L, P, nlm, d = t["nbr_gst"].shape
+    nb = torch.where(t["nbr_gst"] < nlm, t["nbr_gst"], -1)
+    gg = t["ghost_gid"][..., :0].contiguous()
+    vd, nl = t["vtxdist"], t["n_loc"]
+    src = (torch.arange(L * P * nlm).reshape(L, P, nlm) % 11 == 0).int()
+    for width in (1, 3):
+        got = K.dbfs(nb.to(card), src.to(card), gg.to(card), vd.to(card),
+                     width)
+        want = K.dbfs_plain(nb, src, gg, vd, width)
+        assert torch.equal(got.cpu(), want)
+        assert (want[src != 0] == 0).all()
+    x = torch.arange(L * P * nlm, dtype=torch.int32).reshape(L, P, nlm)
+    assert torch.equal(K.halo(x.to(card), gg.to(card), vd.to(card)).cpu(),
+                       K.halo_plain(x, gg, vd))
+    seeds = torch.arange(L, dtype=torch.int32)
+    args = (nb, t["ewgt_gst"], gg, vd, nl, seeds)
+    assert torch.equal(K.dmatch(*(a.to(card) for a in args), 8).cpu(),
+                       K.dmatch_plain(*args, 8))

@@ -103,12 +103,14 @@ def test_fallback_and_small_graph_policies():
     assert sorted(perm) == list(range(9))
 
 
-#: the service slice's modules, which the import gate must reach
+#: the service and distributed slices' modules, which the import gate
+#: must reach
 SERVICE_SLICE = [f"repro_torch.{m}" for m in (
     "obs", "obs.tracer", "obs.metrics", "obs.instrument", "train",
     "train.fault", "core.dnd", "service", "service.api", "service.batch",
     "service.cache", "service.faults", "service.fingerprint",
-    "service.router", "service.sched_policy", "service.scheduler")]
+    "service.router", "service.sched_policy", "service.scheduler",
+    "core.dgraph", "kernels.dgraph_ops", "convert")]
 
 
 def test_import_pulls_in_neither_jax_nor_reference():
