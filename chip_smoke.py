@@ -93,8 +93,13 @@ Phases, each of which must pass:
    bound (one-part subtrees, already on one process, are handed to the
    sequential orderer whole, as in the reference), alternating-colour band
    refinements with 0 conflicts and 0 repairs, launches == buckets in
-   every wave, the four distributed kernels and the FM, BFS and matching
-   kernels launched, no plain version called; its NNZ and OPC beside
+   every wave, the halo, BFS and matching kernels and the FM, BFS and
+   matching kernels of the endgame launched, the distributed kernels'
+   launches, as the C entries report what they enqueued, equal to what
+   ``dgraph_ops.planned_launches`` gives the run's launch records (one
+   launch a BFS and a matching call on the cluster design, no
+   relaxation), no plain version called; its NNZ and
+   OPC beside
    phase 5's host ND, and its wall split by stage (dmatch, dbfs, dhalo,
    fm, match, bfs, rebuild, endgame, host); (c) ``distributed_order_batch``
    of that graph at seeds 0 and 1 and ``grid2d(28, 28)`` at P 8 equals
@@ -103,22 +108,38 @@ Phases, each of which must pass:
    at P 8 with the gather-free configuration gives the same permutation
    on the card and on the CPU; (a) the four kernels (``csrc/dgraph.cu``:
    the ELL relaxation, the halo exchange, the distributed BFS at width 3,
-   the matching at 8 rounds, dense, at its lossless cap and at a cap that
-   drops proposals) equal their plain versions exactly at the root bucket
-   of ``distribute(grid3d(30, 30, 30), 8)`` (8, 4096, 8, 2048), at
-   ``distribute(grid3d(100, 100, 100), 8)`` (8, 131072, 8, 32768) and at
-   the buckets with the most lanes (b)'s waves gave the BFS and the
-   matching, each lane equal to its singleton call, each timed alone
-   (its C entry) and through its wrapper;
+   the matching at 8 rounds at the path's cap, dense, at its lossless cap
+   and at a cap that drops proposals) equal their plain versions exactly
+   at the root bucket of ``distribute(grid3d(30, 30, 30), 8)`` (8, 4096,
+   8, 2048), at ``distribute(grid3d(100, 100, 100), 8)`` (8, 131072, 8,
+   32768) and at the buckets with the most lanes (b)'s waves gave the BFS
+   and the matching, each lane equal to its singleton call, each timed
+   alone (its C entry) and through its wrapper; the BFS and the matching
+   in the design ``dgraph_ops.plan`` picks (with where its state lay),
+   and at the root bucket (2^18 slots, where the plan switches) and the
+   many-lane buckets also on 8 CTAs and in the other design, each held
+   to its plain version;
 11. a ``{"kernels": [...]}`` line with each kernel's launches, error,
    times, bound and library time (rows 0-2 also with their phase 7
-   launches and phase 8 multi-lane times, rows 7-10 with their phase 10
-   launches and their times at the other two places), the card's name
-   and power limit, and as the last line ``{"ok": true, "device":
-   {...}}``.
+   launches and phase 8 multi-lane times, rows 7-10 with their launches
+   on phase 10's distributed main path, row 7 marked off that path when
+   it launched 0 times there, rows 9-10 with their designs' times, and
+   their times at the other two places), the card's name and power
+   limit, and as the last
+   line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without that last line.  Imports neither jax
 nor the reference package.
+
+    python3 chip_smoke.py --dist-rows SRC
+
+times rows 9-10 alone at phase 10's three buckets in the package under
+SRC (``src``, or a parent commit's unpacked under a directory that
+``.gitignore`` lists), each held to its plain version, and a warm
+distributed ordering of grid3d(30³) over 8 parts (wall, stage split,
+launches, the permutation's hash), and prints one JSON line and the
+card's name and power limit: run it for the parent and the change in
+one call, in the order parent, change, change, parent.
 """
 from __future__ import annotations
 
@@ -161,7 +182,26 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def entry_ms(source: str, entry: str, *args, reps: int = 50) -> float:
+def queued_ms(fn, reps: int) -> float:
+    """Mean CUDA-event time of ``fn()`` over ``reps`` runs queued behind a
+    device sleep long enough to hide the host's enqueue time: the card's
+    time alone, without the gaps a host slower than the kernels leaves."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e6) * reps // 10 + int(2e7))
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def entry_ms(source: str, entry: str, *args, reps: int = 50,
+             queued: bool = False) -> float:
     """Mean CUDA-event time of a kernel's C entry alone: the launch without
     its wrapper's checks, allocations and host syncs (tensors are passed
     as pointers, in the entry's order; outputs are overwritten)."""
@@ -173,7 +213,7 @@ def entry_ms(source: str, entry: str, *args, reps: int = 50) -> float:
 
     def launch():
         build.check(fn(*vals, stream), entry)
-    return cuda_ms(launch, reps)
+    return (queued_ms if queued else cuda_ms)(launch, reps)
 
 
 def once_ms(fn):
@@ -1687,6 +1727,11 @@ DIST_COUNTS = {"ell_relax_step": "relax_launches",
                "halo_exchange_stacked": "halo_launches",
                "distributed_bfs_stacked": "dbfs_launches",
                "distributed_matching_stacked": "dmatch_launches"}
+#: the distributed kernels the main path must launch: the halo, and the
+#: BFS and matching in their planned designs (the ELL relaxation only as
+#: the grid BFS's steps)
+PATH_DIST_KERNELS = ("halo_exchange_stacked", "distributed_bfs_stacked",
+                     "distributed_matching_stacked")
 #: the phase's configuration of the gather-free tests (DNDConfig)
 GATHER_FREE = dict(centralize_threshold=256, band_central_threshold=128)
 #: OPS of one hash_mix of three values (three mix steps of a multiply, an
@@ -1823,6 +1868,8 @@ def _dist_main(main_run: dict) -> dict:
     over = [w for w in ins.waves for k in w["launches"]
             if w["launches"][k] != w["buckets"][k]]
     nnz, opc = nnz_opc(g, perm)
+    planned = dgraph_ops.planned_launches(ins.launches)
+    want_launches = {k: planned[a] for k, a in DIST_COUNTS.items()}
     split = {k: by_kind.seconds.get(k, 0.0) for k in (
         "dmatch", "dbfs", "dhalo", "fm", "match", "bfs", "rebuild",
         "endgame")}
@@ -1840,7 +1887,9 @@ def _dist_main(main_run: dict) -> dict:
            "nnz": int(nnz), "opc": int(opc),
            "opc_ratio_vs_host_nd": opc / main_run["opc"],
            "nnz_ratio_vs_host_nd": nnz / main_run["nnz"],
-           "largest_lanes": {k: len(v[0]) for k, v in largest.items()}}
+           "largest_lanes": {k: len(v[0]) for k, v in largest.items()},
+           "calls": {k: sum(r["kind"] == k for r in ins.launches)
+                     for k in ("dhalo", "dbfs", "dmatch")}}
     log(f"phase 10 distributed main path: {json.dumps(res)}")
     if spread > bound:
         raise AssertionError(f"distributed: a gather of {spread} vertices "
@@ -1852,9 +1901,13 @@ def _dist_main(main_run: dict) -> dict:
     if over:
         raise AssertionError(f"distributed: launches != buckets in {over}")
     if min(launches[k] for k in ("heavy_edge_matching_multi", "bfs_multi",
-                                 "fm_fused_multi", *DIST_COUNTS)) <= 0:
+                                 "fm_fused_multi",
+                                 *PATH_DIST_KERNELS)) <= 0:
         raise AssertionError(f"distributed: a kernel never launched: "
                              f"{launches}")
+    if want_launches != {k: launches[k] for k in want_launches}:
+        raise AssertionError(f"distributed: launches {launches}, the plan "
+                             f"gives {want_launches}")
     if calls[0]:
         raise AssertionError(f"distributed: {calls[0]} plain calls on the "
                              f"card")
@@ -1945,28 +1998,171 @@ def _exact(name, got, want, where):
                              f"{where}")
 
 
-def _dist_kernel_case(dgs, srcs, seeds, width=3, rounds=8) -> dict:
-    """(a) at one bucket: rows 7-10 == their plain versions on the card,
-    exactly, each lane == its singleton call, the matching dense and with
-    a forced cap; CUDA-event times alone (C entry) and through the
-    wrapper; the plain versions' times; bounds; the halo's library call."""
-    import numpy as np
-    import torch
+def _path_cap(dgs, nlm) -> int:
+    """The matching's cap on the path (``distributed_matching_stacked``)."""
     from repro_torch.core import dgraph
+    cap = dgraph._match_proposal_cap(dgs, nlm)
+    return 0 if 3 * cap >= 2 * nlm else cap
+
+
+def _dist_layouts(K, P, nlm, d, both):
+    """The designs of rows 9-10 to time at (P, nlm, d), as (design, C):
+    the plan's, and with ``both`` a cluster of 8 CTAs and the other
+    design; a tree without ``plan`` (before the cluster designs) has the
+    grid design alone."""
+    if not hasattr(K, "plan"):
+        return [("grid", None)]
+    design, C = K.plan(P, nlm, d)
+    if not both:
+        return [(design, C)]
+    C = C or 16
+    eight = [("cluster", 8)] if C != 8 else []
+    return [(design, C), *eight,
+            ("grid" if design == "cluster" else "cluster", C)]
+
+
+def _layout_key(design, C) -> str:
+    return "grid" if design == "grid" else f"cluster{C}"
+
+
+def _entry(K, design, C, grid, cluster, args):
+    """A design's C entry and its arguments in the tree on ``sys.path``:
+    with ``plan`` (the cluster designs) the entries take C and a host
+    int32[3] for what they enqueued; before, the grid entry alone."""
+    import torch
+    if not hasattr(K, "plan"):
+        return (grid, *args)
+    counts = torch.zeros(3, dtype=torch.int32)
+    if design == "cluster":
+        return (cluster, *args, C, counts)
+    return (grid, *args, counts)
+
+
+def _rows_9_10(t, src, sd, caps, width, rounds, both) -> dict:
+    """Rows 9-10 at one bucket, in the tree on ``sys.path``: each design
+    (``_dist_layouts``) through its C entry, held to the plain version
+    exactly (the matching at every cap of ``caps``) and timed alone at
+    the path's cap ``caps[0]``; the wrapper's time; the plain versions'
+    times; the bounds of the work these inputs need."""
+    import torch
     from repro_torch.kernels import dgraph_ops as K
-    t = _dlanes_of(dgs)
     L, P, nlm, d = t["nbr"].shape
     G = t["gg"].shape[2]
     where = (L, P, nlm, d, G)
+    cells, real = L * P * nlm, int((t["nbr"] >= 0).sum())
+    layouts = _dist_layouts(K, P, nlm, d, both)
+    out = {}
+    # --- row 9, the distributed BFS
+    want = K.dbfs_plain(t["nbr"], src, t["gg"], t["vd"], width)
+    bufs = torch.empty((2, L, P, nlm), dtype=torch.int32, device="cuda")
+    gidx = torch.empty((L, P, G), dtype=torch.int64, device="cuda")
+    args = (t["nbr"], src, t["gg"], t["vd"], bufs[0], bufs[1], gidx, L, P,
+            nlm, d, G, width)
+    designs = {}
+    for design, C in layouts:
+        entry = _entry(K, design, C, "dbfs_launch", "dbfs_cluster_launch",
+                       args)
+        ms = entry_ms("dgraph", *entry, reps=20)
+        _exact(f"dbfs {design}", bufs[0], want, where)
+        designs[_layout_key(design, C)] = ms
+    entry = _entry(K, *layouts[0], "dbfs_launch", "dbfs_cluster_launch",
+                   args)
+    queued = entry_ms("dgraph", *entry, reps=20, queued=True)
+    got = K.dbfs(t["nbr"], src, t["gg"], t["vd"], width)
+    _exact("dbfs", got, want, where)
+    out["dbfs"] = dict(
+        design=_layout_key(*layouts[0]), ms=designs[_layout_key(*layouts[0])],
+        place=getattr(K, "state_place", None), designs=designs,
+        queued_ms=queued,
+        call_ms=cuda_ms(lambda: K.dbfs(t["nbr"], src, t["gg"], t["vd"],
+                                       width), reps=20),
+        plain_ms=cuda_ms(lambda: K.dbfs_plain(t["nbr"], src, t["gg"],
+                                              t["vd"], width), 3),
+        library_ms=None, max_abs_err=0, width=width,
+        **bound(4 * (L * P * nlm * d + 2 * cells + L * P * G + L * (P + 1)),
+                width * (real + 2 * cells)))
+    # --- row 10, the matching: every design at every cap
+    margs = (t["nbr"], t["ew"], t["gg"], t["vd"], t["nl"], sd)
+    tally = []
+    wants = {cap: K.dmatch_plain(*margs, rounds, cap,
+                                 tally=tally if cap == caps[0] else None)
+             for cap in dict.fromkeys(caps)}
+    mbuf = torch.empty((L, P, nlm), dtype=torch.int32, device="cuda")
+    designs = {}
+    for design, C in layouts:
+        if design == "cluster":
+            words = K.dmatch_scratch(design, L, P, nlm, G, C)
+        else:                           # the grid layouts, before and now
+            words = L * P * G + 4 * cells + -(-nlm // 256) * L * P
+        scratch = torch.empty(words, dtype=torch.int64, device="cuda")
+        for cap in (*caps[1:], caps[0]):
+            head = _entry(K, design, C, "dmatch_launch",
+                          "dmatch_cluster_launch",
+                          (*margs, mbuf, scratch, L, P, nlm, d, G, rounds,
+                           cap))
+            ms = entry_ms("dgraph", *head, reps=1 if cap != caps[0] else 10)
+            _exact(f"dmatch {design} cap {cap}", mbuf, wants[cap], where)
+        designs[_layout_key(design, C)] = ms
+        if (design, C) == layouts[0]:
+            queued = entry_ms("dgraph", *head, reps=10, queued=True)
+    for cap in caps:
+        _exact(f"dmatch cap {cap}", K.dmatch(*margs, rounds, cap),
+               wants[cap], where)
+    place = getattr(K, "state_place", None)
+    hashes = sum(2 * rows + 2 * scanned + props
+                 for rows, scanned, props in tally)
+    out["dmatch"] = dict(
+        design=_layout_key(*layouts[0]),
+        ms=designs[_layout_key(*layouts[0])], place=place, designs=designs,
+        queued_ms=queued,
+        call_ms=cuda_ms(lambda: K.dmatch(*margs, rounds, caps[0]), reps=10),
+        plain_ms=cuda_ms(lambda: K.dmatch_plain(*margs, rounds, caps[0]), 2),
+        library_ms=None, max_abs_err=0, rounds=rounds, caps=list(caps),
+        matched=int((wants[caps[0]] >= 0).sum()),
+        **bound(4 * (2 * L * P * nlm * d + L * P * G + L * (P + 1) + L * P
+                     + L + cells), OPS_PER_HASH * hashes))
+    out["want"] = (want, wants[caps[0]])
+    return out
+
+
+def _dist_inputs(dgs, srcs, seeds):
+    import numpy as np
+    import torch
+    t = _dlanes_of(dgs)
     src = torch.from_numpy(np.stack([np.asarray(s, np.int32)
                                      for s in srcs])).cuda()
     sd = torch.tensor([s & 0x7FFFFFFF for s in seeds], dtype=torch.int32,
                       device="cuda")
+    return t, src, sd
+
+
+def _dist_caps(dgs, nlm):
+    """The path's cap first, then the lossless cap and a quarter of it,
+    which drops proposals."""
+    from repro_torch.core import dgraph
+    lossless = dgraph._match_proposal_cap(dgs, nlm)
+    return (_path_cap(dgs, nlm), 0, lossless, max(1, lossless // 4))
+
+
+def _dist_kernel_case(dgs, srcs, seeds, width=3, rounds=8,
+                      both=False) -> dict:
+    """(a) at one bucket: rows 7-10 == their plain versions on the card,
+    exactly, each lane == its singleton call, the matching dense and at
+    its caps, rows 9-10 in the plan's design (and with ``both`` the other
+    one); CUDA-event times alone (C entry) and through the wrapper; the
+    plain versions' times; bounds; the halo's library call."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import dgraph_ops as K
+    t, src, sd = _dist_inputs(dgs, srcs, seeds)
+    L, P, nlm, d = t["nbr"].shape
+    G = t["gg"].shape[2]
+    where = (L, P, nlm, d, G)
     rng = np.random.default_rng(L)
     x = torch.from_numpy(rng.integers(0, 1 << 20, (L, P, nlm)).astype(
         np.int32)).cuda()
     cells, real = L * P * nlm, int((t["nbr"] >= 0).sum())
-    out = {"shape": list(where)}
+    out = {"shape": list(where), "plan": list(K.plan(P, nlm, d))}
     # --- row 8, halo
     halo = K.halo(x, t["gg"], t["vd"])
     _exact("halo", halo, K.halo_plain(x, t["gg"], t["vd"]), where)
@@ -1998,47 +2194,10 @@ def _dist_kernel_case(dgs, srcs, seeds, width=3, rounds=8) -> dict:
         library_ms=None, max_abs_err=0,
         **bound(4 * (L * P * nlm * d + L * P * (nlm + G) + cells),
                 real + 2 * cells))
-    # --- row 9, the distributed BFS
-    dist = K.dbfs(t["nbr"], src, t["gg"], t["vd"], width)
-    _exact("dbfs", dist, K.dbfs_plain(t["nbr"], src, t["gg"], t["vd"],
-                                      width), where)
-    bufs = torch.empty((2, L, P, nlm), dtype=torch.int32, device="cuda")
-    gidx = torch.empty((L, P, G), dtype=torch.int64, device="cuda")
-    out["dbfs"] = dict(
-        ms=entry_ms("dgraph", "dbfs_launch", t["nbr"], src, t["gg"], t["vd"],
-                    bufs[0], bufs[1], gidx, L, P, nlm, d, G, width, reps=20),
-        call_ms=cuda_ms(lambda: K.dbfs(t["nbr"], src, t["gg"], t["vd"],
-                                       width), reps=20),
-        plain_ms=cuda_ms(lambda: K.dbfs_plain(t["nbr"], src, t["gg"],
-                                              t["vd"], width), 3),
-        library_ms=None, max_abs_err=0, width=width,
-        **bound(4 * (L * P * nlm * d + 2 * cells + L * P * G + L * (P + 1)),
-                width * (real + 2 * cells)))
-    # --- row 10, the matching: dense, at the lossless cap, at a forced cap
-    margs = (t["nbr"], t["ew"], t["gg"], t["vd"], t["nl"], sd)
-    lossless = dgraph._match_proposal_cap(dgs, nlm)
-    tally = []
-    want = K.dmatch_plain(*margs, rounds, 0, tally=tally)
-    for cap in (0, lossless, max(1, lossless // 4)):
-        got = K.dmatch(*margs, rounds, cap)
-        _exact(f"dmatch cap {cap}", got,
-               want if cap in (0, lossless) else
-               K.dmatch_plain(*margs, rounds, cap), where)
-    mbuf = torch.empty((L, P, nlm), dtype=torch.int32, device="cuda")
-    scratch = torch.empty(L * P * G + 3 * cells, dtype=torch.int64,
-                          device="cuda")
-    hashes = sum(2 * rows + 2 * scanned + props
-                 for rows, scanned, props in tally)
-    out["dmatch"] = dict(
-        ms=entry_ms("dgraph", "dmatch_launch", *margs, mbuf, scratch, L, P,
-                    nlm, d, G, rounds, 0, reps=10),
-        call_ms=cuda_ms(lambda: K.dmatch(*margs, rounds, 0), reps=10),
-        plain_ms=cuda_ms(lambda: K.dmatch_plain(*margs, rounds, 0), 2),
-        library_ms=None, max_abs_err=0, rounds=rounds,
-        caps=[0, lossless, max(1, lossless // 4)],
-        matched=int((want >= 0).sum()),
-        **bound(4 * (2 * L * P * nlm * d + L * P * G + L * (P + 1) + L * P
-                     + L + cells), OPS_PER_HASH * hashes))
+    # --- rows 9-10
+    rows = _rows_9_10(t, src, sd, _dist_caps(dgs, nlm), width, rounds, both)
+    dist, want = rows.pop("want")
+    out.update(rows)
     # each lane == its singleton call
     if L > 1:
         for j in range(L):
@@ -2050,40 +2209,114 @@ def _dist_kernel_case(dgs, srcs, seeds, width=3, rounds=8) -> dict:
                                        width)[0], dist[j]) and
                     torch.equal(K.dmatch(one["nbr"], one["ew"], one["gg"],
                                          one["vd"], one["nl"], sd[j:j + 1],
-                                         rounds, 0)[0], want[j])):
+                                         rounds, out["dmatch"]["caps"][0])[0],
+                                want[j])):
                 raise AssertionError(f"lane {j} of {where} differs from its "
                                      f"singleton call")
     return out
 
 
-def phase_dist(main_run: dict) -> dict:
-    """Phase 10: the distributed ordering (``core.dnd``) on the card."""
+def _dist_order(dg) -> dict:
+    """A warm distributed ordering of ``dg`` (seed 0, default DNDConfig):
+    its wall, the dmatch / dbfs / dhalo / endgame seconds, the
+    distributed kernels' launches and the permutation's sha256."""
+    import hashlib
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.core.dnd import DNDConfig
+    from repro_torch.kernels import dgraph_ops
+    _dnd(dg, 0, DNDConfig())
+    by_kind = StageByKind()
+    for attr in DIST_COUNTS.values():
+        setattr(dgraph_ops, attr, 0)
+    obs.register_collector(by_kind)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        perm = _dnd(dg, 0, DNDConfig())
+    finally:
+        obs.unregister_collector(by_kind)
+    wall = time.perf_counter() - t0
+    return {"wall_s": wall,
+            "split_s": {k: by_kind.seconds.get(k, 0.0)
+                        for k in ("dmatch", "dbfs", "dhalo", "endgame")},
+            "launches": {k: getattr(dgraph_ops, a)
+                         for k, a in DIST_COUNTS.items()},
+            "perm_sha256": hashlib.sha256(
+                np.asarray(perm, np.int64).tobytes()).hexdigest()}
+
+
+def _dist_buckets(main_largest=None):
+    """("order", the distributed root of grid3d(30³) over 8 parts), then
+    the three buckets of rows 9-10: that root bucket, grid3d(100³) over
+    8 parts, and the frontier waves' calls with the most lanes
+    (``main_largest``, or an ordering's own capture), as (name, dgs,
+    srcs, seeds, width, rounds) for each kernel."""
     import numpy as np
     from repro_torch.core import dgraph
+    from repro_torch.core.dnd import DNDConfig
     from repro_torch.graphs.generators import grid3d
-    main = _dist_main(main_run)
-    reqs = _dist_requests(main)
-    cases = {}
-    root = main["dg"]
+    root = dgraph.distribute(grid3d(30, 30, 30), 8)
     g100 = dgraph.distribute(grid3d(100, 100, 100), 8)
+    if main_largest is None:
+        main_largest = {}
+        with dist_calls(main_largest, [0], []):
+            _dnd(root, 0, DNDConfig())
+    out = [("order", root)]
     for name, dg in (("root_30", root), ("grid3d_100", g100)):
         rng = np.random.default_rng(dg.n_loc_max)
         src = (rng.random((dg.nparts, dg.n_loc_max)) < 0.01).astype(
             np.int32)
-        cases[name] = _dist_kernel_case([dg], [src], [5])
+        out.append((name, [dg], [src], [5], 3, 8))
+    dgs_b, (srcs, width) = main_largest["distributed_bfs_stacked"]
+    dgs_m, (seeds, rounds) = main_largest["distributed_matching_stacked"]
+    out.append(("many_lanes", dgs_b, srcs, [7] * len(dgs_b), width, rounds))
+    out.append(("many_lanes_match", dgs_m,
+                [np.zeros((d.nparts, d.n_loc_max), np.int32) for d in dgs_m],
+                seeds, width, rounds))
+    return out
+
+
+def dist_rows_bench() -> dict:
+    """``chip_smoke.py --dist-rows SRC``: rows 9-10 alone (C entries) and
+    through their wrappers at the three buckets, in the package under SRC
+    (this tree's ``src`` or a parent commit's), each held to its plain
+    version; one JSON line."""
+    from repro_torch.kernels import build
+    build.build_all()
+    buckets = _dist_buckets()
+    out = {"order_grid3d_30": _dist_order(buckets.pop(0)[1])}
+    for name, dgs, srcs, seeds, width, rounds in buckets:
+        t, src, sd = _dist_inputs(dgs, srcs, seeds)
+        nlm = t["nbr"].shape[2]
+        rows = _rows_9_10(t, src, sd, _dist_caps(dgs, nlm), width, rounds,
+                          name != "grid3d_100")
+        rows.pop("want")
+        out[name] = {"shape": list(t["nbr"].shape) + [t["gg"].shape[2]],
+                     **{k: {f: v.get(f) for f in (
+                         "design", "ms", "designs", "queued_ms", "call_ms",
+                         "bound_ms")}
+                        for k, v in rows.items()}}
+    return out
+
+
+def phase_dist(main_run: dict) -> dict:
+    """Phase 10: the distributed ordering (``core.dnd``) on the card."""
+    main = _dist_main(main_run)
+    reqs = _dist_requests(main)
+    cases = {}
+    for name, dgs, srcs, seeds, width, rounds in _dist_buckets(
+            main["largest"])[1:]:
+        cases[name] = _dist_kernel_case(dgs, srcs, seeds, width, rounds,
+                                        both=name != "grid3d_100")
         log(f"phase 10 {name}: {json.dumps(cases[name])}")
-    # the frontier waves' many-lane buckets: the call of each collective
-    # with the most lanes, at its inputs
-    dgs_b, (srcs, width) = main["largest"]["distributed_bfs_stacked"]
-    dgs_m, (seeds, rounds) = main["largest"]["distributed_matching_stacked"]
-    lanes_case = _dist_kernel_case(dgs_b, srcs, [7] * len(dgs_b), width)
-    m_case = _dist_kernel_case(
-        dgs_m, [np.zeros((d.nparts, d.n_loc_max), np.int32) for d in dgs_m],
-        seeds, width, rounds)
-    lanes_case["dmatch_lanes"] = dict(m_case["dmatch"],
-                                      shape=m_case["shape"])
-    cases["many_lanes"] = lanes_case
-    log(f"phase 10 many-lane buckets: {json.dumps(lanes_case)}")
+    # the frontier waves' many-lane buckets: the BFS's case, with the
+    # matching's at its own bucket
+    m_case = cases.pop("many_lanes_match")
+    cases["many_lanes"]["dmatch_lanes"] = dict(m_case["dmatch"],
+                                               shape=m_case["shape"],
+                                               plan=m_case["plan"])
     return {"main": {k: v for k, v in main.items()
                      if k not in ("perm", "dg", "largest")},
             "requests": reqs, "cases": cases}
@@ -2108,10 +2341,19 @@ def main() -> int:
         print("no CUDA device: this smoke run needs the card",
               file=sys.stderr)
         return 1
-    if not (SRC / "repro_torch").is_dir():
-        print(f"the port's package is missing under {SRC}", file=sys.stderr)
+    # --dist-rows SRC: rows 9-10 alone, in the package under SRC
+    rows_only = sys.argv[1:2] == ["--dist-rows"]
+    src_root = Path(sys.argv[2]).resolve() if rows_only else SRC
+    if not (src_root / "repro_torch").is_dir():
+        print(f"the port's package is missing under {src_root}",
+              file=sys.stderr)
         return 1
-    sys.path.insert(0, str(SRC))
+    sys.path.insert(0, str(src_root))
+    if rows_only:
+        rows = dist_rows_bench()
+        print(json.dumps({"dist_rows": rows, "src": str(src_root)}))
+        print(gpu_line(), flush=True)
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -2184,8 +2426,11 @@ def main() -> int:
             ell["launches"]["diffusion_step"], big["diffusion"],
             max(c["diffusion"]["max_abs_err"] for c in ell["cases"]), None),
     ]
-    # rows 7-10 (phase 10): launches on the distributed main path, times
-    # at its root bucket, and at grid3d(100³) and the many-lane buckets
+    # rows 7-10 (phase 10): launches on the distributed main path (row 7
+    # is off it where the cluster design serves every BFS call, and is
+    # held to its plain version in _dist_kernel_case), times at its root
+    # bucket, and at grid3d(100³) and the many-lane buckets; rows 9-10
+    # with their designs (both timed at the root bucket)
     dlaunch, dcases = dist["main"]["launches"], dist["cases"]
     for name, case, replaces in (
             ("ell_relax_step", "relax", "src/repro/kernels/ops.py:93"),
@@ -2200,14 +2445,18 @@ def main() -> int:
                 root["library_ms"])
         r["call_ms"] = root["call_ms"]
         r["shape"] = dcases["root_30"]["shape"]
+        r["on_dist_path"] = dlaunch[name] > 0
         wide = dcases["many_lanes"]
         many = wide["dmatch_lanes"] if case == "dmatch" else wide[case]
+        keys = ("ms", "call_ms", "plain_ms", "bound_ms")
+        if case in ("dbfs", "dmatch"):
+            r["design"], r["designs"] = root["design"], root["designs"]
+            r["place"] = root["place"]
+            keys += ("design", "place")
         r["at"] = {
-            "grid3d_100": {k: dcases["grid3d_100"][case][k] for k in (
-                "ms", "call_ms", "plain_ms", "bound_ms")},
+            "grid3d_100": {k: dcases["grid3d_100"][case][k] for k in keys},
             "many_lanes": dict(
-                {k: many[k] for k in ("ms", "call_ms", "plain_ms",
-                                      "bound_ms")},
+                {k: many[k] for k in keys},
                 shape=many.get("shape", wide["shape"]))}
         rows.append(r)
     # the multi-lane cases of rows 0-2 (phase 8): shapes, times, and the

@@ -19,21 +19,56 @@
 // id of -1 reads 0.
 //
 // ell_relax (one thread a row): out = min over valid slots of ext[id] + 1,
-// padding (-1) read as `big`.  The same kernel runs every step of the
-// distributed BFS (dbfs_launch) in its distributed form: given a table of
-// each ghost's owner slot, it reads a ghost's value straight from its
-// owner's row (the halo exchange of the step, fused) and takes the min
-// with the row's old distance.  The BFS is synchronous, so each step reads
-// the previous step's distances and writes the other buffer.
+// padding (-1) read as `big`.  In its distributed form it is the grid
+// BFS's step: given a table of each ghost's owner slot, it reads a ghost's
+// value straight from its owner's row (the halo exchange of the step,
+// fused) and takes the min with the row's old distance.
 //
-// dmatch (1 + 3 * rounds launches): init (mates -1, the round-0 winner
-// table cleared, the ghost table), then per round
+// The BFS and the matching run in the design kernels/band_batch.py's
+// `lane_plan` picks for a lane of P * n_loc_max rows and d slots, as the
+// centralized matching.cu and bfs_multi.cu do:
+//
+// cluster (one launch a call, up to 2^18 slots a lane): one thread-block
+// cluster of C CTAs a lane (cluster.cuh); CTA k owns a power-of-two share
+// of the lane's rows and of its ghosts (Place).  The kernel starts its own
+// state, resolves each ghost's owner slot once, and runs the steps or
+// rounds as phases a lane barrier apart.  The state lives in the CTAs'
+// shared memory where each share fits, a row of another CTA read over
+// distributed shared memory; else in device memory through L2.
+//   dbfs_lanes    `width` synchronous steps, each reading the previous
+//                 step's buffer and writing the other (the last lands in
+//                 the output): min(old, min over slots + 1), a ghost read
+//                 from its owner's row, BIG for padding;
+//   dmatch_lanes  per round, propose (+ grant) | commit, or with a cap
+//                 propose | rank | grant | commit.  Each row keeps its
+//                 round role in a byte (off: padding or matched, proposer,
+//                 acceptor), drawn once a round in the commit; a ghost
+//                 whose owner row has its gid is that row's role byte, so
+//                 a proposer reads a byte a neighbour and hashes only its
+//                 candidates' tie breaks.  The winner words take atomics
+//                 from every CTA, so with C > 1 they stay in device
+//                 memory.
+//
+// grid (lanes above 2^18 slots): a launch a phase over the whole card.
+//   dbfs          dbfs_init, then ell_relax a step: 1 + width launches;
+//   dmatch        dmatch_init, then per round propose and commit, the
+//                 grant posted inside propose (1 + 2 * rounds launches);
+//                 with a cap, propose counts each 256-row tile's
+//                 proposals and a grant launch ranks them, each block
+//                 summing its part's earlier tiles (1 + 3 * rounds).
+//
+// Each design's C entry writes what it enqueued into the caller's
+// counts[3]: its own kernels, its ell_relax kernels (the grid BFS's steps)
+// and the cluster state's placement; the wrappers add these to their
+// launch counts.
+//
+// The matching's protocol, in both designs (dgraph.py:1015-1131):
 //   propose  each unmatched proposer (coin hash_mix(gid, r, seed) & 1)
 //            picks its heaviest unmatched acceptor neighbour: the first
 //            slot of largest float(w) + hash_unit(gid, tgt, r + 17);
-//   grant    one block a (lane, part) ranks its proposals in row order
-//            (the compact gather keeps the first `cap`, when cap > 0) and
-//            posts each one to its target's winner slot with one 64-bit
+//   grant    each part's proposals in row order, the first `cap` (all
+//            when cap == 0; the reference's compact gather keeps these),
+//            each posted to its target's winner slot with one 64-bit
 //            atomicMax of (order-preserving bits of float(w) +
 //            hash_unit(gid, tgt, r + 31), INT_MAX - gid): the largest
 //            score, then the smallest gid, as the reference's segment_max
@@ -41,18 +76,30 @@
 //   commit   acceptors take their slot's winner, proposers whose target's
 //            winner is themselves take their target, and each clears its
 //            slot of the next round's table.
-// All three read the round's starting mates; each writes only its own.
+// Every phase reads the round's starting mates; each row writes only its
+// own.
+//
+// What bounds them on an H100: at the main path's buckets neither bytes
+// nor operations (a few MB and a few tens of M hash operations a call,
+// each under a microsecond) but the chain of dependent phases: launches in
+// the grid design; in the cluster design each phase's dependent loads and
+// hashes on C SMs, and its lane barrier (PERF.md §6).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -fmad=false (build.py).
 // Float sums are single adds, so no contraction can change a bit.
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include "cluster.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // the grid designs' block
 constexpr int kBig = 1 << 30;  // the distributed BFS's unreached distance
 constexpr uint32_t kIntMax = 0x7FFFFFFFu;
+// a row's round role in the cluster matching
+constexpr uint8_t kOff = 0, kProposer = 1, kAcceptor = 2;
 
 __host__ __device__ inline unsigned blocks_for(int64_t n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
@@ -78,14 +125,34 @@ __device__ __forceinline__ uint32_t hash_mix3(int a, int b, uint32_t c) {
 }
 
 // hash_unit: the hash rounded to float32 (to nearest), times 2^-32
+__device__ __forceinline__ float unit_of(uint32_t h) {
+  return __fmul_rn(__uint2float_rn(h), 0x1p-32f);
+}
+
 __device__ __forceinline__ float hash_unit3(int a, int b, uint32_t c) {
-  return __fmul_rn(__uint2float_rn(hash_mix3(a, b, c)), 0x1p-32f);
+  return unit_of(hash_mix3(a, b, c));
+}
+
+// The chain's first step, hash_mix(a, ...)'s state after a: a row keeps
+// it for its gid, so each of its hashes costs two steps.
+__device__ __forceinline__ uint32_t hash_head(int a) {
+  return mix_step(0x9E3779B9u, (uint32_t)a);
 }
 
 // An order-preserving unsigned image of a float (no NaN arises here).
 __device__ __forceinline__ uint32_t ordered(float f) {
   const uint32_t b = __float_as_uint(f);
   return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
+// The grant word of proposer `gid` at weight w, given its target's hash
+// state pair = mix_step(hash_head(gid), tg), in round r.
+__device__ __forceinline__ unsigned long long grant_word(float w, int gid,
+                                                         uint32_t pair,
+                                                         int r) {
+  const float score = __fadd_rn(w, unit_of(mix_step(pair, r + 31)));
+  return ((unsigned long long)ordered(score) << 32) |
+         (kIntMax - (uint32_t)gid);
 }
 
 // The owner part of global id g >= 0 in a lane's ranges vd (P + 1
@@ -99,14 +166,19 @@ __device__ __forceinline__ int owner_of(const int* vd, int P, int g) {
   return min(max(lo - 1, 0), P - 1);
 }
 
-// The flat slot (lane l, owner, local) of global id g in a lane's
-// (P, nlm) rows, or -1 for g < 0 (a ghost that reads 0).
+// The slot (owner, local) of global id g >= 0 in a lane's (P, nlm) rows.
+__device__ __forceinline__ int lane_slot(const int* vd, int P, int nlm,
+                                         int g) {
+  const int o = owner_of(vd, P, g);
+  return o * nlm + min(max(g - vd[o], 0), nlm - 1);
+}
+
+// The flat slot of global id g in lane l's rows, or -1 for g < 0 (a ghost
+// that reads 0).
 __device__ __forceinline__ int64_t slot_of(const int* vd, int P, int nlm,
                                            int64_t l, int g) {
   if (g < 0) return -1;
-  const int o = owner_of(vd, P, g);
-  const int loc = min(max(g - vd[o], 0), nlm - 1);
-  return (l * P + o) * (int64_t)nlm + loc;
+  return l * P * (int64_t)nlm + lane_slot(vd, P, nlm, g);
 }
 
 // ------------------------------------------------------------ relaxation
@@ -178,7 +250,7 @@ __device__ __forceinline__ void ghost_table(const int* ghost_gid,
   gidx[t] = slot_of(vtxdist + l * (P + 1), P, nlm, l, ghost_gid[t]);
 }
 
-// ------------------------------------------------------------ BFS
+// ------------------------------------------------------------ BFS, grid
 __global__ void dbfs_init(const int* __restrict__ src,
                           const int* __restrict__ ghost_gid,
                           const int* __restrict__ vtxdist,
@@ -190,7 +262,175 @@ __global__ void dbfs_init(const int* __restrict__ src,
   if (t < ghosts) ghost_table(ghost_gid, vtxdist, gidx, t, P, nlm, G);
 }
 
-// ------------------------------------------------------------ matching
+// ------------------------------------------------------------ cluster state
+// Where a cluster kernel keeps a lane's per-row (and per-ghost) arrays.
+// CTA k of C owns rows [k << shift, (k + 1) << shift) (clipped to the
+// lane), so a row's CTA is a shift away, and writes only its own.
+//   kL2       each array is the lane's slice of device memory, read
+//             through L2 (__ldcg, __stcg);
+//   kLocal    a lane of one CTA: each array in its shared memory;
+//   kCluster  each CTA holds its rows of each array in its shared memory,
+//             and a row of another CTA is read over distributed shared
+//             memory; its own rows stay plain shared-memory accesses.
+constexpr int kL2 = 0, kLocal = 1, kCluster = 2;
+
+template <int kMode>
+struct Place {
+  int shift, rank;
+  // the element of row v, which this CTA owns
+  template <typename T>
+  __device__ __forceinline__ T* own(T* base, int v) const {
+    return kMode == kCluster ? base + (v - (rank << shift)) : base + v;
+  }
+  template <typename T>
+  __device__ __forceinline__ T ld(T* base, int v) const {
+    if constexpr (kMode == kL2) {
+      return __ldcg(base + v);
+    } else if constexpr (kMode == kLocal) {
+      return base[v];
+    } else {
+      const int k = v >> shift;
+      T* p = base + (v - (k << shift));
+      if (k == rank) return *p;
+      return *cooperative_groups::cluster_group::map_shared_rank(p, k);
+    }
+  }
+  template <typename T>
+  __device__ __forceinline__ void st(T* base, int v, T x) const {
+    if constexpr (kMode == kL2) {
+      __stcg(base + v, x);
+    } else {
+      *own(base, v) = x;
+    }
+  }
+};
+
+// The smallest s with 2^s * C >= n: each CTA's share of n rows.
+__host__ __device__ inline int share_shift(int64_t n, int C) {
+  const int64_t per = (n + C - 1) / C;
+  int s = 0;
+  while (((int64_t)1 << s) < per) ++s;
+  return s;
+}
+
+// A CTA's first and last + 1 of n items at `shift`.
+__device__ __forceinline__ void share(int n, int shift, int rank, int& lo,
+                                      int& hi) {
+  lo = min((int64_t)n, (int64_t)rank << shift);
+  hi = min((int64_t)n, (int64_t)(rank + 1) << shift);
+}
+
+// Entries of an array a CTA holds in shared memory: its share, or the
+// whole lane when that is smaller.
+__host__ __device__ inline int64_t share_cap(int64_t n, int shift) {
+  return n < ((int64_t)1 << shift) ? n : ((int64_t)1 << shift);
+}
+
+// The placement of a cluster kernel's state of `smem` bytes a CTA: shared
+// memory where it fits, else device memory.
+inline int placement(size_t smem, int C) {
+  return smem > kMaxLaneSmem ? kL2 : C == 1 ? kLocal : kCluster;
+}
+
+// What a design's C entry enqueued, into the caller's counts[3]: its own
+// kernels, its ell_relax kernels (the grid BFS's steps) and the cluster
+// state's placement (kGrid for the grid design).
+constexpr int kGrid = -1;
+inline void enqueued(int* counts, int own, int relax, int place) {
+  counts[0] = own;
+  counts[1] = relax;
+  counts[2] = place;
+}
+
+// ------------------------------------------------------------ BFS, cluster
+// One lane a cluster (grid L * C, lane blockIdx.x / C).  The two distance
+// buffers a, b and the ghosts' lane slots gs, placed by Place: in the
+// CTAs' shared memory, or in device memory as (dist, scratch) and
+// gslot_all (L, P, G), the ping-pong started so that the last step lands
+// in dist.  A row is read by `group` threads (lane_group), 4 slots at a time,
+// whose minimum is taken with shuffles.
+template <int kMode>
+__global__ void __launch_bounds__(kLaneThreads, 1)
+    dbfs_lanes(const int* __restrict__ nbr, const int* __restrict__ src,
+               const int* __restrict__ ghost_gid,
+               const int* __restrict__ vtxdist, int* dist, int* scratch,
+               int* gslot_all, int P, int nlm, int d, int G, int group,
+               bool vec, int width, int C, int shift, int gshift) {
+  extern __shared__ __align__(16) int lane_buf[];
+  const int lane = blockIdx.x / C, rank = blockIdx.x % C;
+  const int N = P * nlm, PG = P * G;
+  constexpr bool kSmem = kMode != kL2;
+  const Place<kMode> at{shift, rank};
+  const Place<kMode> gat{gshift, rank};
+  int lo, hi, glo, ghi;
+  share(N, shift, rank, lo, hi);
+  share(PG, gshift, rank, glo, ghi);
+  const int64_t base = (int64_t)lane * N, gbase = (int64_t)lane * PG;
+  const int* vd = vtxdist + (int64_t)lane * (P + 1);
+  int* out = dist + base;
+  int* a;
+  int* b;
+  int* gs;
+  if constexpr (kSmem) {
+    const int64_t cap = share_cap(N, shift);
+    a = lane_buf;
+    b = lane_buf + cap;
+    gs = lane_buf + 2 * cap;
+  } else {
+    const int start = width % 2;
+    a = start ? scratch + base : out;
+    b = start ? out : scratch + base;
+    gs = gslot_all + gbase;
+  }
+  for (int v = lo + threadIdx.x; v < hi; v += blockDim.x) {
+    const int d0 = src[base + v] != 0 ? 0 : kBig;
+    if (kSmem && width == 0) out[v] = d0;
+    else at.st(a, v, d0);
+  }
+  for (int g = glo + threadIdx.x; g < ghi; g += blockDim.x) {
+    const int tg = ghost_gid[gbase + g];
+    gat.st(gs, g, tg >= 0 ? lane_slot(vd, P, nlm, tg) : -1);
+  }
+  const int rows = blockDim.x / group;
+  const int sub = threadIdx.x % group;
+  for (int k = 0; k < width; ++k) {
+    lane_sync(C);
+    int* din = k % 2 == 0 ? a : b;
+    int* dnext = k % 2 == 0 ? b : a;
+    const bool last = kSmem && k == width - 1;  // lands in dist
+    for (int v0 = lo; v0 < hi; v0 += rows) {
+      const int v = v0 + threadIdx.x / group;
+      const int p = v / nlm;
+      int best = kBig;
+      const int* row = nbr + (base + v) * d;
+      for (int c = sub; v < hi && 4 * c < d; c += group) {
+        const int4 q = load4(row, c, d, vec, -1);
+        const int ids[4] = {q.x, q.y, q.z, q.w};
+        int f[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {  // the row read; -2 padding
+          const int id = ids[e];
+          f[e] = (unsigned)id < (unsigned)nlm ? p * nlm + id
+                 : id >= nlm && id - nlm < G ? gat.ld(gs, p * G + (id - nlm))
+                                             : -2;
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e)  // a ghost of id -1 reads 0
+          if (f[e] != -2) best = min(best, f[e] >= 0 ? at.ld(din, f[e]) : 0);
+      }
+      for (int off = group / 2; off > 0; off /= 2)
+        best = min(best, __shfl_down_sync(0xffffffffu, best, off, group));
+      if (v < hi && sub == 0) {
+        const int nd = min(at.ld(din, v), best + 1);
+        if (last) out[v] = nd;
+        else at.st(dnext, v, nd);
+      }
+    }
+  }
+  if (kMode == kCluster) lane_sync(C);  // no CTA leaves while read remotely
+}
+
+// ------------------------------------------------------------ matching, grid
 struct MatchArgs {
   const int* nbr;
   const int* ewgt;
@@ -202,8 +442,9 @@ struct MatchArgs {
   int64_t* gidx;
   int* prop_tgt;
   float* prop_w;
+  int* tile_count;             // (L, P, tiles) proposals a 256-row tile
   unsigned long long* tables;  // two (L, P, nlm) winner tables
-  int L, P, nlm, d, G, cap;
+  int L, P, nlm, d, G, cap, tiles;
 };
 
 __global__ void dmatch_init(MatchArgs a) {
@@ -240,84 +481,96 @@ __device__ __forceinline__ Row row_of(const MatchArgs& a, int64_t t) {
   return w;
 }
 
-__global__ void dmatch_propose(MatchArgs a, int r) {
-  const int64_t t = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (t >= (int64_t)a.L * a.P * a.nlm) return;
-  const Row w = row_of(a, t);
+// A grid of (tiles, L * P): block (k, lp) proposes for rows k * 256 ..
+// of part lp, so no tile spans two parts.  With cap == 0 each proposal is
+// posted here; otherwise the tile's proposal count is kept for the grant.
+__global__ void dmatch_propose(MatchArgs a, int r,
+                               unsigned long long* __restrict__ table) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  const int64_t lp = blockIdx.y;
+  const int64_t t = lp * a.nlm + i;
   int tgt = -1;
   float wsel = 0.f;
-  if (w.unmatched && (hash_mix3(w.gid, r, w.seed) & 1u)) {
-    float best = -INFINITY;
-    const int* row = a.nbr + t * a.d;
-    const int* ew = a.ewgt + t * a.d;
-    for (int s = 0; s < a.d; ++s) {
-      const int c = row[s];
-      if (c < 0 || c >= a.nlm + a.G) continue;  // padding, or no slot
-      int tg;
-      bool un;
-      if (c < a.nlm) {
-        tg = c < w.nloc ? w.lo + c : -1;
-        un = c < w.nloc && a.match[w.lp * a.nlm + c] < 0;
-      } else {
-        tg = a.ghost_gid[w.lp * a.G + (c - a.nlm)];
-        const int64_t f = a.gidx[w.lp * a.G + (c - a.nlm)];
-        un = false;
-        if (f >= 0) {
-          const int64_t olp = f / a.nlm;
-          un = (int)(f - olp * a.nlm) < a.nloc[olp] && a.match[f] < 0;
+  Row w;
+  if (i < a.nlm) {
+    w = row_of(a, t);
+    if (w.unmatched && (hash_mix3(w.gid, r, w.seed) & 1u)) {
+      float best = -INFINITY;
+      const int* row = a.nbr + t * a.d;
+      const int* ew = a.ewgt + t * a.d;
+      for (int s = 0; s < a.d; ++s) {
+        const int c = row[s];
+        if (c < 0 || c >= a.nlm + a.G) continue;  // padding, or no slot
+        int tg;
+        bool un;
+        if (c < a.nlm) {
+          tg = c < w.nloc ? w.lo + c : -1;
+          un = c < w.nloc && a.match[w.lp * a.nlm + c] < 0;
+        } else {
+          tg = a.ghost_gid[w.lp * a.G + (c - a.nlm)];
+          const int64_t f = a.gidx[w.lp * a.G + (c - a.nlm)];
+          un = false;
+          if (f >= 0) {
+            const int64_t olp = f / a.nlm;
+            un = (int)(f - olp * a.nlm) < a.nloc[olp] && a.match[f] < 0;
+          }
+        }
+        if (!un || tg < 0 || (hash_mix3(tg, r, w.seed) & 1u)) continue;
+        const float score =
+            __fadd_rn(__int2float_rn(ew[s]), hash_unit3(w.gid, tg, r + 17));
+        if (score > best) {  // the first slot of largest score
+          best = score;
+          tgt = tg;
+          wsel = __int2float_rn(ew[s]);
         }
       }
-      if (!un || tg < 0 || (hash_mix3(tg, r, w.seed) & 1u)) continue;
-      const float score =
-          __fadd_rn(__int2float_rn(ew[s]), hash_unit3(w.gid, tg, r + 17));
-      if (score > best) {  // the first slot of the largest score
-        best = score;
-        tgt = tg;
-        wsel = __int2float_rn(ew[s]);
-      }
     }
+    a.prop_tgt[t] = tgt;
+    a.prop_w[t] = wsel;
+    if (tgt >= 0 && a.cap == 0)
+      atomicMax(table + slot_of(a.vtxdist + w.l * (a.P + 1), a.P, a.nlm,
+                                w.l, tgt),
+                grant_word(wsel, w.gid, mix_step(hash_head(w.gid), tgt), r));
   }
-  a.prop_tgt[t] = tgt;
-  a.prop_w[t] = wsel;
+  if (a.cap > 0) {
+    const int n = __syncthreads_count(tgt >= 0);
+    if (threadIdx.x == 0) a.tile_count[lp * a.tiles + blockIdx.x] = n;
+  }
 }
 
-// One block a (lane, part): its proposals in row order, ranked by a block
-// scan, the first `cap` (all when cap == 0) posted to the winner table.
+// With cap > 0, over the propose grid: block (k, lp) sums its part's
+// proposals on tiles 0 .. k - 1, ranks its own in row order with a block
+// scan, and posts those ranked below the cap.
 __global__ void dmatch_grant(MatchArgs a, int r,
                              unsigned long long* __restrict__ table) {
   __shared__ int warp_sum[kThreads / 32];
-  const int64_t lp = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t lp = blockIdx.y;
+  int before = 0;
+  for (int j = threadIdx.x; j < (int)blockIdx.x; j += kThreads)
+    before += a.tile_count[lp * a.tiles + j];
+  for (int off = 16; off > 0; off /= 2)
+    before += __shfl_down_sync(0xffffffffu, before, off);
+  if (lane == 0) warp_sum[warp] = before;
+  __syncthreads();
+  int earlier = 0;
+  for (int k = 0; k < kThreads / 32; ++k) earlier += warp_sum[k];
+  if (earlier >= a.cap) return;  // the whole tile is past the cap
+  __syncthreads();
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  const int64_t t = lp * a.nlm + i;
+  const int tg = i < a.nlm ? a.prop_tgt[t] : -1;
+  const unsigned ballot = __ballot_sync(0xffffffffu, tg >= 0);
+  if (lane == 0) warp_sum[warp] = __popc(ballot);
+  __syncthreads();
+  int rank = earlier + __popc(ballot & ((1u << lane) - 1u));
+  for (int k = 0; k < warp; ++k) rank += warp_sum[k];
+  if (tg < 0 || rank >= a.cap) return;
   const int64_t l = lp / a.P;
   const int* vd = a.vtxdist + l * (a.P + 1);
-  const int lo = vd[lp - l * a.P];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int running = 0;
-  for (int base = 0; base < a.nlm; base += kThreads) {
-    const int i = base + threadIdx.x;
-    const int tg = i < a.nlm ? a.prop_tgt[lp * a.nlm + i] : -1;
-    const bool has = tg >= 0;
-    const unsigned ballot = __ballot_sync(0xffffffffu, has);
-    if (lane == 0) warp_sum[warp] = __popc(ballot);
-    __syncthreads();
-    int before = running + __popc(ballot & ((1u << lane) - 1u));
-    int total = 0;
-    for (int k = 0; k < kThreads / 32; ++k) {
-      if (k < warp) before += warp_sum[k];
-      total += warp_sum[k];
-    }
-    __syncthreads();
-    running += total;
-    if (has && (a.cap == 0 || before < a.cap)) {
-      const int o = owner_of(vd, a.P, tg);
-      const int loc = min(max(tg - vd[o], 0), a.nlm - 1);
-      const int gid = lo + i;
-      const float score = __fadd_rn(a.prop_w[lp * a.nlm + i],
-                                    hash_unit3(gid, tg, r + 31));
-      atomicMax(table + (l * a.P + o) * (int64_t)a.nlm + loc,
-                ((unsigned long long)ordered(score) << 32) |
-                    (kIntMax - (uint32_t)gid));
-    }
-  }
+  const int gid = vd[lp - l * a.P] + i;
+  atomicMax(table + slot_of(vd, a.P, a.nlm, l, tg),
+            grant_word(a.prop_w[t], gid, mix_step(hash_head(gid), tg), r));
 }
 
 __global__ void dmatch_commit(MatchArgs a, int r,
@@ -330,11 +583,8 @@ __global__ void dmatch_commit(MatchArgs a, int r,
   int mate = a.match[t];
   const int tg = a.prop_tgt[t];
   if (tg >= 0) {
-    const int* vd = a.vtxdist + w.l * (a.P + 1);
-    const int o = owner_of(vd, a.P, tg);
-    const int loc = min(max(tg - vd[o], 0), a.nlm - 1);
     const unsigned long long win =
-        table[(w.l * a.P + o) * (int64_t)a.nlm + loc];
+        table[slot_of(a.vtxdist + w.l * (a.P + 1), a.P, a.nlm, w.l, tg)];
     if (win != 0ull && (int)(kIntMax - (uint32_t)win) == w.gid) mate = tg;
   }
   const unsigned long long mine = table[t];
@@ -342,6 +592,302 @@ __global__ void dmatch_commit(MatchArgs a, int r,
     mate = (int)(kIntMax - (uint32_t)mine);
   a.match[t] = mate;
   next[t] = 0ull;
+}
+
+// ----------------------------------------------------------- matching, cluster
+// The arguments of dmatch_lanes.  The lane's state, placed by Place:
+// prop, pslot, pw (float), pre a row; gslot (ghost_code) a ghost; role a
+// row (a byte).  In shared memory 17 bytes a row and 4 a ghost of each
+// CTA's share; in device memory the scratch's ints: prop, pslot, pw, pre
+// (4, L, N), gslot (L, P * G), and role (L, N) bytes; N = P * nlm.  The
+// winner words cur, nxt (u64), which every CTA posts to, are in shared
+// memory (16 bytes a row, first) only with kLocal, else in the scratch
+// (2, L, N).  Each CTA's proposals a
+// part, cnt, and its rank base a part, pbase, are in the scratch: cnt,
+// pbase (2, L, C, P) int32 after the ints.
+struct LaneMatch {
+  const int* nbr;
+  const int* ewgt;
+  const int* ghost_gid;
+  const int* vtxdist;
+  const int* nloc;
+  const int* seeds;
+  int* match;
+  unsigned long long* words;
+  int* ints;
+  int* counts;
+  uint8_t* role;
+  int L, P, nlm, d, G, rounds, cap, C, group, shift, gshift;
+  bool vec;
+};
+
+__device__ __forceinline__ uint8_t role_of(uint32_t head, int r,
+                                           uint32_t seed) {
+  return (mix_step(mix_step(head, r), seed) & 1u) ? kProposer : kAcceptor;
+}
+
+// A ghost's code, resolved once a call: its owner slot f when the owner
+// row is real and has the ghost's gid (its role byte then holds the
+// ghost's coin too), -2 - f when the row is real under another gid (the
+// ghost's coin is drawn each round), -1 when no real row answers.
+__device__ __forceinline__ int ghost_code(const int* vd, const int* nl,
+                                          int P, int nlm, int tg) {
+  if (tg < 0) return -1;
+  const int f = lane_slot(vd, P, nlm, tg);
+  const int o = f / nlm, i = f - o * nlm;
+  if (i >= nl[o]) return -1;
+  return vd[o] + i == tg ? f : -2 - f;
+}
+
+// One lane a cluster (grid L * C, lane blockIdx.x / C).
+template <int kMode>
+__global__ void __launch_bounds__(kLaneThreads, 1)
+    dmatch_lanes(LaneMatch a) {
+  extern __shared__ __align__(16) unsigned char lane_state[];
+  __shared__ int warp_sum[kLaneThreads / 32];
+  const int C = a.C, P = a.P, nlm = a.nlm, G = a.G, d = a.d;
+  const int lane = blockIdx.x / C, rank = blockIdx.x % C;
+  const int N = P * nlm, PG = P * G;
+  const int64_t L = a.L, cells = L * N;
+  constexpr bool kSmem = kMode != kL2;
+  const Place<kMode> at{a.shift, rank};
+  const Place<kMode> gat{a.gshift, rank};
+  int lo, hi, glo, ghi;
+  share(N, a.shift, rank, lo, hi);
+  share(PG, a.gshift, rank, glo, ghi);
+  const int64_t base = (int64_t)lane * N, gbase = (int64_t)lane * PG;
+  const int* vd = a.vtxdist + (int64_t)lane * (P + 1);
+  const int* nl = a.nloc + (int64_t)lane * P;
+  const int* gg = a.ghost_gid + gbase;
+  const uint32_t seed = (uint32_t)a.seeds[lane];
+  int* m = a.match + base;
+  // the winner words of this round (cur) and of the next (nxt), swapped
+  // each round
+  unsigned long long* cur;
+  unsigned long long* nxt;
+  int *prop, *pslot, *pre, *gslot;
+  float* pw;
+  uint8_t* ro;
+  // the winner words take posts from every CTA: in shared memory only
+  // when the lane has one CTA, else in device memory (atomics in L2)
+  constexpr bool words_smem = kMode == kLocal;
+  if constexpr (words_smem) {
+    cur = reinterpret_cast<unsigned long long*>(lane_state);
+    nxt = cur + N;
+  } else {
+    cur = a.words + base;
+    nxt = a.words + cells + base;
+  }
+  if constexpr (kSmem) {
+    const int64_t cap = share_cap(N, a.shift), gcap = share_cap(PG, a.gshift);
+    prop = reinterpret_cast<int*>(lane_state + (words_smem ? 16 * cap : 0));
+    pslot = prop + cap;
+    pw = reinterpret_cast<float*>(pslot + cap);
+    pre = reinterpret_cast<int*>(pw + cap);
+    gslot = pre + cap;
+    ro = reinterpret_cast<uint8_t*>(gslot + gcap);
+  } else {
+    prop = a.ints + base;
+    pslot = a.ints + cells + base;
+    pw = reinterpret_cast<float*>(a.ints + 2 * cells) + base;
+    pre = a.ints + 3 * cells + base;
+    gslot = a.ints + 4 * cells + gbase;
+    ro = a.role + base;
+  }
+  const auto wld = [](const unsigned long long* w) {
+    if constexpr (words_smem) return *w; else return __ldcg(w);
+  };
+  const auto wst = [](unsigned long long* w) {
+    if constexpr (words_smem) *w = 0ull; else __stcg(w, 0ull);
+  };
+  int* cnt = a.counts + (int64_t)lane * C * P;
+  int* pbase = a.counts + L * C * P + ((int64_t)lane * C + rank) * P;
+  // start: mates -1, round 0's roles, round 0's words empty, the ghosts'
+  // codes
+  for (int v = lo + threadIdx.x; v < hi; v += blockDim.x) {
+    const int p = v / nlm, i = v - p * nlm;
+    __stcg(m + v, -1);
+    at.st(ro, v, a.rounds > 0 && i < nl[p]
+                     ? role_of(hash_head(vd[p] + i), 0, seed) : kOff);
+    wst(cur + v);
+  }
+  for (int g = glo + threadIdx.x; g < ghi; g += blockDim.x)
+    gat.st(gslot, g, ghost_code(vd, nl, P, nlm, gg[g]));
+  const int rows = blockDim.x / a.group;
+  const int sub = threadIdx.x % a.group;
+  const int wl = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int r = 0; r < a.rounds; ++r) {
+    lane_sync(C);
+    // propose (+ the grant when cap == 0): a group of threads a row, each
+    // reading up to 8 slots, 4 at a time, whose neighbours' roles are
+    // loaded together; only candidates draw a tie break
+    for (int v0 = lo; v0 < hi; v0 += rows) {
+      const int v = v0 + threadIdx.x / a.group;
+      const bool proposer = v < hi && at.ld(ro, v) == kProposer;
+      const int p = v / nlm;
+      const int gid = vd[min(p, P - 1)] + (v - p * nlm);
+      const uint32_t head = hash_head(gid);
+      const int* nrow = a.nbr + (base + v) * d;
+      const int* wrow = a.ewgt + (base + v) * d;
+      float best_score = -INFINITY;
+      int best_slot = -1, best_t = -1, best_w = 0, best_f = -1;
+      uint32_t best_pair = 0;
+      for (int c = sub; proposer && 4 * c < d; c += a.group) {
+        const int4 q = load4(nrow, c, d, a.vec, -1);
+        const int4 qw = load4(wrow, c, d, a.vec, 0);  // in flight with q
+        const int ids[4] = {q.x, q.y, q.z, q.w};
+        const int ws[4] = {qw.x, qw.y, qw.z, qw.w};
+        int f[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {  // a row's slot, a ghost's code
+          const int id = ids[e];
+          f[e] = (unsigned)id < (unsigned)nlm ? p * nlm + id
+                 : id >= nlm && id - nlm < G ? gat.ld(gslot, p * G + (id - nlm))
+                                             : -1;
+        }
+        bool acc[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int fe = f[e] >= -1 ? f[e] : -2 - f[e];
+          const uint8_t rf = fe >= 0 ? at.ld(ro, fe) : kOff;
+          acc[e] = f[e] >= -1 ? rf == kAcceptor : rf != kOff;
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (!acc[e]) continue;
+          const int j = 4 * c + e;
+          const bool own = ids[e] < nlm;
+          const int tg = own ? vd[p] + ids[e] : gg[p * G + (ids[e] - nlm)];
+          // a ghost whose owner row has another gid: its own coin
+          if (f[e] < -1 && (hash_mix3(tg, r, seed) & 1u)) continue;
+          const uint32_t pair = mix_step(head, tg);
+          const float score = __fadd_rn(__int2float_rn(ws[e]),
+                                        unit_of(mix_step(pair, r + 17)));
+          if (best_slot < 0 || score > best_score) {  // first maximal slot
+            best_score = score;
+            best_slot = j;
+            best_t = tg;
+            best_w = ws[e];
+            best_pair = pair;
+            // the target's owner slot: a ghost's is its code's; a row's
+            // own part's unless vtxdist ends the part before it
+            const bool past = p + 1 < P && tg >= vd[p + 1];
+            best_f = !own ? (f[e] >= 0 ? f[e] : -2 - f[e])
+                     : past ? lane_slot(vd, P, nlm, tg) : f[e];
+          }
+        }
+      }
+      for (int off = a.group / 2; off > 0; off /= 2) {
+        const float s = __shfl_down_sync(0xffffffffu, best_score, off, a.group);
+        const int j = __shfl_down_sync(0xffffffffu, best_slot, off, a.group);
+        const int tg = __shfl_down_sync(0xffffffffu, best_t, off, a.group);
+        const int wj = __shfl_down_sync(0xffffffffu, best_w, off, a.group);
+        const uint32_t pr =
+            __shfl_down_sync(0xffffffffu, best_pair, off, a.group);
+        const int fj = __shfl_down_sync(0xffffffffu, best_f, off, a.group);
+        if (j >= 0 && (best_slot < 0 || s > best_score ||
+                       (s == best_score && j < best_slot))) {
+          best_score = s;
+          best_slot = j;
+          best_t = tg;
+          best_w = wj;
+          best_pair = pr;
+          best_f = fj;
+        }
+      }
+      if (!proposer || sub != 0) continue;
+      at.st(prop, v, best_t);
+      if (best_slot < 0) continue;
+      const int f = best_f;
+      at.st(pslot, v, f);
+      if (a.cap == 0)
+        atomicMax(cur + f,
+                  grant_word(__int2float_rn(best_w), gid, best_pair, r));
+      else
+        at.st(pw, v, __int2float_rn(best_w));
+    }
+    if (a.cap > 0) {
+      // rank: pre[v] = this CTA's proposals on rows lo .. v - 1, by a
+      // block scan in row order
+      __syncthreads();
+      int running = 0;
+      for (int v0 = lo; v0 < hi; v0 += blockDim.x) {
+        const int v = v0 + threadIdx.x;
+        const bool has =
+            v < hi && at.ld(ro, v) == kProposer && at.ld(prop, v) >= 0;
+        const unsigned ballot = __ballot_sync(0xffffffffu, has);
+        if (wl == 0) warp_sum[warp] = __popc(ballot);
+        __syncthreads();
+        int before = running + __popc(ballot & ((1u << wl) - 1u)), total = 0;
+        for (int k = 0; k < kLaneThreads / 32; ++k) {
+          if (k < warp) before += warp_sum[k];
+          total += warp_sum[k];
+        }
+        if (v < hi) at.st(pre, v, before);
+        __syncthreads();
+        running += total;
+      }
+      // publish this CTA's proposals a part; a part's rows are contiguous
+      for (int q = threadIdx.x; q < P; q += blockDim.x) {
+        const int s = max(lo, q * nlm), e = min(hi, (q + 1) * nlm);
+        const int n =
+            s < e ? (e < hi ? at.ld(pre, e) : running) - at.ld(pre, s) : 0;
+        __stcg(cnt + rank * P + q, n);
+      }
+      lane_sync(C);
+      // a proposal's rank in its part: the part's proposals on earlier
+      // CTAs, plus this CTA's before it
+      for (int q = threadIdx.x; q < P; q += blockDim.x) {
+        const int s = max(lo, q * nlm);
+        if (s >= min(hi, (q + 1) * nlm)) continue;
+        int before = 0;
+        for (int k = 0; k < rank; ++k) before += __ldcg(cnt + k * P + q);
+        __stcg(pbase + q, before - at.ld(pre, s));
+      }
+      __syncthreads();
+      for (int v = lo + threadIdx.x; v < hi; v += blockDim.x) {
+        if (at.ld(ro, v) != kProposer) continue;
+        const int tg = at.ld(prop, v);
+        if (tg < 0) continue;
+        const int p = v / nlm;
+        if (__ldcg(pbase + p) + at.ld(pre, v) >= a.cap) continue;
+        const int gid = vd[p] + (v - p * nlm);
+        atomicMax(cur + at.ld(pslot, v),
+                  grant_word(at.ld(pw, v), gid, mix_step(hash_head(gid), tg),
+                             r));
+      }
+    }
+    lane_sync(C);
+    // commit: each row writes its own mate and next round's role, and
+    // clears its slot of the next round's words
+    const bool more = r + 1 < a.rounds;
+    for (int v = lo + threadIdx.x; v < hi; v += blockDim.x) {
+      const uint8_t rv = at.ld(ro, v);
+      if (rv != kOff) {
+        const int p = v / nlm;
+        const int gid = vd[p] + (v - p * nlm);
+        int mate = -1;
+        if (rv == kAcceptor) {
+          const unsigned long long w = wld(cur + v);
+          if (w != 0ull) mate = (int)(kIntMax - (uint32_t)w);
+        } else {
+          const int tg = at.ld(prop, v);
+          if (tg >= 0) {
+            const unsigned long long w = wld(cur + at.ld(pslot, v));
+            if (w != 0ull && (uint32_t)w == kIntMax - (uint32_t)gid) mate = tg;
+          }
+        }
+        if (mate >= 0) __stcg(m + v, mate);
+        if (more)
+          at.st(ro, v, mate >= 0 ? kOff : role_of(hash_head(gid), r + 1, seed));
+      }
+      wst(nxt + v);
+    }
+    unsigned long long* const used = cur;
+    cur = nxt;
+    nxt = used;
+  }
+  if (kMode == kCluster) lane_sync(C);  // no CTA leaves while read remotely
 }
 
 }  // namespace
@@ -373,14 +919,17 @@ extern "C" int halo_launch(const void* x, const void* ghost_gid,
 
 // nbr (L, P, nlm, d), src (L, P, nlm) -> dist (L, P, nlm) after `width`
 // synchronous steps.  scratch: a second (L, P, nlm) int32 buffer; gidx:
-// (L, P, G) int64.  1 + width launches: dbfs_init, then ell_relax in its
+// (L, P, G) int64.
+
+// The grid design: 1 + width launches, dbfs_init, then ell_relax in its
 // distributed form a step.
 extern "C" int dbfs_launch(const void* nbr, const void* src,
                            const void* ghost_gid, const void* vtxdist,
                            void* dist, void* scratch, void* gidx, int L,
                            int P, int nlm, int d, int G, int width,
-                           void* stream) {
+                           int* counts, void* stream) {
   const int64_t cells = (int64_t)L * P * nlm;
+  enqueued(counts, 0, 0, kGrid);
   if (cells == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
   int* bufs[2] = {(int*)dist, (int*)scratch};
@@ -393,21 +942,55 @@ extern "C" int dbfs_launch(const void* nbr, const void* src,
     ell_relax<<<blocks_for(cells), kThreads, 0, s>>>(
         (const int*)nbr, bufs[(start + k) % 2], bufs[(start + k + 1) % 2],
         (const int64_t*)gidx, 1, (int64_t)L * P, nlm, d, nlm, G, kBig);
+  enqueued(counts, 1, width, kGrid);
+  return (int)cudaGetLastError();
+}
+
+// The cluster design: one launch, one cluster of C CTAs (1-16) a lane;
+// gidx holds the ghosts' lane slots as int32 when the state is in device
+// memory.  The state is in the CTAs' shared memory where each CTA's share
+// fits, else in device memory.
+extern "C" int dbfs_cluster_launch(const void* nbr, const void* src,
+                                   const void* ghost_gid,
+                                   const void* vtxdist, void* dist,
+                                   void* scratch, void* gidx, int L, int P,
+                                   int nlm, int d, int G, int width, int C,
+                                   int* counts, void* stream) {
+  const int64_t N = (int64_t)P * nlm, PG = (int64_t)P * G;
+  enqueued(counts, 0, 0, kGrid);
+  if (L * N == 0) return (int)cudaGetLastError();
+  const int shift = share_shift(N, C), gshift = share_shift(PG, C);
+  const size_t smem =
+      4 * (2 * share_cap(N, shift) + share_cap(PG, gshift));
+  const int place = placement(smem, C);
+  const cudaError_t err = launch_lanes(
+      place == kL2 ? dbfs_lanes<kL2>
+      : place == kLocal ? dbfs_lanes<kLocal> : dbfs_lanes<kCluster>,
+      L, C, place == kL2 ? 0 : smem,
+      (cudaStream_t)stream, (const int*)nbr, (const int*)src,
+      (const int*)ghost_gid, (const int*)vtxdist, (int*)dist, (int*)scratch,
+      (int*)gidx, P, nlm, d, G, lane_group(d), rows_vec(nbr, nbr, d), width,
+      C, shift, gshift);
+  if (err != cudaSuccess) return (int)err;
+  enqueued(counts, 1, 0, place);
   return (int)cudaGetLastError();
 }
 
 // nbr, ewgt (L, P, nlm, d), ghost_gid (L, P, G), vtxdist (L, P + 1), nloc
 // (L, P), seeds (L,) -> match (L, P, nlm) mate gids, -1 unmatched.
-// scratch: gidx (L, P, G) int64, two (L, P, nlm) u64 winner tables,
-// prop_tgt (L, P, nlm) int32, prop_w (L, P, nlm) float32.
-// 1 + 3 * rounds launches.
+
+// The grid design.  scratch: gidx (L, P, G) int64, two (L, P, nlm) u64
+// winner tables, prop_tgt (L, P, nlm) int32, prop_w (L, P, nlm) float32,
+// tile counts (L, P, ceil(nlm / 256)) int32.  1 + 2 * rounds launches, or
+// 1 + 3 * rounds with cap > 0.
 extern "C" int dmatch_launch(const void* nbr, const void* ewgt,
                              const void* ghost_gid, const void* vtxdist,
                              const void* nloc, const void* seeds,
                              void* match, void* scratch, int L, int P,
                              int nlm, int d, int G, int rounds, int cap,
-                             void* stream) {
+                             int* counts, void* stream) {
   const int64_t cells = (int64_t)L * P * nlm;
+  enqueued(counts, 0, 0, kGrid);
   if (cells == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
   const int64_t ghosts = (int64_t)L * P * G;
@@ -423,20 +1006,75 @@ extern "C" int dmatch_launch(const void* nbr, const void* ewgt,
   a.tables = (unsigned long long*)(a.gidx + ghosts);
   a.prop_tgt = (int*)(a.tables + 2 * cells);
   a.prop_w = (float*)(a.prop_tgt + cells);
+  a.tile_count = (int*)(a.prop_w + cells);
   a.L = L;
   a.P = P;
   a.nlm = nlm;
   a.d = d;
   a.G = G;
   a.cap = cap;
+  a.tiles = (int)blocks_for(nlm);
   dmatch_init<<<blocks_for(cells > ghosts ? cells : ghosts), kThreads, 0, s>>>(
       a);
+  const dim3 tiles((unsigned)a.tiles, (unsigned)(L * P));
   for (int r = 0; r < rounds; ++r) {
     unsigned long long* cur = a.tables + (r % 2) * cells;
     unsigned long long* nxt = a.tables + ((r + 1) % 2) * cells;
-    dmatch_propose<<<blocks_for(cells), kThreads, 0, s>>>(a, r);
-    dmatch_grant<<<(unsigned)(L * P), kThreads, 0, s>>>(a, r, cur);
+    dmatch_propose<<<tiles, kThreads, 0, s>>>(a, r, cur);
+    if (cap > 0) dmatch_grant<<<tiles, kThreads, 0, s>>>(a, r, cur);
     dmatch_commit<<<blocks_for(cells), kThreads, 0, s>>>(a, r, cur, nxt);
   }
+  enqueued(counts, 1 + (cap > 0 ? 3 : 2) * rounds, 0, kGrid);
+  return (int)cudaGetLastError();
+}
+
+// The cluster design: one launch, one cluster of C CTAs (1-16) a lane.
+// scratch: words (2, L, N) u64; prop, pslot, pw, pre (4, L, N), gslot
+// (L, P, G), cnt, pbase (2, L, C, P) int32; role (L, N) bytes.
+// The state is in the CTAs' shared memory where each CTA's share fits,
+// else in the scratch.
+extern "C" int dmatch_cluster_launch(const void* nbr, const void* ewgt,
+                                     const void* ghost_gid,
+                                     const void* vtxdist, const void* nloc,
+                                     const void* seeds, void* match,
+                                     void* scratch, int L, int P, int nlm,
+                                     int d, int G, int rounds, int cap,
+                                     int C, int* counts, void* stream) {
+  const int64_t N = (int64_t)P * nlm, cells = L * N, PG = (int64_t)P * G;
+  enqueued(counts, 0, 0, kGrid);
+  if (cells == 0) return (int)cudaGetLastError();
+  LaneMatch a;
+  a.nbr = (const int*)nbr;
+  a.ewgt = (const int*)ewgt;
+  a.ghost_gid = (const int*)ghost_gid;
+  a.vtxdist = (const int*)vtxdist;
+  a.nloc = (const int*)nloc;
+  a.seeds = (const int*)seeds;
+  a.match = (int*)match;
+  a.words = (unsigned long long*)scratch;
+  a.ints = (int*)(a.words + 2 * cells);
+  a.counts = a.ints + 4 * cells + L * PG;
+  a.role = (uint8_t*)(a.counts + 2 * (int64_t)L * C * P);
+  a.L = L;
+  a.P = P;
+  a.nlm = nlm;
+  a.d = d;
+  a.G = G;
+  a.rounds = rounds;
+  a.cap = cap;
+  a.C = C;
+  a.group = lane_group(d);
+  a.shift = share_shift(N, C);
+  a.gshift = share_shift(PG, C);
+  a.vec = rows_vec(nbr, ewgt, d);
+  const size_t smem = ((C == 1 ? 33 : 17) * (size_t)share_cap(N, a.shift) +
+                       4 * (size_t)share_cap(PG, a.gshift) + 15) / 16 * 16;
+  const int place = placement(smem, C);
+  const cudaError_t err = launch_lanes(
+      place == kL2 ? dmatch_lanes<kL2>
+      : place == kLocal ? dmatch_lanes<kLocal> : dmatch_lanes<kCluster>,
+      L, C, place == kL2 ? 0 : smem, (cudaStream_t)stream, a);
+  if (err != cudaSuccess) return (int)err;
+  enqueued(counts, 1, 0, place);
   return (int)cudaGetLastError();
 }

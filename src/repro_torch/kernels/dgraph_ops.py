@@ -10,25 +10,45 @@ CUDA tensors each wrapper launches its kernel from ``csrc/dgraph.cu``; on
 CPU tensors it runs the plain torch version beside it, which computes
 the same function.  A wrapper never hands card work to its plain version.
 
-The counts are of CUDA kernel launches:
+The BFS and the matching run in the design ``band_batch.lane_plan`` picks
+for a lane of ``P * n_loc_max`` rows and ``d`` slots (``plan``): up to
+2^18 slots, one launch a call on a thread-block cluster per lane;
+above it, a launch a phase over the whole card.
+
+The counts are of CUDA kernel launches.  The BFS's and the matching's C
+entries report what they enqueued, and ``dbfs_kernel`` / ``dmatch_kernel``
+add that; ``dbfs_counts`` and ``dmatch_count`` are the designs' formulas,
+which ``planned_launches`` applies to a run's launch records:
 
 * ``relax_launches``: ``ell_relax`` launches, one per ``ell_relax_step``
-  call and one per step of the distributed BFS, whose steps run this
-  kernel in its distributed form (ghosts read from the owners' rows);
+  call and, in the grid design, one per step of the distributed BFS,
+  whose steps run this kernel in its distributed form (ghosts read from
+  the owners' rows); the cluster design launches none;
 * ``halo_launches``: one per ``halo`` call;
-* ``dbfs_launches``: the BFS's own kernel, ``dbfs_init`` (the source
-  mask and each ghost's owner slot), one per call;
-* ``dmatch_launches``: ``1 + 3 * rounds`` per call (init, then propose,
-  grant and commit a round).
+* ``dbfs_launches``: the BFS's own kernel, one per call: the cluster
+  kernel, or ``dbfs_init`` (the source mask and each ghost's owner slot)
+  in the grid design;
+* ``dmatch_launches``: one per call on the cluster design; on the grid
+  design ``1 + 2 * rounds`` (init, then propose, which posts the grant,
+  and commit a round), or ``1 + 3 * rounds`` with a cap (a grant launch
+  a round ranks the proposals).
+
+``state_place`` names where the last BFS or matching launch kept its
+state: the cluster design in the CTAs' shared memory where each CTA's
+share fits (``"shared"`` for one CTA, ``"distributed"`` for more, other
+CTAs' rows read over distributed shared memory), else in device memory
+(``"device"``); ``"grid"`` for the grid design.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+import ctypes
+from typing import List, Optional, Tuple
 
 import torch
 
 from repro_torch.core.matching import hash_mix, hash_unit
 from repro_torch.kernels import build
+from repro_torch.kernels.band_batch import lane_plan
 from repro_torch.kernels.matching import grant_word
 
 #: the distributed BFS's unreached distance (the reference's BIG)
@@ -39,6 +59,9 @@ relax_launches = 0
 halo_launches = 0
 dbfs_launches = 0
 dmatch_launches = 0
+state_place: Optional[str] = None
+#: the C entries' placement codes
+_PLACES = {-1: "grid", 0: "device", 1: "shared", 2: "distributed"}
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -54,6 +77,76 @@ def _int32(name: str, t: torch.Tensor, dims: int) -> None:
 def _same_device(*ts: torch.Tensor) -> None:
     if len({t.device for t in ts}) != 1:
         raise ValueError("the tensors must lie on one device")
+
+
+def _enqueue(entry: str, what: str, args: tuple,
+             stream: int) -> Tuple[int, int]:
+    """Call the dgraph C entry ``entry`` and return what it reports it
+    enqueued: (its own kernels, its ``ell_relax`` kernels); its state's
+    placement goes to ``state_place``."""
+    global state_place
+    counts = (ctypes.c_int * 3)()
+    err = getattr(build.load("dgraph"), entry)(
+        *args, ctypes.addressof(counts), stream)
+    build.check(err, what)
+    state_place = _PLACES[counts[2]]
+    return counts[0], counts[1]
+
+
+def plan(P: int, nlm: int, d: int) -> Tuple[str, Optional[int]]:
+    """The design of the BFS and matching kernels for lanes of P parts of
+    ``nlm`` rows and ``d`` slots: ``lane_plan(P * nlm, d)``, a lane being
+    its P parts' rows."""
+    return lane_plan(P * nlm, d)
+
+
+def dbfs_counts(design: str, width: int) -> Tuple[int, int]:
+    """(``dbfs_launches``, ``relax_launches``) one BFS call adds in
+    ``design``: the cluster kernel alone, or ``dbfs_init`` and an
+    ``ell_relax`` a step."""
+    return (1, 0) if design == "cluster" else (1, int(width))
+
+
+def dmatch_count(design: str, rounds: int, cap: int) -> int:
+    """Kernel launches of one matching call in ``design``."""
+    if design == "cluster":
+        return 1
+    return 1 + (3 if cap else 2) * int(rounds)
+
+
+def planned_launches(records) -> dict:
+    """The launches this module's counts gain on the card from a run with
+    these launch records (``obs`` ``launch`` payloads; only the kinds
+    ``dhalo``, ``dbfs`` and ``dmatch`` launch here), each BFS and
+    matching call in its planned design: keyed by the counts' names."""
+    want = dict.fromkeys(("relax_launches", "halo_launches",
+                          "dbfs_launches", "dmatch_launches"), 0)
+    for r in records:
+        if r["kind"] == "dhalo":
+            want["halo_launches"] += 1
+        if r["kind"] not in ("dbfs", "dmatch"):
+            continue
+        design = plan(r["nparts"], *r["bucket"][:2])[0]
+        if r["kind"] == "dbfs":
+            own, steps = dbfs_counts(design, r["rounds"])
+            want["dbfs_launches"] += own
+            want["relax_launches"] += steps
+        else:
+            want["dmatch_launches"] += dmatch_count(design, r["rounds"],
+                                                    r["cap"])
+    return want
+
+
+def dmatch_scratch(design: str, L: int, P: int, nlm: int, G: int,
+                   C: Optional[int]) -> int:
+    """int64 words of the matching's scratch in ``design`` (the layouts of
+    ``dmatch_launch`` and ``dmatch_cluster_launch``)."""
+    cells = L * P * nlm
+    if design == "cluster":
+        ints = 4 * cells + L * P * G + 2 * L * C * P
+        return 2 * cells + -(-(4 * ints + cells) // 8)
+    tiles = -(-nlm // 256)
+    return L * P * G + 3 * cells + -(-(L * P * tiles) // 2)
 
 
 # ------------------------------------------------------------ relaxation
@@ -183,9 +276,9 @@ def dbfs(nbr: torch.Tensor, src: torch.Tensor, ghost_gid: torch.Tensor,
     """The lane-stacked distributed band BFS: nbr (L, P, nlm, d) int32
     compact ids (ghosts at ≥ nlm), src (L, P, nlm) int32 (nonzero =
     source), ghost_gid (L, P, G), vtxdist (L, P+1) → (L, P, nlm) int32.
-    CUDA tensors go to the kernels (``dbfs_init``, then ``ell_relax`` a
-    step: 1 + width launches), CPU tensors to the plain version."""
-    global dbfs_launches, relax_launches
+    CUDA tensors go to the kernels in the design ``plan`` picks (one
+    launch on a cluster a lane, or ``dbfs_init`` then ``ell_relax`` a
+    step), CPU tensors to the plain version."""
     _int32("nbr", nbr, 4)
     _int32("src", src, 3)
     _int32("ghost_gid", ghost_gid, 3)
@@ -197,20 +290,33 @@ def dbfs(nbr: torch.Tensor, src: torch.Tensor, ghost_gid: torch.Tensor,
     _same_device(nbr, src, ghost_gid, vtxdist)
     if nbr.device.type != "cuda":
         return dbfs_plain(nbr, src, ghost_gid, vtxdist, width)
+    return dbfs_kernel(nbr, src, ghost_gid, vtxdist, width,
+                       *plan(*nbr.shape[1:]))
+
+
+def dbfs_kernel(nbr: torch.Tensor, src: torch.Tensor,
+                ghost_gid: torch.Tensor, vtxdist: torch.Tensor, width: int,
+                design: str, C: Optional[int] = None) -> torch.Tensor:
+    """Launch the BFS's kernels in ``design`` ("cluster" with C CTAs a
+    lane, or "grid") on CUDA tensors checked by ``dbfs``, and count what
+    the C entry enqueued."""
+    global dbfs_launches, relax_launches
     nbr, src, ghost_gid, vtxdist = (t.contiguous() for t in (
         nbr, src, ghost_gid, vtxdist))
     L, P, nlm, d = nbr.shape
     G = ghost_gid.shape[2]
     bufs = torch.empty((2, L, P, nlm), dtype=torch.int32, device=nbr.device)
     gidx = torch.empty((L, P, G), dtype=torch.int64, device=nbr.device)
-    err = build.load("dgraph").dbfs_launch(
-        nbr.data_ptr(), src.data_ptr(), ghost_gid.data_ptr(),
-        vtxdist.data_ptr(), bufs[0].data_ptr(), bufs[1].data_ptr(),
-        gidx.data_ptr(), L, P, nlm, d, G, int(width), _stream(nbr))
-    build.check(err, "dbfs")
-    if L and P and nlm:
-        dbfs_launches += 1
-        relax_launches += int(width)
+    args = (nbr.data_ptr(), src.data_ptr(), ghost_gid.data_ptr(),
+            vtxdist.data_ptr(), bufs[0].data_ptr(), bufs[1].data_ptr(),
+            gidx.data_ptr(), L, P, nlm, d, G, int(width))
+    if design == "cluster":
+        own, steps = _enqueue("dbfs_cluster_launch", "dbfs",
+                              (*args, int(C)), _stream(nbr))
+    else:
+        own, steps = _enqueue("dbfs_launch", "dbfs", args, _stream(nbr))
+    dbfs_launches += own
+    relax_launches += steps
     return bufs[0]
 
 
@@ -306,9 +412,8 @@ def dmatch(nbr: torch.Tensor, ewgt: torch.Tensor, ghost_gid: torch.Tensor,
            rounds: int = 8, cap: int = 0) -> torch.Tensor:
     """The lane-stacked distributed heavy-edge matching: shapes as
     ``dmatch_plain``; (L, P, nlm) int32 mate gids, -1 where unmatched.
-    CUDA tensors go to the kernels (1 + 3 * rounds launches), CPU tensors
-    to the plain version."""
-    global dmatch_launches
+    CUDA tensors go to the kernels in the design ``plan`` picks
+    (``dmatch_count`` launches), CPU tensors to the plain version."""
     for name, t, dims in (("nbr", nbr, 4), ("ewgt", ewgt, 4),
                           ("ghost_gid", ghost_gid, 3),
                           ("vtxdist", vtxdist, 2), ("n_loc", n_loc, 2),
@@ -325,19 +430,34 @@ def dmatch(nbr: torch.Tensor, ewgt: torch.Tensor, ghost_gid: torch.Tensor,
     if nbr.device.type != "cuda":
         return dmatch_plain(nbr, ewgt, ghost_gid, vtxdist, n_loc, seeds,
                             rounds, cap)
+    return dmatch_kernel(nbr, ewgt, ghost_gid, vtxdist, n_loc, seeds,
+                         rounds, cap, *plan(P, *nbr.shape[2:]))
+
+
+def dmatch_kernel(nbr: torch.Tensor, ewgt: torch.Tensor,
+                  ghost_gid: torch.Tensor, vtxdist: torch.Tensor,
+                  n_loc: torch.Tensor, seeds: torch.Tensor, rounds: int,
+                  cap: int, design: str,
+                  C: Optional[int] = None) -> torch.Tensor:
+    """Launch the matching's kernels in ``design`` ("cluster" with C CTAs
+    a lane, or "grid") on CUDA tensors checked by ``dmatch``, and count
+    what the C entry enqueued."""
+    global dmatch_launches
     args = [t.contiguous() for t in (nbr, ewgt, ghost_gid, vtxdist, n_loc,
                                      seeds)]
-    nlm, d = nbr.shape[2:]
+    L, P, nlm, d = nbr.shape
     G = ghost_gid.shape[2]
-    cells = L * P * nlm
     match = torch.empty((L, P, nlm), dtype=torch.int32, device=nbr.device)
-    # gidx (int64), two u64 tables, prop_tgt and prop_w (4 bytes each)
-    scratch = torch.empty(L * P * G + 2 * cells + cells, dtype=torch.int64,
-                          device=nbr.device)
-    err = build.load("dgraph").dmatch_launch(
-        *(t.data_ptr() for t in args), match.data_ptr(), scratch.data_ptr(),
-        L, P, nlm, d, G, int(rounds), int(cap), _stream(nbr))
-    build.check(err, "dmatch")
-    if cells:
-        dmatch_launches += 1 + 3 * int(rounds)
+    scratch = torch.empty(dmatch_scratch(design, L, P, nlm, G, C),
+                          dtype=torch.int64, device=nbr.device)
+    ptrs = [t.data_ptr() for t in args] + [match.data_ptr(),
+                                           scratch.data_ptr()]
+    dims = (L, P, nlm, d, G, int(rounds), int(cap))
+    if design == "cluster":
+        own, _ = _enqueue("dmatch_cluster_launch", "dmatch",
+                          (*ptrs, *dims, int(C)), _stream(nbr))
+    else:
+        own, _ = _enqueue("dmatch_launch", "dmatch", (*ptrs, *dims),
+                          _stream(nbr))
+    dmatch_launches += own
     return match

@@ -13,6 +13,7 @@ bfloat16, 1e-4 diffusion), at sizes that are no multiple of any block,
 and the bfloat16 SpMV's rounding of each product is checked exactly.
 """
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -632,37 +633,109 @@ def test_service_drain_thread_on_card(card):
 # ------------------------------------------------------------------ #
 # the distributed plane (csrc/dgraph.cu): rows 7-10, kernel == plain
 # ------------------------------------------------------------------ #
-def _dlanes(dgs):
+def _dlanes(dgs, ghosts=0):
+    """The stacked arrays of ``dgs``, the ghost table padded with -1 (as
+    a bucket pads it) to at least ``ghosts`` slots."""
     from repro_torch.core import dgraph as D
 
     def st(field):
         return torch.from_numpy(np.stack([np.asarray(getattr(d, field),
                                                      np.int32)
                                           for d in dgs]))
-    return {f: st(f) for f in ("nbr_gst", "ewgt_gst", "ghost_gid",
-                               "vtxdist", "n_loc")}, D
+    t = {f: st(f) for f in ("nbr_gst", "ewgt_gst", "ghost_gid", "vtxdist",
+                            "n_loc")}
+    gg = t["ghost_gid"]
+    if ghosts > gg.shape[2]:
+        pad = torch.full((*gg.shape[:2], ghosts - gg.shape[2]), -1,
+                         dtype=torch.int32)
+        t["ghost_gid"] = torch.cat([gg, pad], dim=2)
+    return t, D
 
 
+def _device_ghosts(P, C):
+    """Ghost slots a lane of P parts needs for a CTA's share of the ghost
+    table alone (2^16 slots of 4 bytes) to outgrow the 225 KB of shared
+    memory a CTA of C may take: the cluster kernels then keep their state
+    in device memory."""
+    return -(-C * 2 ** 16 // P)
+
+
+def _device_rows(t, C):
+    """``t`` (no ghost ids) with each part's rows padded past ``n_loc``
+    (ids -1, as a bucket pads them) until a CTA's share of the BFS's two
+    distance buffers outgrows shared memory at C CTAs."""
+    L, P, nlm, d = t["nbr_gst"].shape
+    pad = -(-C * 2 ** 15 // P) - nlm
+    out = dict(t)
+    for f, fill in (("nbr_gst", -1), ("ewgt_gst", 0)):
+        out[f] = torch.cat([t[f], torch.full((L, P, pad, d), fill,
+                                             dtype=torch.int32)], dim=2)
+    return out
+
+
+def _dcase(name):
+    """A case's stacked arrays: ``wide`` is ``stack3`` with its ghost
+    table padded until the plan's one CTA keeps its state in device
+    memory."""
+    dgs = _dgraphs(name)
+    return _dlanes(dgs, _device_ghosts(dgs[0].nparts, 1)
+                   if name == "wide" else 0)
+
+
+@functools.lru_cache(maxsize=None)
 def _dgraphs(name):
+    """The cases' DGraph stacks.  In ``dgraph_ops.plan``: ``stack3`` and
+    ``folded`` one CTA a lane, ``grid3d_16`` two, ``root30`` (the root
+    bucket of the distributed ordering's main path, 2^18 slots) 16, each
+    part spanning two CTAs' rows, and ``grid3d_40`` the grid design."""
     from repro_torch.core import dgraph as D
     from repro_torch.graphs.generators import grid2d
-    if name == "grid3d_16":
-        return [D.distribute(grid3d(16, 16, 16), 8)]
-    if name == "stack3":
-        return [D.distribute(grid2d(13, 11), 4), D.distribute(grid2d(12, 12),
+    if name in ("grid3d_16", "root30", "grid3d_40"):
+        side = int(name[-2:])
+        return (D.distribute(grid3d(side, side, side), 8),)
+    if name in ("stack3", "wide"):
+        return (D.distribute(grid2d(13, 11), 4), D.distribute(grid2d(12, 12),
                                                               4),
-                D.distribute(grid2d(10, 14), 4)]
+                D.distribute(grid2d(10, 14), 4))
     g20 = D.distribute(grid2d(20, 20), 8)      # empty trailing parts
-    return [D.dgraph_fold(D.dgraph_induced(g20, D.shard_gids(g20) < 150)[0])]
+    return (D.dgraph_fold(D.dgraph_induced(g20, D.shard_gids(g20) < 150)[0]),)
 
 
-DCASES = ("grid3d_16", "stack3", "folded")
+DCASES = ("grid3d_16", "stack3", "folded", "root30", "grid3d_40", "wide")
+#: each case's design in dgraph_ops.plan, and where the cluster kernels
+#: keep their state there (dgraph_ops.state_place)
+DPLANS = {"grid3d_16": ("cluster", 2, "distributed"),
+          "stack3": ("cluster", 1, "shared"),
+          "folded": ("cluster", 1, "shared"),
+          "root30": ("cluster", 16, "distributed"),
+          "grid3d_40": ("grid", None, "grid"),
+          "wide": ("cluster", 1, "device")}
+
+
+def _plan_of(t):
+    from repro_torch.kernels import dgraph_ops as K
+    return K.plan(*t["nbr_gst"].shape[1:])
+
+
+def test_distributed_cases_reach_each_design(card):
+    from repro_torch.kernels import dgraph_ops as K
+    for name in DCASES:
+        t, _ = _dcase(name)
+        assert _plan_of(t) == DPLANS[name][:2], name
+        L, P, nlm, _ = t["nbr_gst"].shape
+        on = [t[f].to(card) for f in ("nbr_gst", "ewgt_gst", "ghost_gid",
+                                      "vtxdist", "n_loc")]
+        src = torch.zeros((L, P, nlm), dtype=torch.int32, device=card)
+        K.dbfs(on[0], src, *on[2:4], 1)
+        assert K.state_place == DPLANS[name][2], name
+        K.dmatch(*on, torch.zeros(L, dtype=torch.int32, device=card), 1)
+        assert K.state_place == DPLANS[name][2], name
 
 
 @pytest.mark.parametrize("name", DCASES)
 def test_halo_and_relax_kernels_equal_plain(card, name):
     from repro_torch.kernels import dgraph_ops as K
-    t, _ = _dlanes(_dgraphs(name))
+    t, _ = _dcase(name)
     L, P, nlm, d = t["nbr_gst"].shape
     rng = np.random.default_rng(5)
     x = torch.from_numpy(rng.integers(0, 99, (L, P, nlm)).astype(np.int32))
@@ -683,17 +756,18 @@ def test_halo_and_relax_kernels_equal_plain(card, name):
 @pytest.mark.parametrize("name", DCASES)
 def test_distributed_bfs_kernel_equals_plain(card, name, width):
     from repro_torch.kernels import dgraph_ops as K
-    t, _ = _dlanes(_dgraphs(name))
+    t, _ = _dcase(name)
     L, P, nlm, _ = t["nbr_gst"].shape
     rng = np.random.default_rng(width)
     src = torch.from_numpy((rng.random((L, P, nlm)) < 0.05).astype(np.int32))
     want = K.dbfs_plain(t["nbr_gst"], src, t["ghost_gid"], t["vtxdist"],
                         width)
+    own, steps = K.dbfs_counts(_plan_of(t)[0], width)
     before = (K.dbfs_launches, K.relax_launches)
     got = K.dbfs(t["nbr_gst"].to(card), src.to(card),
                  t["ghost_gid"].to(card), t["vtxdist"].to(card), width)
-    assert (K.dbfs_launches, K.relax_launches) == (before[0] + 1,
-                                                   before[1] + width)
+    assert (K.dbfs_launches, K.relax_launches) == (before[0] + own,
+                                                   before[1] + steps)
     assert torch.equal(got.cpu(), want)
     for j in range(L):                  # each lane == its singleton call
         one = K.dbfs(t["nbr_gst"][j:j + 1].to(card), src[j:j + 1].to(card),
@@ -707,22 +781,66 @@ def test_distributed_bfs_kernel_equals_plain(card, name, width):
 def test_distributed_matching_kernel_equals_plain(card, name, rounds):
     from repro_torch.kernels import dgraph_ops as K
     dgs = _dgraphs(name)
-    t, D = _dlanes(dgs)
+    t, D = _dcase(name)
     L, _, nlm, _ = t["nbr_gst"].shape
     seeds = torch.arange(11, 11 + L, dtype=torch.int32)
     args = [t[f] for f in ("nbr_gst", "ewgt_gst", "ghost_gid", "vtxdist",
                            "n_loc")] + [seeds]
-    # dense, the lossless cap, and a cap that drops proposals
-    for cap in (0, D._match_proposal_cap(dgs, nlm), 3):
+    design = _plan_of(t)[0]
+    # dense, the lossless cap, and caps that drop proposals (at root30 a
+    # part's rows span two CTAs)
+    lossless = D._match_proposal_cap(dgs, nlm)
+    for cap in (0, lossless, 3, max(1, lossless // 4)):
         want = K.dmatch_plain(*args, rounds, cap)
         before = K.dmatch_launches
         got = K.dmatch(*(a.to(card) for a in args), rounds, cap)
-        assert K.dmatch_launches == before + 1 + 3 * rounds
+        assert K.dmatch_launches == before + K.dmatch_count(design, rounds,
+                                                            cap)
         assert torch.equal(got.cpu(), want), cap
         for j in range(L):
             one = K.dmatch(*(a[j:j + 1].to(card) for a in args), rounds,
                            cap)
             assert torch.equal(one[0].cpu(), want[j])
+
+
+@pytest.mark.parametrize("name", ["root30", "stack3", "grid3d_16"])
+def test_both_designs_equal_through_their_entries(card, name):
+    """The cluster design (the plan's C, and other cluster sizes) and the
+    grid design give the same output, the plain version's, at the same
+    shape: at root30 the 2^18 slots where ``lane_plan`` switches.  Each
+    cluster size also runs with the ghost table padded until its state
+    no longer fits in shared memory, and keeps it in device memory."""
+    from repro_torch.kernels import dgraph_ops as K
+    dgs = _dgraphs(name)
+    P, nlm = dgs[0].nparts, dgs[0].n_loc_max
+    layouts = [("grid", None, 0)] + [
+        ("cluster", C, ghosts) for C in (1, 2, 16)
+        for ghosts in (0, _device_ghosts(P, C))]
+    lossless = _dlanes(dgs)[1]._match_proposal_cap(dgs, nlm)
+    rng = np.random.default_rng(3)
+    L = len(dgs)
+    src = torch.from_numpy((rng.random((L, P, nlm)) < 0.02).astype(np.int32))
+    seeds = torch.arange(5, 5 + L, dtype=torch.int32)
+    for design, C, ghosts in layouts:
+        t, _ = _dlanes(dgs, ghosts)
+        on = {k: v.to(card) for k, v in t.items()}
+        for width in (0, 1, 3):
+            want = K.dbfs_plain(t["nbr_gst"], src, t["ghost_gid"],
+                                t["vtxdist"], width)
+            got = K.dbfs_kernel(on["nbr_gst"], src.to(card), on["ghost_gid"],
+                                on["vtxdist"], width, design, C)
+            assert torch.equal(got.cpu(), want), (design, C, ghosts, width)
+        if ghosts:
+            assert K.state_place == "device"
+        args = [t[f] for f in ("nbr_gst", "ewgt_gst", "ghost_gid",
+                               "vtxdist", "n_loc")] + [seeds]
+        for cap in (0, lossless, max(1, lossless // 4)):
+            got = K.dmatch_kernel(*(a.to(card) for a in args), 8, cap,
+                                  design, C)
+            assert torch.equal(got.cpu(), K.dmatch_plain(*args, 8, cap)), \
+                (design, C, ghosts, cap)
+            if ghosts:
+                assert K.state_place == "device"
 
 
 def test_distributed_nd_card_equals_cpu(card):
@@ -739,9 +857,54 @@ def test_distributed_nd_card_equals_cpu(card):
         assert np.array_equal(got, want)
 
 
-def test_distributed_kernels_read_outside_ids_as_padding(card):
+@pytest.mark.parametrize("name", ["root30", "grid3d_16"])
+def test_cluster_designs_repeat_exactly(card, name):
+    """Twenty calls of each cluster placement at the plan's C (the CTAs'
+    shared memory, and with the ghost table padded, device memory), each
+    equal to the plain version: the phases' barriers leave no race
+    between CTAs."""
     from repro_torch.kernels import dgraph_ops as K
-    t, _ = _dlanes(_dgraphs("stack3"))
+    dgs = _dgraphs(name)
+    P, nlm, d = dgs[0].nbr_gst.shape
+    C = K.plan(P, nlm, d)[1]
+    L = len(dgs)
+    src = (torch.arange(L * P * nlm).reshape(L, P, nlm) % 37 == 0).int()
+    seeds = torch.tensor([9] * L, dtype=torch.int32)
+    for ghosts, place in ((0, "distributed"),
+                          (_device_ghosts(P, C), "device")):
+        t, D = _dlanes(dgs, ghosts)
+        on = {k: v.to(card) for k, v in t.items()}
+        args = [t[f] for f in ("nbr_gst", "ewgt_gst", "ghost_gid",
+                               "vtxdist", "n_loc")] + [seeds]
+        cap = max(1, D._match_proposal_cap(dgs, nlm) // 4)
+        bfs = K.dbfs_plain(t["nbr_gst"], src, t["ghost_gid"], t["vtxdist"], 3)
+        for c in (0, cap):
+            want = K.dmatch_plain(*args, 8, c)
+            for _ in range(20):
+                got = K.dmatch_kernel(*(a.to(card) for a in args), 8, c,
+                                      "cluster", C)
+                assert torch.equal(got.cpu(), want), (place, c)
+                assert K.state_place == place
+        for _ in range(20):
+            got = K.dbfs_kernel(on["nbr_gst"], src.to(card), on["ghost_gid"],
+                                on["vtxdist"], 3, "cluster", C)
+            assert torch.equal(got.cpu(), bfs), place
+            assert K.state_place == place
+
+
+#: (design, C, where the state lies): the device placement is reached by
+#: padding the ghost table (or, without ghosts, the rows) past what fits
+LAYOUTS = [("cluster", 1, "shared"), ("cluster", 2, "distributed"),
+           ("cluster", 2, "device"), ("grid", None, "grid")]
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_distributed_kernels_read_outside_ids_as_padding(card, layout):
+    from repro_torch.kernels import dgraph_ops as K
+    design, C, place = layout
+    dgs = _dgraphs("stack3")
+    t, _ = _dlanes(dgs, _device_ghosts(dgs[0].nparts, C)
+                   if place == "device" else 0)
     L, P, nlm, d = t["nbr_gst"].shape
     W = nlm + t["ghost_gid"].shape[2]
     nb = t["nbr_gst"].clone()
@@ -752,36 +915,80 @@ def test_distributed_kernels_read_outside_ids_as_padding(card):
     for matching in (False, True):
         a = nb.to(card)
         if matching:
-            got = K.dmatch(a, *(r.to(card) for r in rest), seeds.to(card), 8)
+            got = K.dmatch_kernel(a, *(r.to(card) for r in rest),
+                                  seeds.to(card), 8, 0, design, C)
             want = K.dmatch_plain(nb, *rest, seeds, 8)
         else:
-            got = K.dbfs(a, src.to(card), t["ghost_gid"].to(card),
-                         t["vtxdist"].to(card), 3)
+            got = K.dbfs_kernel(a, src.to(card), t["ghost_gid"].to(card),
+                                t["vtxdist"].to(card), 3, design, C)
             want = K.dbfs_plain(nb, src, t["ghost_gid"], t["vtxdist"], 3)
         assert torch.equal(got.cpu(), want)
+        assert K.state_place == place
 
 
-def test_distributed_kernels_without_ghost_slots(card):
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_distributed_kernels_without_ghost_slots(card, layout):
     """G == 0 (an empty ghost table, whose pointer may be null): every
     kernel still equals its plain version; the BFS keeps its sources at
     0 and stays inside each part."""
     from repro_torch.kernels import dgraph_ops as K
+    design, C, place = layout
     t, _ = _dlanes(_dgraphs("stack3"))
+    nlm = t["nbr_gst"].shape[2]
+    t["nbr_gst"] = torch.where(t["nbr_gst"] < nlm, t["nbr_gst"], -1)
+    if place == "device":
+        t = _device_rows(t, C)
     L, P, nlm, d = t["nbr_gst"].shape
-    nb = torch.where(t["nbr_gst"] < nlm, t["nbr_gst"], -1)
+    nb = t["nbr_gst"]
     gg = t["ghost_gid"][..., :0].contiguous()
     vd, nl = t["vtxdist"], t["n_loc"]
     src = (torch.arange(L * P * nlm).reshape(L, P, nlm) % 11 == 0).int()
     for width in (1, 3):
-        got = K.dbfs(nb.to(card), src.to(card), gg.to(card), vd.to(card),
-                     width)
+        got = K.dbfs_kernel(nb.to(card), src.to(card), gg.to(card),
+                            vd.to(card), width, design, C)
         want = K.dbfs_plain(nb, src, gg, vd, width)
         assert torch.equal(got.cpu(), want)
+        assert K.state_place == place
         assert (want[src != 0] == 0).all()
     x = torch.arange(L * P * nlm, dtype=torch.int32).reshape(L, P, nlm)
     assert torch.equal(K.halo(x.to(card), gg.to(card), vd.to(card)).cpu(),
                        K.halo_plain(x, gg, vd))
     seeds = torch.arange(L, dtype=torch.int32)
     args = (nb, t["ewgt_gst"], gg, vd, nl, seeds)
-    assert torch.equal(K.dmatch(*(a.to(card) for a in args), 8).cpu(),
-                       K.dmatch_plain(*args, 8))
+    for cap in (0, 3):
+        got = K.dmatch_kernel(*(a.to(card) for a in args), 8, cap, design, C)
+        assert torch.equal(got.cpu(), K.dmatch_plain(*args, 8, cap))
+        assert K.state_place == place
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_distributed_kernels_with_far_ghosts(card, layout):
+    """Ghost gids past the last part (grid2d(16, 16) over 4 full parts):
+    their owner slot is clipped to a real row with another gid, whose
+    role byte does not hold the ghost's coin; both kernels still equal
+    their plain versions."""
+    from repro_torch.core import dgraph as D
+    from repro_torch.graphs.generators import grid2d
+    from repro_torch.kernels import dgraph_ops as K
+    design, C, place = layout
+    t, _ = _dlanes((D.distribute(grid2d(16, 16), 4),),
+                   _device_ghosts(4, C) if place == "device" else 0)
+    gg = t["ghost_gid"].clone()
+    pick = (gg >= 0) & (torch.arange(gg.numel()).reshape(gg.shape) % 2 == 0)
+    gg[pick] = int(t["vtxdist"][0, -1]) + 3
+    L, P, nlm, d = t["nbr_gst"].shape
+    src = (torch.arange(L * P * nlm).reshape(L, P, nlm) % 13 == 0).int()
+    want = K.dbfs_plain(t["nbr_gst"], src, gg, t["vtxdist"], 3)
+    got = K.dbfs_kernel(t["nbr_gst"].to(card), src.to(card), gg.to(card),
+                        t["vtxdist"].to(card), 3, design, C)
+    assert torch.equal(got.cpu(), want)
+    assert K.state_place == place
+    for seed in range(4):
+        args = (t["nbr_gst"], t["ewgt_gst"], gg, t["vtxdist"], t["n_loc"],
+                torch.tensor([seed], dtype=torch.int32))
+        for cap in (0, 5):
+            got = K.dmatch_kernel(*(a.to(card) for a in args), 8, cap,
+                                  design, C)
+            assert torch.equal(got.cpu(), K.dmatch_plain(*args, 8, cap)), \
+                (seed, cap)
+            assert K.state_place == place

@@ -19,8 +19,10 @@ default, compaction on; its cap is lossless).  The launch records'
 singleton calls (a stacked call has ``lanes_pad == lanes`` in the port,
 the next power of two in the reference).
 """
+import ctypes
 import os
 import textwrap
+import types
 
 import numpy as np
 import pytest
@@ -302,3 +304,297 @@ def test_ids_outside_the_vector_are_padding():
     pd[pd >= W] = -1
     assert torch.equal(K.dmatch(nb, *args[1:], seeds, 4),
                        K.dmatch(pd, *args[1:], seeds, 4))
+
+
+# ------------------------------------------------------------------ #
+# the card's designs of the BFS and the matching (kernels.dgraph_ops)
+# ------------------------------------------------------------------ #
+@pytest.mark.parametrize("side,want", [(16, ("cluster", 2)),
+                                       (30, ("cluster", 16)),
+                                       (40, ("grid", None))])
+def test_plan_of_the_distributed_buckets(side, want):
+    """grid3d(30³) over 8 parts, the distributed ordering's root bucket
+    (8, 4096, 8, 2048), is 2^18 slots a lane: the largest the cluster
+    takes, at 16 CTAs; grid3d(16³) takes 2, grid3d(40³) the grid."""
+    dg = D.distribute(G.grid3d(side, side, side), 8)
+    P, nlm, d, ghosts = D.dgraph_bucket(dg)
+    assert K.plan(P, nlm, d) == want
+    if side == 30:
+        assert (P, nlm, d, ghosts) == (8, 4096, 8, 2048)
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((8, 131072, 8), ("grid", None)),     # grid3d(100³) over 8 parts
+    ((8, 4096, 8), ("cluster", 16)),      # 2^18 slots
+    ((8, 4097, 8), ("grid", None)),
+    ((2, 256, 32), ("cluster", 1)),       # the waves' many-lane buckets
+    ((2, 128, 32), ("cluster", 1)),
+    ((4, 64, 4), ("cluster", 1))])
+def test_plan_by_lane_slots(shape, want):
+    assert K.plan(*shape) == want
+
+
+@pytest.mark.parametrize("width", [0, 1, 3])
+def test_dbfs_launch_counts(width):
+    assert K.dbfs_counts("cluster", width) == (1, 0)
+    assert K.dbfs_counts("grid", width) == (1, width)
+
+
+@pytest.mark.parametrize("cap", [0, 5])
+@pytest.mark.parametrize("rounds", [0, 1, 8])
+def test_dmatch_launch_counts(rounds, cap):
+    assert K.dmatch_count("cluster", rounds, cap) == 1
+    assert K.dmatch_count("grid", rounds, cap) == \
+        1 + (3 if cap else 2) * rounds
+
+
+def test_planned_launches_of_records():
+    """Records of the cluster and grid buckets: one launch a cluster
+    call, the grid's per-round and per-step launches."""
+    def rec(kind, P, bucket, rounds, **kw):
+        return {"kind": kind, "nparts": P, "bucket": bucket,
+                "rounds": rounds, **kw}
+    recs = [rec("dhalo", 8, (4096, 8, 2048), 1),
+            rec("dbfs", 8, (4096, 8, 2048), 3),
+            rec("dmatch", 8, (4096, 8, 2048), 8, cap=0),
+            rec("dbfs", 8, (8192, 8, 4096), 3),
+            rec("dmatch", 8, (8192, 8, 4096), 8, cap=0),
+            rec("dmatch", 8, (8192, 8, 4096), 8, cap=5),
+            rec("bfs", 0, (8192, 16), 3)]
+    assert K.planned_launches(recs) == {
+        "relax_launches": 3, "halo_launches": 1, "dbfs_launches": 2,
+        "dmatch_launches": 1 + 17 + 25}
+
+
+def test_stacked_calls_plan_one_launch_each_and_run_plain_on_cpu():
+    """The CPU runs the plain versions and counts no launch; the records
+    of a stacked call plan one cluster launch a BFS and a matching."""
+    cases, inputs, stack = _cases()
+    dgs = [cases[n] for n in stack]
+    ins_ = [inputs(cases[n], sorted(cases).index(n)) for n in stack]
+    before = (K.relax_launches, K.dbfs_launches, K.dmatch_launches)
+    with D.instrument() as ins:
+        D.distributed_bfs_stacked(dgs, [i[1] for i in ins_], 3, device=CPU)
+        D.distributed_matching_stacked(dgs, [i[2] for i in ins_],
+                                       device=CPU)
+    assert (K.relax_launches, K.dbfs_launches, K.dmatch_launches) == before
+    assert K.planned_launches(ins.launches) == {
+        "relax_launches": 0, "halo_launches": 0, "dbfs_launches": 1,
+        "dmatch_launches": 1}
+
+
+class _Entries:
+    """A stand-in for the dgraph library whose BFS and matching entries
+    report ``reply`` (own kernels, ell_relax kernels, placement code) as
+    what they enqueued, and record their names and arguments."""
+
+    def __init__(self, reply):
+        self.reply, self.calls = reply, []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append((name, args))
+            (ctypes.c_int * 3).from_address(args[-2])[:] = self.reply
+            return 0
+        return entry
+
+
+@pytest.mark.parametrize("design,C,reply,place", [
+    ("cluster", 16, (1, 0, 2), "distributed"),
+    ("cluster", 1, (1, 0, 1), "shared"),
+    ("cluster", 2, (1, 0, 0), "device"),
+    ("grid", None, (2, 5, -1), "grid")])
+def test_kernel_wrappers_count_what_the_entries_report(monkeypatch, design,
+                                                        C, reply, place):
+    """``dbfs_kernel`` and ``dmatch_kernel`` add what the C entry says it
+    enqueued (here a grid reply no design's formula gives), not what the
+    plan predicts, and name the state's placement."""
+    fake = _Entries(reply)
+    monkeypatch.setattr(K.build, "load", lambda name: fake)
+    monkeypatch.setattr(K, "_stream", lambda t: 0)
+    dg, (_, src, _) = _case("g13x11")
+    t = {f: torch.from_numpy(np.asarray(getattr(dg, f), np.int32)[None])
+         for f in ("nbr_gst", "ewgt_gst", "ghost_gid", "vtxdist", "n_loc")}
+    before = (K.dbfs_launches, K.relax_launches, K.dmatch_launches)
+    K.dbfs_kernel(t["nbr_gst"], torch.from_numpy(
+        np.asarray(src, np.int32)[None]), t["ghost_gid"], t["vtxdist"], 3,
+        design, C)
+    assert K.state_place == place
+    K.dmatch_kernel(*t.values(), torch.tensor([7], dtype=torch.int32), 8,
+                    0, design, C)
+    assert K.state_place == place
+    assert (K.dbfs_launches, K.relax_launches, K.dmatch_launches) == (
+        before[0] + reply[0], before[1] + reply[1], before[2] + reply[0])
+    suffix = "_cluster_launch" if design == "cluster" else "_launch"
+    assert [n for n, _ in fake.calls] == ["dbfs" + suffix, "dmatch" + suffix]
+    if C is not None:                    # C, the counts, the stream
+        assert all(a[-3] == C for _, a in fake.calls)
+
+
+# A scalar model of the cluster matching (csrc/dgraph.cu, dmatch_lanes):
+# each row's round role in a byte, each ghost's code resolved once (its
+# owner slot, whose role byte holds the ghost's coin when the owner row
+# has the ghost's gid; else -2 - slot and the ghost's own coin; -1 when no
+# real row answers), and with a cap each proposal's rank in its part as
+# its part's proposals on earlier CTAs plus its CTA's before it.  CTA k of
+# C takes the lane's rows [k << s, (k + 1) << s), s = share_shift(N, C),
+# as the kernel's `share` gives them, so a part may span CTAs and a CTA
+# may get no row.  It must give the plain version's mates for any C.
+OFF, PROPOSER, ACCEPTOR = 0, 1, 2
+
+
+def share_shift(n, C):
+    """dgraph.cu's share_shift: the smallest s with 2^s * C >= n."""
+    per, s = -(-n // C), 0
+    while (1 << s) < per:
+        s += 1
+    return s
+
+
+def _hash(*xs):
+    from repro_torch.core.matching import hash_mix
+    return int(hash_mix(*(torch.tensor(x) for x in xs)))
+
+
+def _grant(w, gid, tg, r):
+    from repro_torch.core.matching import hash_unit
+    from repro_torch.kernels.matching import grant_word
+    score = torch.tensor([w], dtype=torch.float32) + hash_unit(
+        torch.tensor([gid]), tg, r + 31)
+    return int(grant_word(score, torch.tensor([gid]))[0])
+
+
+def _cluster_match_model(dg, seed, rounds, cap, C):
+    from repro_torch.core.matching import hash_unit
+    P, nlm, d = dg.nbr_gst.shape
+    gg, vd, nl = dg.ghost_gid, np.asarray(dg.vtxdist), np.asarray(dg.n_loc)
+    N, empty = P * nlm, -2 ** 63
+    slot = K.owner_slots  # (L, K) gids -> (L, K) flat slots
+
+    def owner(g):
+        return int(slot(torch.tensor([[g]]), torch.tensor(vd[None]),
+                        nlm)[0, 0])
+
+    def rows_of(n, k):
+        shift = share_shift(n, C)
+        return min(n, k << shift), min(n, (k + 1) << shift)
+
+    def role(gid, r):
+        return PROPOSER if _hash(gid, r, seed) & 1 else ACCEPTOR
+
+    def code(tg):
+        if tg < 0:
+            return -1
+        f = owner(tg)
+        if f % nlm >= nl[f // nlm]:
+            return -1
+        return f if vd[f // nlm] + f % nlm == tg else -2 - f
+
+    m = [-1] * N
+    ro = [role(vd[v // nlm] + v % nlm, 0) if v % nlm < nl[v // nlm]
+          else OFF for v in range(N)]
+    codes = [code(int(tg)) for tg in gg.reshape(-1)]
+    H = gg.shape[1]
+    for r in range(rounds):
+        cur, prop = [empty] * N, {}
+        for v in (v for v in range(N) if ro[v] == PROPOSER):
+            p, gid, best = v // nlm, vd[v // nlm] + v % nlm, None
+            for j, c in enumerate(dg.nbr_gst[p, v % nlm]):
+                if 0 <= c < nlm and ro[p * nlm + c] == ACCEPTOR:
+                    tg = vd[p] + c
+                elif nlm <= c < nlm + H and codes[p * H + c - nlm] != -1:
+                    k, tg = codes[p * H + c - nlm], int(gg[p, c - nlm])
+                    if k >= 0 and ro[k] != ACCEPTOR or k < -1 and (
+                            ro[-2 - k] == OFF or _hash(tg, r, seed) & 1):
+                        continue
+                else:
+                    continue
+                w = float(dg.ewgt_gst[p, v % nlm, j])
+                score = float(torch.tensor(w, dtype=torch.float32) +
+                              hash_unit(torch.tensor(gid), tg, r + 17))
+                if best is None or score > best[0]:
+                    best = (score, tg, w)
+            prop[v] = best
+        posted = [v for v in sorted(prop) if prop[v]]
+        if cap:
+            pre, cnt = {}, np.zeros((C, P), np.int64)
+            for k in range(C):
+                lo, hi = rows_of(N, k)
+                mine = [v for v in posted if lo <= v < hi]
+                for i, v in enumerate(mine):
+                    pre[v] = i
+                for v in mine:
+                    cnt[k, v // nlm] += 1
+            kept = []
+            for k in range(C):
+                lo, hi = rows_of(N, k)
+                for v in (v for v in posted if lo <= v < hi):
+                    p = v // nlm
+                    first = min(u for u in posted
+                                if lo <= u < hi and u // nlm == p)
+                    if cnt[:k, p].sum() + pre[v] - pre[first] < cap:
+                        kept.append(v)
+            posted = kept
+        for v in posted:
+            f = owner(prop[v][1])
+            cur[f] = max(cur[f], _grant(prop[v][2], vd[v // nlm] + v % nlm,
+                                        prop[v][1], r))
+        for v in range(N):
+            if ro[v] == OFF:
+                continue
+            gid, mate = vd[v // nlm] + v % nlm, -1
+            if ro[v] == ACCEPTOR and cur[v] != empty:
+                mate = 0x7FFFFFFF - (cur[v] & 0xFFFFFFFF)
+            elif ro[v] == PROPOSER and prop[v] and \
+                    cur[owner(prop[v][1])] & 0xFFFFFFFF == 0x7FFFFFFF - gid:
+                mate = prop[v][1]
+            if mate >= 0:
+                m[v] = mate
+            ro[v] = OFF if mate >= 0 else role(gid, r + 1)
+    return np.array(m).reshape(P, nlm)
+
+
+def far_ghosts(dg):
+    """``dg``'s arrays with every fifth ghost's gid past the last part:
+    its owner slot is clipped to the last part's last row, a real row
+    with another gid when the last part is full."""
+    gg = np.array(dg.ghost_gid)
+    pick = (gg >= 0) & (np.arange(gg.size).reshape(gg.shape) % 5 == 0)
+    gg[pick] = dg.vtxdist[-1] + 3
+    return types.SimpleNamespace(
+        nbr_gst=dg.nbr_gst, ewgt_gst=dg.ewgt_gst, ghost_gid=gg,
+        vtxdist=dg.vtxdist, n_loc=dg.n_loc, n_loc_max=dg.n_loc_max)
+
+
+@pytest.mark.parametrize("C", [1, 3, 16])
+@pytest.mark.parametrize("cap", ["dense", "lossless", 3])
+@pytest.mark.parametrize("name", ["g13x11", "far_ghosts"])
+def test_cluster_matching_model_equals_plain(name, cap, C):
+    """At 3 CTAs of 2^s rows the third gets no row, and at 16 every part
+    of 64 rows spans four CTAs;
+    ``far_ghosts`` (grid2d(16, 16) over 4 full parts) has ghosts whose
+    owner row has another gid."""
+    if name == "far_ghosts":
+        full = D.distribute(G.grid2d(16, 16), 4)
+        dg, seed = far_ghosts(full), 0   # a seed that tells the coins apart
+        assert list(full.n_loc) == [full.n_loc_max] * 4
+    else:
+        dg, (_, _, seed) = _case(name)
+    nlm = dg.n_loc_max
+    cap = {"dense": 0, "lossless": D._match_proposal_cap([dg], nlm)}.get(
+        cap, cap)
+    args = [torch.from_numpy(np.asarray(a, np.int32)[None]) for a in (
+        dg.nbr_gst, dg.ewgt_gst, dg.ghost_gid, dg.vtxdist, dg.n_loc)]
+    want = K.dmatch_plain(*args, torch.tensor([seed], dtype=torch.int32),
+                          4, cap)[0].numpy()
+    rows = 1 << share_shift(dg.nbr_gst.shape[0] * nlm, C)
+    if C == 3:                           # the third CTA gets no row
+        assert 2 * rows >= dg.nbr_gst.shape[0] * nlm
+    if C == 16:                          # each part spans CTAs
+        assert rows < nlm
+    got = _cluster_match_model(dg, seed, 4, cap, C)
+    assert np.array_equal(got, want)
+    if name == "far_ghosts":             # the -2 - slot codes are reached
+        assert any(int(t) >= int(dg.vtxdist[-1]) for t in
+                   np.asarray(dg.ghost_gid).reshape(-1))
+    assert (want >= 0).any()
