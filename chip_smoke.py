@@ -98,10 +98,14 @@ Phases, each of which must pass:
    launches, as the C entries report what they enqueued, equal to what
    ``dgraph_ops.planned_launches`` gives the run's launch records (one
    launch a BFS and a matching call on the cluster design, no
-   relaxation), no plain version called; its NNZ and
+   relaxation), every halo call one launch of the halo kernel (CUDA
+   events around its C entry), one ghost slot table resolved a distinct
+   DGraph exchanged, no plain version called; its NNZ and
    OPC beside
-   phase 5's host ND, and its wall split by stage (dmatch, dbfs, dhalo,
-   fm, match, bfs, rebuild, endgame, host); (c) ``distributed_order_batch``
+   phase 5's host ND, its wall split by stage (dmatch, dbfs, dhalo,
+   fm, match, bfs, rebuild, endgame, host), and the dhalo stage's split
+   (``dhalo_split``: staging, upload, slot tables, device, download,
+   calls); (c) ``distributed_order_batch``
    of that graph at seeds 0 and 1 and ``grid2d(28, 28)`` at P 8 equals
    each ordered alone, and ``OrderingService().submit_distributed`` of it
    returns the same permutation, then a cache hit; (d) ``grid2d(28, 28)``
@@ -114,7 +118,9 @@ Phases, each of which must pass:
    8, 2048), at ``distribute(grid3d(100, 100, 100), 8)`` (8, 131072, 8,
    32768) and at the buckets with the most lanes (b)'s waves gave the BFS
    and the matching, each lane equal to its singleton call, each timed
-   alone (its C entry) and through its wrapper; the BFS and the matching
+   alone (its C entry; the halo and the relaxation back to back and
+   queued behind a device sleep, beside the launch floor, an empty
+   kernel of ``dgraph.cu``) and through its wrapper; the BFS and the matching
    in the design ``dgraph_ops.plan`` picks (with where its state lay),
    and at the root bucket (2^18 slots, where the plan switches) and the
    many-lane buckets also on 8 CTAs and in the other design, each held
@@ -133,13 +139,15 @@ nor the reference package.
 
     python3 chip_smoke.py --dist-rows SRC
 
-times rows 9-10 alone at phase 10's three buckets in the package under
+times rows 7-10 alone at phase 10's three buckets in the package under
 SRC (``src``, or a parent commit's unpacked under a directory that
-``.gitignore`` lists), each held to its plain version, and a warm
+``.gitignore`` lists), each held to its plain version (rows 7-8 also
+queued behind a device sleep, beside the launch floor), and a warm
 distributed ordering of grid3d(30³) over 8 parts (wall, stage split,
-launches, the permutation's hash), and prints one JSON line and the
-card's name and power limit: run it for the parent and the change in
-one call, in the order parent, change, change, parent.
+the dhalo stage's split, launches, the permutation's hash), and prints
+one JSON line and the card's name and power limit: run it for the
+parent and the change in one call, in the order parent, change, change,
+parent.
 """
 from __future__ import annotations
 
@@ -1764,6 +1772,79 @@ class StageByKind:
 
 
 @contextlib.contextmanager
+def dhalo_split(split: dict):
+    """Split the dhalo stage while the block runs, each host clock counted
+    only inside ``halo_exchange_stacked``: seconds staging the payload
+    (``pack``: a pinned buffer, filled), uploading, resolving ghost slot
+    tables and downloading (which waits for the kernel); the device seconds of the halo kernel (CUDA events
+    around each call of its C entry, the enqueue included); the calls;
+    the distinct DGraphs exchanged and the slot tables resolved.  A tree
+    before resident slot tables packs and uploads its payload inline and
+    uploads the ghost ids and ranges with ``_lanes`` (``upload``): what
+    no clock sees is ``rest``, the stage less the others.  Fills
+    ``split`` (without ``stage`` and ``rest``, which ``dhalo_rest`` adds
+    from the stage's seconds) when the block ends."""
+    import torch
+    from repro_torch.core import dgraph
+    from repro_torch.kernels import build
+    from repro_torch.service import router
+    inside = [False]
+    host = {k: [0.0] for k in ("pack", "upload", "tables", "download")}
+    events, seen = [], {}
+
+    def gated(fn, spent):
+        def timed(*args, **kw):
+            if not inside[0]:
+                return fn(*args, **kw)
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                spent[0] += time.perf_counter() - t0
+        return timed
+
+    def flagged(fn):
+        def call(dgs, *args, **kw):
+            seen.update((id(d), d) for d in dgs)
+            inside[0] = True
+            try:
+                return fn(dgs, *args, **kw)
+            finally:
+                inside[0] = False
+        return call
+    resolved = getattr(dgraph, "slot_resolutions", None)
+    with contextlib.ExitStack() as stack:
+        for name, key in (("stage_halo", "pack"), ("upload", "upload"),
+                          ("_lanes", "upload"), ("ghost_slots", "tables"),
+                          ("download", "download"),
+                          ("download_into", "download")):
+            if hasattr(dgraph, name):
+                fn = getattr(dgraph, name)
+                stack.callback(setattr, dgraph, name, fn)
+                setattr(dgraph, name, gated(fn, host[key]))
+        for module in (dgraph, router):
+            fn = module.halo_exchange_stacked
+            stack.callback(setattr, module, "halo_exchange_stacked", fn)
+            module.halo_exchange_stacked = flagged(fn)
+        stack.enter_context(on_card(build.load("dgraph"), "halo_launch",
+                                    events))
+        yield
+    torch.cuda.synchronize()
+    split.update({k: v[0] for k, v in host.items()})
+    split.update(device=device_s(events), calls=len(events),
+                 dgraphs=len(seen),
+                 resolutions=None if resolved is None
+                 else dgraph.slot_resolutions - resolved)
+
+
+def dhalo_rest(split: dict, stage_s: float) -> dict:
+    """``split`` with the dhalo stage's seconds and what no clock saw."""
+    return dict(split, stage=stage_s, rest=stage_s - sum(
+        split[k] for k in ("pack", "upload", "tables", "device",
+                           "download")))
+
+
+@contextlib.contextmanager
 def dist_calls(largest: dict, calls: list, gathers: list):
     """Keep, per distributed collective, the arguments of its call with the
     most lanes; count into ``calls[0]`` every call of a plain version of
@@ -1827,19 +1908,21 @@ def _dist_main(main_run: dict) -> dict:
     counters = {**{k: (dgraph_ops, a) for k, a in DIST_COUNTS.items()},
                 **_kernel_counts()}
     largest, calls, by_kind, gathers = {}, [0], StageByKind(), []
+    halo_split = {}
     with env(REPRO_FM_MODE=None, REPRO_FM_GAIN=None), \
             dist_calls(largest, calls, gathers):
-        torch.cuda.synchronize()
-        for mod, attr in counters.values():
-            setattr(mod, attr, 0)
-        obs.register_collector(by_kind)
-        t0 = time.perf_counter()
-        try:
-            with dgraph.instrument() as ins:
-                perm = _dnd(dg, 0, cfg)
-        finally:
-            obs.unregister_collector(by_kind)
-        wall = time.perf_counter() - t0
+        with dhalo_split(halo_split):
+            torch.cuda.synchronize()
+            for mod, attr in counters.values():
+                setattr(mod, attr, 0)
+            obs.register_collector(by_kind)
+            t0 = time.perf_counter()
+            try:
+                with dgraph.instrument() as ins:
+                    perm = _dnd(dg, 0, cfg)
+            finally:
+                obs.unregister_collector(by_kind)
+            wall = time.perf_counter() - t0
         launches = {k: getattr(m, a) for k, (m, a) in counters.items()}
         n_gathers = len(gathers)
         t1 = time.perf_counter()
@@ -1875,9 +1958,11 @@ def _dist_main(main_run: dict) -> dict:
         "endgame")}
     split["host"] = wall - sum(v for k, v in split.items()
                                if k != "endgame")
+    halo_split = dhalo_rest(halo_split, split["dhalo"])
     res = {"graph": "grid3d(30,30,30)", "nparts": 8, "seed": 0,
            "bucket": list(dgraph.dgraph_bucket(dg)), "wall_s": wall,
            "wall_dfs_s": wall_dfs, "split_s": split,
+           "dhalo_split_s": halo_split,
            "waves": len(ins.waves), "launches": launches,
            "max_gather": max_gather, "max_gather_of_parts": spread,
            "max_gather_of_one_part": one_part, "gather_bound": bound,
@@ -1911,6 +1996,13 @@ def _dist_main(main_run: dict) -> dict:
     if calls[0]:
         raise AssertionError(f"distributed: {calls[0]} plain calls on the "
                              f"card")
+    if halo_split["calls"] != launches["halo_exchange_stacked"]:
+        raise AssertionError(f"distributed: {halo_split['calls']} calls of "
+                             f"the halo's C entry, {launches} counted")
+    if halo_split["resolutions"] not in (None, halo_split["dgraphs"]):
+        raise AssertionError(f"distributed: {halo_split['resolutions']} "
+                             f"slot tables resolved for "
+                             f"{halo_split['dgraphs']} DGraphs exchanged")
     res.update(perm=perm, dg=dg, largest=largest)
     return res
 
@@ -2144,29 +2236,64 @@ def _dist_caps(dgs, nlm):
     return (_path_cap(dgs, nlm), 0, lossless, max(1, lossless // 4))
 
 
-def _dist_kernel_case(dgs, srcs, seeds, width=3, rounds=8,
-                      both=False) -> dict:
-    """(a) at one bucket: rows 7-10 == their plain versions on the card,
-    exactly, each lane == its singleton call, the matching dense and at
-    its caps, rows 9-10 in the plan's design (and with ``both`` the other
-    one); CUDA-event times alone (C entry) and through the wrapper; the
-    plain versions' times; bounds; the halo's library call."""
-    import numpy as np
+def _halo_entry(K, x, gg, vd, out):
+    """Row 8's C entry with its arguments, and its wrapper's call, in the
+    tree on ``sys.path``: with resident slot tables (``K.lane_slots``) a
+    host array of each lane's table pointer; before them, the ghost ids
+    and ranges, which the kernel searched."""
+    import torch
+    L, P, nlm = x.shape
+    G = gg.shape[2]
+    if not hasattr(K, "lane_slots"):
+        return (("halo_launch", x, gg, vd, out, L, P, nlm, G),
+                lambda: K.halo(x, gg, vd))
+    tables = list(K.lane_slots(gg.cpu(), vd.cpu(), nlm).to(x.device))
+    ptrs = torch.tensor([tb.data_ptr() for tb in tables], dtype=torch.int64)
+    return (("halo_launch", x, ptrs, out, L, P, nlm, G),
+            lambda: K.halo(x, tables))
+
+
+def _times(entry, call, plain, reps, plain_reps) -> dict:
+    """A C entry's times: back to back (``ms``, what a caller sees) and
+    queued behind a device sleep (``queued_ms``, the card's own); the
+    wrapper's and the plain version's."""
+    return dict(ms=entry_ms("dgraph", *entry, reps=reps),
+                queued_ms=entry_ms("dgraph", *entry, reps=reps, queued=True),
+                call_ms=cuda_ms(call, reps=reps),
+                plain_ms=cuda_ms(plain, plain_reps))
+
+
+def launch_floor_ms():
+    """The card's time for an empty kernel of ``dgraph.cu``, back to back
+    and queued behind a device sleep; None in a tree without one."""
+    from repro_torch.kernels import build
+    if not hasattr(build.load("dgraph"), "empty_launch"):
+        return None
+    return {"ms": entry_ms("dgraph", "empty_launch", reps=50),
+            "queued_ms": entry_ms("dgraph", "empty_launch", reps=50,
+                                  queued=True)}
+
+
+def _rows_7_8(t, x) -> dict:
+    """Rows 7-8 at one bucket, in the tree on ``sys.path``: the halo of
+    ``x`` and the relaxation of each part against its halo-extended
+    vector, each held to its plain version exactly; back-to-back and
+    queued times of the C entry, the wrapper's and the plain version's;
+    bounds; the halo's library call (``index_select`` of the ghosts' flat
+    slots)."""
     import torch
     from repro_torch.kernels import dgraph_ops as K
-    t, src, sd = _dist_inputs(dgs, srcs, seeds)
     L, P, nlm, d = t["nbr"].shape
     G = t["gg"].shape[2]
     where = (L, P, nlm, d, G)
-    rng = np.random.default_rng(L)
-    x = torch.from_numpy(rng.integers(0, 1 << 20, (L, P, nlm)).astype(
-        np.int32)).cuda()
     cells, real = L * P * nlm, int((t["nbr"] >= 0).sum())
-    out = {"shape": list(where), "plan": list(K.plan(P, nlm, d))}
+    out = {}
     # --- row 8, halo
-    halo = K.halo(x, t["gg"], t["vd"])
-    _exact("halo", halo, K.halo_plain(x, t["gg"], t["vd"]), where)
-    hbuf = torch.empty_like(halo)
+    hbuf = torch.empty((L, P, nlm + G), dtype=torch.int32, device="cuda")
+    entry, call = _halo_entry(K, x, t["gg"], t["vd"], hbuf)
+    halo = call()
+    want = _halo_oracle(K, x, t["gg"], t["vd"])
+    _exact("halo", halo, want, where)
     flat_idx = (K.owner_slots(t["gg"].reshape(L, P * G), t["vd"], nlm)
                 + torch.arange(L, device="cuda")[:, None] * P * nlm)
     gok = t["gg"].reshape(L, P * G) >= 0
@@ -2174,12 +2301,11 @@ def _dist_kernel_case(dgs, srcs, seeds, width=3, rounds=8,
     xf = x.reshape(-1)
     nbytes = 4 * (2 * cells + 2 * L * P * G + L * (P + 1))
     out["halo"] = dict(
-        ms=entry_ms("dgraph", "halo_launch", x, t["gg"], t["vd"], hbuf, L,
-                    P, nlm, G, reps=20),
-        call_ms=cuda_ms(lambda: K.halo(x, t["gg"], t["vd"]), reps=20),
-        plain_ms=cuda_ms(lambda: K.halo_plain(x, t["gg"], t["vd"]), 5),
+        **_times(entry, call, lambda: _halo_oracle(K, x, t["gg"], t["vd"]),
+                 50, 5),
         library_ms=cuda_ms(lambda: torch.index_select(xf, 0, flat_idx), 20),
         max_abs_err=0, **bound(nbytes, L * P * G * 2 * max(1, P.bit_length())))
+    _exact("halo", hbuf, want, where)
     # --- row 7, relax: each part against its halo-extended vector
     ext = halo.reshape(L * P, nlm + G)
     nbr2 = t["nbr"].reshape(L * P, nlm, d)
@@ -2187,13 +2313,44 @@ def _dist_kernel_case(dgs, srcs, seeds, width=3, rounds=8,
     _exact("ell_relax", rel, K.ell_relax_plain(nbr2, ext, K.BIG), where)
     rbuf = torch.empty_like(rel)
     out["relax"] = dict(
-        ms=entry_ms("dgraph", "ell_relax_launch", nbr2, ext, rbuf, L * P,
-                    nlm, d, nlm + G, K.BIG, reps=20),
-        call_ms=cuda_ms(lambda: K.ell_relax(nbr2, ext, K.BIG), reps=20),
-        plain_ms=cuda_ms(lambda: K.ell_relax_plain(nbr2, ext, K.BIG), 5),
+        **_times(("ell_relax_launch", nbr2, ext, rbuf, L * P, nlm, d,
+                  nlm + G, K.BIG), lambda: K.ell_relax(nbr2, ext, K.BIG),
+                 lambda: K.ell_relax_plain(nbr2, ext, K.BIG), 50, 5),
         library_ms=None, max_abs_err=0,
         **bound(4 * (L * P * nlm * d + L * P * (nlm + G) + cells),
                 real + 2 * cells))
+    _exact("ell_relax", rbuf, rel, where)
+    out["ext"] = halo
+    return out
+
+
+def _halo_oracle(K, x, gg, vd):
+    """Row 8's plain version in the tree on ``sys.path``: on the resolved
+    slot tables, or (before them) on the ghost ids and ranges."""
+    if hasattr(K, "lane_slots"):
+        return K.halo_plain(x, K.lane_slots(gg, vd, x.shape[2]))
+    return K.halo_plain(x, gg, vd)
+
+
+def _dist_kernel_case(dgs, srcs, seeds, width=3, rounds=8,
+                      both=False) -> dict:
+    """(a) at one bucket: rows 7-10 == their plain versions on the card,
+    exactly, each lane == its singleton call, the matching dense and at
+    its caps, rows 9-10 in the plan's design (and with ``both`` the other
+    one); CUDA-event times alone (C entry; rows 7-8 also queued behind a
+    device sleep) and through the wrapper; the plain versions' times;
+    bounds; the halo's library call."""
+    import torch
+    from repro_torch.kernels import dgraph_ops as K
+    t, src, sd = _dist_inputs(dgs, srcs, seeds)
+    L, P, nlm, d = t["nbr"].shape
+    G = t["gg"].shape[2]
+    where = (L, P, nlm, d, G)
+    x = _halo_payload(t)
+    out = {"shape": list(where), "plan": list(K.plan(P, nlm, d))}
+    rows = _rows_7_8(t, x)
+    halo = rows.pop("ext")
+    out.update(rows)
     # --- rows 9-10
     rows = _rows_9_10(t, src, sd, _dist_caps(dgs, nlm), width, rounds, both)
     dist, want = rows.pop("want")
@@ -2203,7 +2360,8 @@ def _dist_kernel_case(dgs, srcs, seeds, width=3, rounds=8,
         for j in range(L):
             one = {k: v[j:j + 1] for k, v in t.items()}
             s1 = src[j:j + 1]
-            if not (torch.equal(K.halo(x[j:j + 1], one["gg"], one["vd"])[0],
+            if not (torch.equal(_halo_entry(K, x[j:j + 1], one["gg"],
+                                            one["vd"], None)[1]()[0],
                                 halo[j]) and
                     torch.equal(K.dbfs(one["nbr"], s1, one["gg"], one["vd"],
                                        width)[0], dist[j]) and
@@ -2216,10 +2374,21 @@ def _dist_kernel_case(dgs, srcs, seeds, width=3, rounds=8,
     return out
 
 
+def _halo_payload(t):
+    """A random (L, P, nlm) int32 payload for the halo, seeded by L."""
+    import numpy as np
+    import torch
+    L, P, nlm = t["nbr"].shape[:3]
+    rng = np.random.default_rng(L)
+    return torch.from_numpy(rng.integers(0, 1 << 20, (L, P, nlm)).astype(
+        np.int32)).cuda()
+
+
 def _dist_order(dg) -> dict:
     """A warm distributed ordering of ``dg`` (seed 0, default DNDConfig):
-    its wall, the dmatch / dbfs / dhalo / endgame seconds, the
-    distributed kernels' launches and the permutation's sha256."""
+    its wall, the dmatch / dbfs / dhalo / endgame seconds, the dhalo
+    stage's split (``dhalo_split``), the distributed kernels' launches and
+    the permutation's sha256."""
     import hashlib
     import numpy as np
     import torch
@@ -2227,20 +2396,23 @@ def _dist_order(dg) -> dict:
     from repro_torch.core.dnd import DNDConfig
     from repro_torch.kernels import dgraph_ops
     _dnd(dg, 0, DNDConfig())
-    by_kind = StageByKind()
-    for attr in DIST_COUNTS.values():
-        setattr(dgraph_ops, attr, 0)
-    obs.register_collector(by_kind)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    try:
-        perm = _dnd(dg, 0, DNDConfig())
-    finally:
-        obs.unregister_collector(by_kind)
-    wall = time.perf_counter() - t0
+    by_kind, halo_split = StageByKind(), {}
+    with dhalo_split(halo_split):
+        for attr in DIST_COUNTS.values():
+            setattr(dgraph_ops, attr, 0)
+        obs.register_collector(by_kind)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            perm = _dnd(dg, 0, DNDConfig())
+        finally:
+            obs.unregister_collector(by_kind)
+        wall = time.perf_counter() - t0
     return {"wall_s": wall,
             "split_s": {k: by_kind.seconds.get(k, 0.0)
                         for k in ("dmatch", "dbfs", "dhalo", "endgame")},
+            "dhalo_split_s": dhalo_rest(halo_split,
+                                        by_kind.seconds.get("dhalo", 0.0)),
             "launches": {k: getattr(dgraph_ops, a)
                          for k, a in DIST_COUNTS.items()},
             "perm_sha256": hashlib.sha256(
@@ -2279,24 +2451,29 @@ def _dist_buckets(main_largest=None):
 
 
 def dist_rows_bench() -> dict:
-    """``chip_smoke.py --dist-rows SRC``: rows 9-10 alone (C entries) and
+    """``chip_smoke.py --dist-rows SRC``: rows 7-10 alone (C entries; rows
+    7-8 also queued behind a device sleep, beside the launch floor) and
     through their wrappers at the three buckets, in the package under SRC
     (this tree's ``src`` or a parent commit's), each held to its plain
-    version; one JSON line."""
+    version, and a warm ordering with its dhalo split; one JSON line."""
     from repro_torch.kernels import build
     build.build_all()
     buckets = _dist_buckets()
-    out = {"order_grid3d_30": _dist_order(buckets.pop(0)[1])}
+    out = {"order_grid3d_30": _dist_order(buckets.pop(0)[1]),
+           "launch_floor": launch_floor_ms()}
     for name, dgs, srcs, seeds, width, rounds in buckets:
         t, src, sd = _dist_inputs(dgs, srcs, seeds)
         nlm = t["nbr"].shape[2]
-        rows = _rows_9_10(t, src, sd, _dist_caps(dgs, nlm), width, rounds,
+        rows = _rows_7_8(t, _halo_payload(t))
+        rows.pop("ext")
+        more = _rows_9_10(t, src, sd, _dist_caps(dgs, nlm), width, rounds,
                           name != "grid3d_100")
-        rows.pop("want")
+        more.pop("want")
+        rows.update(more)
         out[name] = {"shape": list(t["nbr"].shape) + [t["gg"].shape[2]],
                      **{k: {f: v.get(f) for f in (
                          "design", "ms", "designs", "queued_ms", "call_ms",
-                         "bound_ms")}
+                         "plain_ms", "library_ms", "bound_ms")}
                         for k, v in rows.items()}}
     return out
 
@@ -2317,9 +2494,12 @@ def phase_dist(main_run: dict) -> dict:
     cases["many_lanes"]["dmatch_lanes"] = dict(m_case["dmatch"],
                                                shape=m_case["shape"],
                                                plan=m_case["plan"])
+    floor = launch_floor_ms()
+    log(f"phase 10 launch floor (an empty kernel of dgraph.cu, ms): "
+        f"{json.dumps(floor)}")
     return {"main": {k: v for k, v in main.items()
                      if k not in ("perm", "dg", "largest")},
-            "requests": reqs, "cases": cases}
+            "requests": reqs, "cases": cases, "launch_floor": floor}
 
 
 def gpu_line() -> str:
@@ -2341,7 +2521,7 @@ def main() -> int:
         print("no CUDA device: this smoke run needs the card",
               file=sys.stderr)
         return 1
-    # --dist-rows SRC: rows 9-10 alone, in the package under SRC
+    # --dist-rows SRC: rows 7-10 alone, in the package under SRC
     rows_only = sys.argv[1:2] == ["--dist-rows"]
     src_root = Path(sys.argv[2]).resolve() if rows_only else SRC
     if not (src_root / "repro_torch").is_dir():
@@ -2429,7 +2609,8 @@ def main() -> int:
     # rows 7-10 (phase 10): launches on the distributed main path (row 7
     # is off it where the cluster design serves every BFS call, and is
     # held to its plain version in _dist_kernel_case), times at its root
-    # bucket, and at grid3d(100³) and the many-lane buckets; rows 9-10
+    # bucket, and at grid3d(100³) and the many-lane buckets, back to back
+    # and queued behind a device sleep (beside the launch floor); rows 9-10
     # with their designs (both timed at the root bucket)
     dlaunch, dcases = dist["main"]["launches"], dist["cases"]
     for name, case, replaces in (
@@ -2443,12 +2624,13 @@ def main() -> int:
         root = dcases["root_30"][case]
         r = row(name, "dgraph.cu", replaces, dlaunch[name], root, 0,
                 root["library_ms"])
-        r["call_ms"] = root["call_ms"]
+        r["call_ms"], r["queued_ms"] = root["call_ms"], root["queued_ms"]
+        r["launch_floor"] = dist["launch_floor"]
         r["shape"] = dcases["root_30"]["shape"]
         r["on_dist_path"] = dlaunch[name] > 0
         wide = dcases["many_lanes"]
         many = wide["dmatch_lanes"] if case == "dmatch" else wide[case]
-        keys = ("ms", "call_ms", "plain_ms", "bound_ms")
+        keys = ("ms", "queued_ms", "call_ms", "plain_ms", "bound_ms")
         if case in ("dbfs", "dmatch"):
             r["design"], r["designs"] = root["design"], root["designs"]
             r["place"] = root["place"]

@@ -56,14 +56,15 @@ from repro_torch.obs.instrument import (_note_band_stats, _note_gather,
                                         _note_halo, _note_launch,
                                         instrument, stage, track_gathers,
                                         track_halos)
-from repro_torch.util import download, pow2, resolve_device
+from repro_torch.util import HostStage, download, download_into, \
+    pow2, resolve_device, upload
 
 __all__ = [
     "DGraph", "boundary_mask", "color_by_gid",
     "dgraph_arcs", "dgraph_bucket", "dgraph_coarsen", "dgraph_fold",
     "dgraph_induced", "distribute", "distributed_bfs",
     "distributed_bfs_stacked", "distributed_matching",
-    "distributed_matching_stacked", "halo_exchange_fn",
+    "distributed_matching_stacked", "ghost_slots", "halo_exchange_fn",
     "halo_exchange_stacked", "halo_reference", "instrument", "np_hash_mix",
     "pull_by_gid", "reshard_vector", "scatter_by_gid", "shard_gids",
     "shard_vector", "stage", "to_host", "track_gathers",
@@ -569,6 +570,57 @@ def _tags(tags) -> dict:
     return {"tags": list(tags)} if tags is not None else {}
 
 
+#: ghost slot tables resolved by ``ghost_slots`` in this process
+slot_resolutions = 0
+
+
+def ghost_slots(dg: DGraph, device: torch.device) -> torch.Tensor:
+    """``dg``'s ghost slot table on ``device``: (P, n_ghost_max) int32,
+    each ghost's lane-local owner slot ``owner * n_loc_max + local``, -1
+    for padding (``dgraph_ops.lane_slots``'s values, found here with
+    numpy on the host arrays).
+
+    Resolved once per device and kept beside the DGraph's fields, not
+    among them: equality, ``repr`` and the service's fingerprints see
+    only the fields.  The port never reassigns a DGraph's arrays; a
+    structure rebuild makes a new DGraph, which resolves its own table.
+    """
+    global slot_resolutions
+    kept = dg.__dict__.setdefault("_ghost_slots", {})
+    table = kept.get(device)
+    if table is None:
+        gid = np.asarray(dg.ghost_gid, np.int64)
+        vd = np.asarray(dg.vtxdist, np.int64)
+        owner = np.clip(np.searchsorted(vd, gid, side="right") - 1, 0,
+                        dg.nparts - 1)
+        local = np.clip(gid - vd[owner], 0, dg.n_loc_max - 1)
+        slots = np.where(gid >= 0, owner * dg.n_loc_max + local, -1)
+        table = torch.from_numpy(slots.astype(np.int32)).to(device)
+        kept[device] = table
+        slot_resolutions += 1
+    return table
+
+
+#: each thread's pinned staging buffer of its halo calls
+_HALO_STAGE = HostStage()
+
+
+def stage_halo(xs: Sequence[np.ndarray], G: int,
+               device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A halo call's words in the thread's pinned staging buffer
+    (``HostStage``): the lanes' (P, n_loc_max) payloads of 4-byte words
+    packed as (L, P, n_loc_max) int32, and after them room for the
+    (L, P, n_loc_max + G) result; so a call uploads in one copy and
+    downloads in one copy, and allocates no pinned memory."""
+    L, (P, nlm) = len(xs), xs[0].shape
+    buf = _HALO_STAGE.take(L * P * (2 * nlm + G), device)
+    payload = buf[:L * P * nlm].view(L, P, nlm)
+    words = payload.numpy()
+    for i, x in enumerate(xs):
+        words[i] = x.view(np.int32)
+    return payload, buf[L * P * nlm:].view(L, P, nlm + G)
+
+
 def halo_exchange_stacked(dgs: Sequence[DGraph],
                           xs: Sequence[np.ndarray],
                           tags: Optional[Sequence] = None,
@@ -581,7 +633,11 @@ def halo_exchange_stacked(dgs: Sequence[DGraph],
     extended vectors.  Lane i's result equals a singleton exchange on
     ``dgs[i]`` bit for bit.  ``tags`` (optional, one per lane) records
     each lane's originating request in the launch metadata — the wave
-    router's cross-request attribution.
+    router's cross-request attribution.  A call stages the payload in
+    the thread's pinned buffer (``stage_halo``), uploads it in one copy,
+    reads each graph's ghost slot table where it is kept
+    (``ghost_slots``), and downloads the result in one copy into the same
+    buffer.
     """
     dev = resolve_device(device)
     nparts, nlm, _, G = key = _same_bucket(dgs, "halo_exchange_stacked")
@@ -592,13 +648,15 @@ def halo_exchange_stacked(dgs: Sequence[DGraph],
         raise TypeError(f"the halo exchange moves 4-byte words of one dtype, "
                         f"got {sorted({str(x.dtype) for x in xs})}")
     L = len(dgs)
-    x_st = np.ascontiguousarray(np.stack(xs)).view(np.int32)
+    if len(xs) != L or any(x.shape != (nparts, nlm) for x in xs):
+        raise ValueError(f"want one ({nparts}, {nlm}) vector a graph, got "
+                         f"{[x.shape for x in xs]} for {L} graphs")
 
     def dispatch():
-        return download(dgraph_ops.halo(
-            torch.from_numpy(x_st).to(dev),
-            _lanes([d.ghost_gid for d in dgs], dev),
-            _lanes([d.vtxdist for d in dgs], dev)))
+        tables = [ghost_slots(d, dev) for d in dgs]
+        payload, result = stage_halo(xs, G, dev)
+        return download_into(dgraph_ops.halo(upload(payload, dev), tables),
+                             result)
 
     out = obs.timed_dispatch("halo", "dhalo", ("dhalo", dev.type), dispatch,
                              since=t0, lanes=L, lanes_pad=L, bucket=key)

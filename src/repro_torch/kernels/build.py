@@ -45,8 +45,9 @@ SIGNATURES = {
     "diffusion": {"diffusion_launch": [_P] * 5 + [_I] * 2 + [_F] * 2 + [_P]},
     "matching": {"matching_grid_launch": [_P] * 5 + [_I] * 4 + [_P],
                  "matching_cluster_launch": [_P] * 5 + [_I] * 5 + [_P]},
-    "dgraph": {"ell_relax_launch": [_P] * 3 + [_I] * 5 + [_P],
-               "halo_launch": [_P] * 4 + [_I] * 4 + [_P],
+    "dgraph": {"empty_launch": [_P],
+               "ell_relax_launch": [_P] * 3 + [_I] * 5 + [_P],
+               "halo_launch": [_P] * 3 + [_I] * 4 + [_P],
                "dbfs_launch": [_P] * 7 + [_I] * 6 + [_P] * 2,
                "dbfs_cluster_launch": [_P] * 7 + [_I] * 7 + [_P] * 2,
                "dmatch_launch": [_P] * 8 + [_I] * 7 + [_P] * 2,

@@ -16,13 +16,20 @@
 // - 1`, clipped to [0, P-1] (dgraph.py:833-837); parts left empty by a
 // fold or an induced subgraph repeat a vtxdist entry, and the upper bound
 // skips them as the reference's searchsorted(side="right") does.  A ghost
-// id of -1 reads 0.
+// id of -1 reads 0.  A ghost's lane-local slot is owner * n_loc_max +
+// local (local clipped to the row).
 //
-// ell_relax (one thread a row): out = min over valid slots of ext[id] + 1,
-// padding (-1) read as `big`.  In its distributed form it is the grid
-// BFS's step: given a table of each ghost's owner slot, it reads a ghost's
-// value straight from its owner's row (the halo exchange of the step,
-// fused) and takes the min with the row's old distance.
+// halo_exchange (a thread 4 words of a part's row): each part's values,
+// then each ghost's at its slot in the DGraph's slot table, which the host
+// resolves once a DGraph and keeps on the card; no search at all.
+//
+// ell_relax (the ids in 16-byte loads, a thread a row of up to 8 ids, a
+// group of threads a wider row): out = min over valid slots of ext[id] + 1,
+// padding (-1) read as `big`.  In its
+// distributed form it is the grid BFS's step: it reads a ghost's value
+// straight from its owner's row at the ghost's lane-local slot (the halo
+// exchange of the step, fused), and takes the min with the row's old
+// distance.
 //
 // The BFS and the matching run in the design kernels/band_batch.py's
 // `lane_plan` picks for a lane of P * n_loc_max rows and d slots, as the
@@ -79,11 +86,13 @@
 // Every phase reads the round's starting mates; each row writes only its
 // own.
 //
-// What bounds them on an H100: at the main path's buckets neither bytes
-// nor operations (a few MB and a few tens of M hash operations a call,
-// each under a microsecond) but the chain of dependent phases: launches in
-// the grid design; in the cluster design each phase's dependent loads and
-// hashes on C SMs, and its lane barrier (PERF.md §6).
+// What bounds them on an H100: the halo and the relaxation move bytes
+// once, and below a few MB take the launch floor; the BFS and the matching,
+// at the main path's buckets, neither bytes nor operations (a few MB and a
+// few tens of M hash operations a call, each under a microsecond) but the
+// chain of dependent phases: launches in the grid design; in the cluster
+// design each phase's dependent loads and hashes on C SMs, and its lane
+// barrier (PERF.md §6).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -fmad=false (build.py).
 // Float sums are single adds, so no contraction can change a bit.
@@ -182,65 +191,226 @@ __device__ __forceinline__ int64_t slot_of(const int* vd, int P, int nlm,
 }
 
 // ------------------------------------------------------------ relaxation
-// rows (R, n) of ELL ids (R, n, d).  Plain form (dist == 0): row r reads
-// ext row r of width m.  Distributed form (dist != 0): ids < n read the
-// part's own row (m == n), ids in [n, n + G) read din[gidx[r, id - n]] (0
-// if -1), and the result is min(old, relaxed); with G == 0 gidx is never
-// read.  Ids outside the row read as padding, so no input reads outside
-// its buffers.
-__global__ void ell_relax(const int* __restrict__ nbr,
-                          const int* __restrict__ din, int* __restrict__ dout,
-                          const int64_t* __restrict__ gidx, int dist,
-                          int64_t rows, int n, int d, int64_t m, int G,
-                          int big) {
-  const int64_t t = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (t >= rows * n) return;
-  const int64_t r = t / n;
-  const int v = (int)(t - r * n);
-  const int* row = nbr + t * d;
-  const int* ext = din + r * m;
-  int best = big;
-  for (int s = 0; s < d; ++s) {
-    const int c = row[s];
-    if (c < 0) continue;
-    int val;
-    if (dist && c >= n) {
-      if (c - n >= G) continue;
-      const int64_t f = gidx[r * G + (c - n)];
-      val = f >= 0 ? din[f] : 0;
-    } else {
-      if (c >= m) continue;
-      val = ext[c];
-    }
-    best = min(best, val);
+// One thread a row of rows (R, n) of ELL ids (R, n, d).  Plain form
+// (kDist false): row r reads ext row r of width m.  Distributed form (kDist,
+// the grid BFS's step): ids < n read the part's own row (m == n), ids in
+// [n, n + G) read the lane's row at the ghost's lane-local slot
+// gslot[r, id - n] (0 if -1; R = L * P parts, lane r / P), and the result
+// is min(old, relaxed).  Ids outside the row read as padding, so no input
+// reads outside its buffers.
+//
+// Bound by bytes: each id is read once, so the row is streamed in 16-byte
+// loads (__ldcs, evict-first; kVec: d % 4 == 0 and the ids on 16 bytes) two
+// at a time, and every gather of the row is issued before the min; the
+// values, read again by neighbouring rows, go through the read-only path
+// (__ldg) and keep the caches.  A row of more than 8 ids is read by a group
+// of threads (lane_group: 2 to 32, 8 ids each), whose minimum is taken with
+// shuffles, so that no thread waits on more than one load and one gather
+// in turn.  A row of d % 4 != 0 takes scalar loads, one thread a row.
+struct Relax {
+  const int* nbr;
+  const int* din;
+  int* dout;
+  const int* gslot;  // (R, G) lane-local slots, kDist only
+  int64_t rows;      // R
+  int P, n, d, G, big;
+  int64_t m;
+};
+
+// The value a slot id c of row r reads, `big` for padding.
+template <bool kDist>
+__device__ __forceinline__ int relax_read(const Relax& a, const int* ext,
+                                          const int* lane, const int* gs,
+                                          int c) {
+  if (kDist && c >= a.n) {
+    if (c - a.n >= a.G) return a.big;
+    const int s = __ldg(gs + (c - a.n));
+    return s >= 0 ? __ldg(lane + s) : 0;
   }
-  dout[t] = dist ? min(ext[v], best + 1) : best + 1;
+  return (unsigned)c < (unsigned)a.m ? __ldg(ext + c) : a.big;
+}
+
+template <bool kDist>
+__device__ __forceinline__ int relax_min4(const Relax& a, const int* ext,
+                                          const int* lane, const int* gs,
+                                          int4 q) {
+  return min(min(relax_read<kDist>(a, ext, lane, gs, q.x),
+                 relax_read<kDist>(a, ext, lane, gs, q.y)),
+             min(relax_read<kDist>(a, ext, lane, gs, q.z),
+                 relax_read<kDist>(a, ext, lane, gs, q.w)));
+}
+
+// Row t's index r = t / n: a 32-bit division where the rows allow it.
+__device__ __forceinline__ int64_t row_index(int64_t t, int n, bool narrow) {
+  return narrow ? (int64_t)((uint32_t)t / (uint32_t)n) : t / n;
+}
+
+// kGroup: 2^gshift threads a row (at most 32, so a group never spans two
+// warps) on the vector path; else one thread a row, with its two 16-byte
+// loads in flight (kVec) or its scalar loads.
+template <bool kVec, bool kGroup, bool kDist>
+__global__ void __launch_bounds__(kThreads) ell_relax(Relax a, int gshift) {
+  const int64_t tid = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  const int64_t cells = a.rows * a.n;
+  const int64_t t = kGroup ? tid >> gshift : tid;
+  if constexpr (!kGroup) {
+    if (t >= cells) return;
+  }
+  const bool live = t < cells;
+  const int64_t r = live ? row_index(t, a.n, cells <= 0xFFFFFFFFll) : 0;
+  const int* ext = a.din + r * a.m;
+  const int* lane = kDist ? a.din + r / a.P * a.P * a.m : nullptr;
+  const int* gs = kDist ? a.gslot + r * a.G : nullptr;
+  const int4* row4 = reinterpret_cast<const int4*>(a.nbr + t * a.d);
+  int best = a.big;
+  if constexpr (kGroup) {
+    const int group = 1 << gshift;
+    const int q = live ? a.d / 4 : 0;
+    const int sub = (int)tid & (group - 1);
+    for (int c = 2 * sub; c < q; c += 2 * group) {  // 2 loads, 8 gathers
+      const int4 u = __ldcs(row4 + c);
+      const int4 w = c + 1 < q ? __ldcs(row4 + c + 1) : make_int4(-1, -1, -1, -1);
+      best = min(best, min(relax_min4<kDist>(a, ext, lane, gs, u),
+                           relax_min4<kDist>(a, ext, lane, gs, w)));
+    }
+    for (int off = group / 2; off > 0; off /= 2)
+      best = min(best, __shfl_down_sync(0xffffffffu, best, off, group));
+    if (!live || sub != 0) return;
+  } else if constexpr (kVec) {
+    const int q = a.d / 4;
+    int c = 0;
+    for (; c + 1 < q; c += 2) {  // two loads in flight, then 8 gathers
+      const int4 u = __ldcs(row4 + c), w = __ldcs(row4 + c + 1);
+      best = min(best, min(relax_min4<kDist>(a, ext, lane, gs, u),
+                           relax_min4<kDist>(a, ext, lane, gs, w)));
+    }
+    if (c < q)
+      best = min(best, relax_min4<kDist>(a, ext, lane, gs, __ldcs(row4 + c)));
+  } else {
+    const int* row = a.nbr + t * a.d;
+    for (int s = 0; s < a.d; ++s)
+      best = min(best, relax_read<kDist>(a, ext, lane, gs, __ldcs(row + s)));
+  }
+  a.dout[t] = kDist ? min(__ldg(ext + (t - r * a.n)), best + 1) : best + 1;
+}
+
+// Launch the relaxation: the vector path where the ids allow it, with a
+// group of threads a row above 8 ids.
+template <bool kDist>
+cudaError_t relax_launch(const Relax& a, cudaStream_t s) {
+  const int64_t cells = a.rows * a.n;
+  if (cells == 0) return cudaGetLastError();
+  int gshift = 0;
+  while ((1 << gshift) < lane_group(a.d)) ++gshift;
+  if (!rows_vec(a.nbr, a.nbr, a.d))
+    ell_relax<false, false, kDist><<<blocks_for(cells), kThreads, 0, s>>>(
+        a, 0);
+  else if (gshift == 0)
+    ell_relax<true, false, kDist><<<blocks_for(cells), kThreads, 0, s>>>(
+        a, 0);
+  else
+    ell_relax<true, true, kDist><<<blocks_for(cells << gshift), kThreads, 0,
+                                   s>>>(a, gshift);
+  return cudaGetLastError();
 }
 
 // ------------------------------------------------------------ halo
-// out (L, P, nlm + G): the part's own values, then each ghost's owner value.
-__global__ void halo_exchange(const int* __restrict__ x,
-                              const int* __restrict__ ghost_gid,
-                              const int* __restrict__ vtxdist,
-                              int* __restrict__ out, int L, int P, int nlm,
-                              int G) {
-  const int W = nlm + G;
-  const int64_t t = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (t >= (int64_t)L * P * W) return;
-  const int64_t lp = t / W;
-  const int k = (int)(t - lp * W);
+// out (L, P, W = nlm + G): each part's own values, then each ghost's owner
+// value, read at the ghost's lane-local slot (owner * nlm + local; -1 for a
+// padding ghost, and any slot outside the lane's rows, reads 0) in its
+// lane's slot table.  A DGraph's table is resolved once on the host and
+// kept on the card (core/dgraph.py, ghost_slots), so the kernel searches
+// nothing: a ghost is one slot load and one value load.  Each lane's table
+// pointer rides in the parameter block (up to kLanes; Hopper takes 32 KB
+// of parameters with CUDA 12.1 and later), so lanes of different DGraphs
+// need no stacked table.  Calls of up to 8 lanes (every call of the
+// distributed ordering) take a 64-byte block, which the card launches
+// about 0.6 us sooner than the 32 KB one (PERF.md §6).
+//
+// Bound by bytes: a thread writes 4 words of a part's out row (kVec: nlm
+// and G multiples of 4, every pointer on 16 bytes), its own words in one
+// 16-byte load and store, its ghosts' slots in one 16-byte load; else one
+// word.  Grid (units / kHaloThreads, P, L): small blocks, so that even the
+// root bucket's 49,152 words spread over most SMs, and several blocks an
+// SM where the work is large.
+constexpr int kHaloThreads = 128;
+constexpr int kHaloLanes = 4000;  // 32,000 bytes of pointers
+
+template <int kLanes>
+struct HaloLanes {
+  const int* slots[kLanes];
+};
+
+// The lanes' pointers are read where the parameters lie (__grid_constant__):
+// indexed by the lane, a by-value copy would go to each thread's stack.
+template <int kLanes, bool kVec>
+__global__ void __launch_bounds__(kHaloThreads)
+    halo_exchange(const int* __restrict__ x, int* __restrict__ out, int nlm,
+                  int G, const __grid_constant__ HaloLanes<kLanes> lanes) {
+  constexpr int kWords = kVec ? 4 : 1;
+  const int W = nlm + G, P = gridDim.y;
+  const int k = (blockIdx.x * kHaloThreads + threadIdx.x) * kWords;
+  if (k >= W) return;
+  const int p = blockIdx.y, l = blockIdx.z;
+  const int* xl = x + (int64_t)l * P * nlm;
+  int* o = out + ((int64_t)l * P + p) * W + k;
   if (k < nlm) {
-    out[t] = x[lp * nlm + k];
+    if constexpr (kVec)
+      *reinterpret_cast<int4*>(o) =
+          __ldg(reinterpret_cast<const int4*>(xl + p * nlm + k));
+    else
+      *o = __ldg(xl + p * nlm + k);
     return;
   }
-  const int64_t l = lp / P;
-  const int64_t f = slot_of(vtxdist + l * (P + 1), P, nlm, l,
-                            ghost_gid[lp * G + (k - nlm)]);
-  out[t] = f >= 0 ? x[f] : 0;
+  const int* sl = lanes.slots[l] + (int64_t)p * G + (k - nlm);
+  const unsigned N = (unsigned)(P * nlm);
+  if constexpr (kVec) {
+    const int4 s = __ldg(reinterpret_cast<const int4*>(sl));
+    *reinterpret_cast<int4*>(o) = make_int4(
+        (unsigned)s.x < N ? __ldg(xl + s.x) : 0,
+        (unsigned)s.y < N ? __ldg(xl + s.y) : 0,
+        (unsigned)s.z < N ? __ldg(xl + s.z) : 0,
+        (unsigned)s.w < N ? __ldg(xl + s.w) : 0);
+  } else {
+    const int s = __ldg(sl);
+    *o = (unsigned)s < N ? __ldg(xl + s) : 0;
+  }
 }
 
-// The ghost table of a call: gidx[l, p, g] = flat owner slot of ghost g of
-// part p, or -1.
+// Whether p can be read and written in 16-byte accesses.
+inline bool on16(const void* p) { return (uintptr_t)p % 16 == 0; }
+
+template <int kLanes>
+cudaError_t halo_lanes(const int* x, const int* const* slots, int* out,
+                       int L, int P, int nlm, int G, bool vec,
+                       cudaStream_t s) {
+  HaloLanes<kLanes> lanes;
+  for (int l = 0; l < L; ++l) lanes.slots[l] = slots[l];
+  const int units = vec ? (nlm + G) / 4 : nlm + G;
+  const dim3 grid((unsigned)((units + kHaloThreads - 1) / kHaloThreads),
+                  (unsigned)P, (unsigned)L);
+  if (vec)
+    halo_exchange<kLanes, true><<<grid, kHaloThreads, 0, s>>>(x, out, nlm, G,
+                                                              lanes);
+  else
+    halo_exchange<kLanes, false><<<grid, kHaloThreads, 0, s>>>(x, out, nlm,
+                                                               G, lanes);
+  return cudaGetLastError();
+}
+
+// The ghosts' lane-local slots of a call, gslot[l, p, g] (-1 for a padding
+// ghost), resolved by a search over the lane's ranges: the grid BFS's.
+__device__ __forceinline__ void lane_slots(const int* ghost_gid,
+                                           const int* vtxdist, int* gslot,
+                                           int64_t t, int P, int nlm, int G) {
+  const int tg = ghost_gid[t];
+  gslot[t] = tg >= 0 ? lane_slot(vtxdist + t / ((int64_t)P * G) * (P + 1), P,
+                                 nlm, tg)
+                     : -1;
+}
+
+// The ghost table of the grid matching: gidx[l, p, g] = flat owner slot of
+// ghost g of part p, or -1.
 __device__ __forceinline__ void ghost_table(const int* ghost_gid,
                                             const int* vtxdist, int64_t* gidx,
                                             int64_t t, int P, int nlm,
@@ -254,12 +424,12 @@ __device__ __forceinline__ void ghost_table(const int* ghost_gid,
 __global__ void dbfs_init(const int* __restrict__ src,
                           const int* __restrict__ ghost_gid,
                           const int* __restrict__ vtxdist,
-                          int* __restrict__ dist, int64_t* __restrict__ gidx,
+                          int* __restrict__ dist, int* __restrict__ gslot,
                           int L, int P, int nlm, int G) {
   const int64_t t = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   const int64_t cells = (int64_t)L * P * nlm, ghosts = (int64_t)L * P * G;
   if (t < cells) dist[t] = src[t] != 0 ? 0 : kBig;
-  if (t < ghosts) ghost_table(ghost_gid, vtxdist, gidx, t, P, nlm, G);
+  if (t < ghosts) lane_slots(ghost_gid, vtxdist, gslot, t, P, nlm, G);
 }
 
 // ------------------------------------------------------------ cluster state
@@ -890,42 +1060,64 @@ __global__ void __launch_bounds__(kLaneThreads, 1)
   if (kMode == kCluster) lane_sync(C);  // no CTA leaves while read remotely
 }
 
+// The launch floor: a kernel that does nothing, to time what any launch
+// of this library costs the card.
+__global__ void empty() {}
+
 }  // namespace
+
+// One launch of an empty kernel (one warp).
+extern "C" int empty_launch(void* stream) {
+  empty<<<1, 32, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
 
 // ext (L, m), nbr (L, n, d) -> out (L, n): one launch.
 extern "C" int ell_relax_launch(const void* nbr, const void* ext, void* out,
                                 int L, int n, int d, int m, int big,
                                 void* stream) {
-  const int64_t rows = (int64_t)L * n;
-  if (rows == 0) return (int)cudaGetLastError();
-  ell_relax<<<blocks_for(rows), kThreads, 0, (cudaStream_t)stream>>>(
-      (const int*)nbr, (const int*)ext, (int*)out, nullptr, 0, L, n, d, m,
-      0, big);
-  return (int)cudaGetLastError();
+  Relax a;
+  a.nbr = (const int*)nbr;
+  a.din = (const int*)ext;
+  a.dout = (int*)out;
+  a.gslot = nullptr;
+  a.rows = L;
+  a.P = 1;
+  a.n = n;
+  a.d = d;
+  a.G = 0;
+  a.big = big;
+  a.m = m;
+  return (int)relax_launch<false>(a, (cudaStream_t)stream);
 }
 
-// x (L, P, nlm), ghost_gid (L, P, G), vtxdist (L, P + 1) -> out (L, P,
-// nlm + G): one launch.
-extern "C" int halo_launch(const void* x, const void* ghost_gid,
-                           const void* vtxdist, void* out, int L, int P,
-                           int nlm, int G, void* stream) {
-  const int64_t total = (int64_t)L * P * (nlm + G);
-  if (total == 0) return (int)cudaGetLastError();
-  halo_exchange<<<blocks_for(total), kThreads, 0, (cudaStream_t)stream>>>(
-      (const int*)x, (const int*)ghost_gid, (const int*)vtxdist, (int*)out,
-      L, P, nlm, G);
-  return (int)cudaGetLastError();
+// x (L, P, nlm), slots: a host array of L pointers, lane l's (P, G) int32
+// slot table -> out (L, P, nlm + G): one launch, 1 <= L <= kHaloLanes.
+extern "C" int halo_launch(const void* x, const void* slots, void* out,
+                           int L, int P, int nlm, int G, void* stream) {
+  if (L < 1 || L > kHaloLanes || P < 1 || P > 65535 || nlm < 1 || G < 0)
+    return (int)cudaErrorInvalidValue;
+  const int* const* tables = (const int* const*)slots;
+  bool vec = nlm % 4 == 0 && G % 4 == 0 && on16(x) && on16(out);
+  for (int l = 0; vec && l < L; ++l) vec = on16(tables[l]);
+  cudaStream_t s = (cudaStream_t)stream;
+  const cudaError_t err =
+      L <= 8 ? halo_lanes<8>((const int*)x, tables, (int*)out, L, P, nlm, G,
+                             vec, s)
+             : halo_lanes<kHaloLanes>((const int*)x, tables, (int*)out, L, P,
+                                      nlm, G, vec, s);
+  return (int)err;
 }
 
 // nbr (L, P, nlm, d), src (L, P, nlm) -> dist (L, P, nlm) after `width`
-// synchronous steps.  scratch: a second (L, P, nlm) int32 buffer; gidx:
-// (L, P, G) int64.
+// synchronous steps.  scratch: a second (L, P, nlm) int32 buffer; gslot:
+// (L, P, G) int32.
 
-// The grid design: 1 + width launches, dbfs_init, then ell_relax in its
-// distributed form a step.
+// The grid design: 1 + width launches, dbfs_init (the sources and the
+// ghosts' lane-local slots), then ell_relax in its distributed form a step.
 extern "C" int dbfs_launch(const void* nbr, const void* src,
                            const void* ghost_gid, const void* vtxdist,
-                           void* dist, void* scratch, void* gidx, int L,
+                           void* dist, void* scratch, void* gslot, int L,
                            int P, int nlm, int d, int G, int width,
                            int* counts, void* stream) {
   const int64_t cells = (int64_t)L * P * nlm;
@@ -937,18 +1129,29 @@ extern "C" int dbfs_launch(const void* nbr, const void* src,
   const int64_t ghosts = (int64_t)L * P * G;
   dbfs_init<<<blocks_for(cells > ghosts ? cells : ghosts), kThreads, 0, s>>>(
       (const int*)src, (const int*)ghost_gid, (const int*)vtxdist,
-      bufs[start], (int64_t*)gidx, L, P, nlm, G);
-  for (int k = 0; k < width; ++k)
-    ell_relax<<<blocks_for(cells), kThreads, 0, s>>>(
-        (const int*)nbr, bufs[(start + k) % 2], bufs[(start + k + 1) % 2],
-        (const int64_t*)gidx, 1, (int64_t)L * P, nlm, d, nlm, G, kBig);
+      bufs[start], (int*)gslot, L, P, nlm, G);
+  Relax a;
+  a.nbr = (const int*)nbr;
+  a.gslot = (const int*)gslot;
+  a.rows = (int64_t)L * P;
+  a.P = P;
+  a.n = nlm;
+  a.d = d;
+  a.G = G;
+  a.big = kBig;
+  a.m = nlm;
+  for (int k = 0; k < width; ++k) {
+    a.din = bufs[(start + k) % 2];
+    a.dout = bufs[(start + k + 1) % 2];
+    relax_launch<true>(a, s);
+  }
   enqueued(counts, 1, width, kGrid);
   return (int)cudaGetLastError();
 }
 
 // The cluster design: one launch, one cluster of C CTAs (1-16) a lane;
-// gidx holds the ghosts' lane slots as int32 when the state is in device
-// memory.  The state is in the CTAs' shared memory where each CTA's share
+// gidx holds the ghosts' lane-local slots (L, P, G) int32 when the state is
+// in device memory.  The state is in the CTAs' shared memory where each CTA's share
 // fits, else in device memory.
 extern "C" int dbfs_cluster_launch(const void* nbr, const void* src,
                                    const void* ghost_gid,

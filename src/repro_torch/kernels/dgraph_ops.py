@@ -26,8 +26,8 @@ which ``planned_launches`` applies to a run's launch records:
   the owners' rows); the cluster design launches none;
 * ``halo_launches``: one per ``halo`` call;
 * ``dbfs_launches``: the BFS's own kernel, one per call: the cluster
-  kernel, or ``dbfs_init`` (the source mask and each ghost's owner slot)
-  in the grid design;
+  kernel, or ``dbfs_init`` (the source mask and each ghost's lane-local
+  slot, the table the steps read) in the grid design;
 * ``dmatch_launches``: one per call on the cluster design; on the grid
   design ``1 + 2 * rounds`` (init, then propose, which posts the grant,
   and commit a round), or ``1 + 3 * rounds`` with a cap (a grant launch
@@ -42,7 +42,7 @@ CTAs' rows read over distributed shared memory), else in device memory
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -190,6 +190,11 @@ def ell_relax(nbr: torch.Tensor, ext: torch.Tensor, big: int) -> torch.Tensor:
 
 
 # ------------------------------------------------------------ halo
+#: the most lanes a halo call takes: the kernel's parameter block holds
+#: each lane's slot table pointer (``kHaloLanes`` of ``csrc/dgraph.cu``)
+HALO_LANES = 4000
+
+
 def owner_slots(gid: torch.Tensor, vtxdist: torch.Tensor,
                 nlm: int) -> torch.Tensor:
     """Each global id's flat slot ``owner * nlm + local`` in its lane's
@@ -205,20 +210,64 @@ def owner_slots(gid: torch.Tensor, vtxdist: torch.Tensor,
     return owner * nlm + local
 
 
-def halo_plain(x: torch.Tensor, ghost_gid: torch.Tensor,
-               vtxdist: torch.Tensor) -> torch.Tensor:
-    """x (L, P, nlm), ghost_gid (L, P, G), vtxdist (L, P+1) → (L, P,
-    nlm + G): each part's values, then each ghost's owner value (0 for
-    a ghost id of -1)."""
-    L, P, nlm = x.shape
-    G = ghost_gid.shape[2]
-    flat = x.reshape(L, P * nlm)
+def lane_slots(ghost_gid: torch.Tensor, vtxdist: torch.Tensor,
+               nlm: int) -> torch.Tensor:
+    """The ghost slot tables a halo reads: ghost_gid (L, P, G), vtxdist
+    (L, P+1) → (L, P, G) int32, each ghost's lane-local slot
+    (``owner_slots``), -1 for a padding ghost (id < 0)."""
+    L, P, G = ghost_gid.shape
     slot = owner_slots(ghost_gid.reshape(L, P * G), vtxdist, nlm)
-    vals = flat.gather(1, slot).reshape(L, P, G)
-    vals = torch.where(ghost_gid >= 0, vals, torch.zeros_like(vals))
-    return torch.cat([x, vals], dim=2)
+    return torch.where(ghost_gid >= 0, slot.reshape(L, P, G),
+                       -1).to(torch.int32)
 
 
+def halo_plain(x: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
+    """x (L, P, nlm), slots (L, P, G) ghost slot tables (``lane_slots``)
+    → (L, P, nlm + G): each part's values, then each ghost's value at its
+    lane-local slot (0 for -1, or any slot outside the lane's rows)."""
+    L, P, nlm = x.shape
+    ok = (slots >= 0) & (slots < P * nlm)
+    idx = torch.where(ok, slots, 0).reshape(L, -1).long()
+    vals = x.reshape(L, P * nlm).gather(1, idx).reshape(slots.shape)
+    return torch.cat([x, torch.where(ok, vals, torch.zeros_like(vals))],
+                     dim=2)
+
+
+def halo(x: torch.Tensor, tables: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The lane-stacked halo exchange: x (L, P, nlm) int32 and, for each
+    of its 1 to ``HALO_LANES`` lanes, a (P, G) int32 ghost slot table
+    (``lane_slots``; lanes may share one) → (L, P, nlm + G) int32.  CUDA
+    tensors go to the kernel (one launch, each lane's table read where
+    it lies), CPU tensors to the plain version."""
+    global halo_launches
+    _int32("x", x, 3)
+    L, P, nlm = x.shape
+    if not 1 <= len(tables) == L <= HALO_LANES:
+        raise ValueError(f"want one slot table for each of 1 to "
+                         f"{HALO_LANES} lanes, got {len(tables)} for "
+                         f"x {tuple(x.shape)}")
+    for t in tables:
+        _int32("slot table", t, 2)
+        if t.shape != (P, tables[0].shape[1]):
+            raise ValueError(f"want (P, G) slot tables alike, P = {P}, got "
+                             f"{tuple(t.shape)}")
+    _same_device(x, *tables)
+    if x.device.type != "cuda":
+        return halo_plain(x, torch.stack(list(tables)))
+    x = x.contiguous()
+    tables = [t.contiguous() for t in tables]
+    G = tables[0].shape[1]
+    out = torch.empty((L, P, nlm + G), dtype=torch.int32, device=x.device)
+    ptrs = (ctypes.c_void_p * L)(*(t.data_ptr() for t in tables))
+    err = build.load("dgraph").halo_launch(
+        x.data_ptr(), ctypes.addressof(ptrs), out.data_ptr(), L, P, nlm, G,
+        _stream(x))
+    build.check(err, "halo")
+    halo_launches += 1
+    return out
+
+
+# ------------------------------------------------------------ BFS
 def _check_parts(x, ghost_gid, vtxdist) -> None:
     L, P = x.shape[:2]
     if ghost_gid.shape[:2] != (L, P) or vtxdist.shape != (L, P + 1):
@@ -227,34 +276,6 @@ def _check_parts(x, ghost_gid, vtxdist) -> None:
                          f"{tuple(ghost_gid.shape)}, {tuple(vtxdist.shape)}")
 
 
-def halo(x: torch.Tensor, ghost_gid: torch.Tensor,
-         vtxdist: torch.Tensor) -> torch.Tensor:
-    """The lane-stacked halo exchange: x (L, P, nlm) int32, ghost_gid
-    (L, P, G) int32, vtxdist (L, P+1) int32 → (L, P, nlm + G) int32.
-    CUDA tensors go to the kernel (one launch), CPU tensors to the plain
-    version."""
-    global halo_launches
-    _int32("x", x, 3)
-    _int32("ghost_gid", ghost_gid, 3)
-    _int32("vtxdist", vtxdist, 2)
-    _check_parts(x, ghost_gid, vtxdist)
-    _same_device(x, ghost_gid, vtxdist)
-    if x.device.type != "cuda":
-        return halo_plain(x, ghost_gid, vtxdist)
-    x, ghost_gid, vtxdist = (t.contiguous() for t in (x, ghost_gid, vtxdist))
-    L, P, nlm = x.shape
-    G = ghost_gid.shape[2]
-    out = torch.empty((L, P, nlm + G), dtype=torch.int32, device=x.device)
-    err = build.load("dgraph").halo_launch(
-        x.data_ptr(), ghost_gid.data_ptr(), vtxdist.data_ptr(),
-        out.data_ptr(), L, P, nlm, G, _stream(x))
-    build.check(err, "halo")
-    if L and P:
-        halo_launches += 1
-    return out
-
-
-# ------------------------------------------------------------ BFS
 def dbfs_plain(nbr: torch.Tensor, src: torch.Tensor, ghost_gid: torch.Tensor,
                vtxdist: torch.Tensor, width: int) -> torch.Tensor:
     """``width`` synchronous steps, each a halo exchange and a relaxation
@@ -263,8 +284,9 @@ def dbfs_plain(nbr: torch.Tensor, src: torch.Tensor, ghost_gid: torch.Tensor,
     nlm) int32, BIG beyond ``width``."""
     L, P, nlm, d = nbr.shape
     dist = torch.where(src != 0, 0, BIG).to(torch.int32)
+    slots = lane_slots(ghost_gid, vtxdist, nlm)
     for _ in range(width):
-        ext = halo_plain(dist, ghost_gid, vtxdist)
+        ext = halo_plain(dist, slots)
         relaxed = ell_relax_plain(nbr.reshape(L * P, nlm, d),
                                   ext.reshape(L * P, -1), BIG)
         dist = torch.minimum(dist, relaxed.reshape(L, P, nlm))
@@ -306,10 +328,10 @@ def dbfs_kernel(nbr: torch.Tensor, src: torch.Tensor,
     L, P, nlm, d = nbr.shape
     G = ghost_gid.shape[2]
     bufs = torch.empty((2, L, P, nlm), dtype=torch.int32, device=nbr.device)
-    gidx = torch.empty((L, P, G), dtype=torch.int64, device=nbr.device)
+    gslot = torch.empty((L, P, G), dtype=torch.int32, device=nbr.device)
     args = (nbr.data_ptr(), src.data_ptr(), ghost_gid.data_ptr(),
             vtxdist.data_ptr(), bufs[0].data_ptr(), bufs[1].data_ptr(),
-            gidx.data_ptr(), L, P, nlm, d, G, int(width))
+            gslot.data_ptr(), L, P, nlm, d, G, int(width))
     if design == "cluster":
         own, steps = _enqueue("dbfs_cluster_launch", "dbfs",
                               (*args, int(C)), _stream(nbr))

@@ -1,6 +1,8 @@
 """Shared utilities: seed mixing, pow2 bucketing, device resolution,
-and the host↔device copies of the matching and BFS works."""
+and the host↔device copies of the collectives' works."""
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
@@ -69,3 +71,36 @@ def download(t: torch.Tensor) -> np.ndarray:
     """A work's result on the host, in one copy, which waits for its
     kernel."""
     return t.cpu().numpy()
+
+
+class HostStage(threading.local):
+    """A pinned host buffer of int32 words that a thread reuses for its
+    round trips to the card, grown (to a power of two) when a call needs
+    more: no pinned allocation a call.  A call that stages in it waits
+    for its copies (``download_into``) before it returns, so the next
+    call may overwrite it; each thread has its own."""
+
+    def __init__(self):
+        self.buf = None
+
+    def take(self, numel: int, device: torch.device) -> torch.Tensor:
+        """The first ``numel`` words: of the pinned buffer for the card,
+        of a new host tensor for the CPU."""
+        if device.type != "cuda":
+            return torch.empty(numel, dtype=torch.int32)
+        if self.buf is None or self.buf.numel() < numel:
+            self.buf = torch.empty(pow2(numel, 1024), dtype=torch.int32,
+                                   pin_memory=True)
+        return self.buf[:numel]
+
+
+def download_into(t: torch.Tensor, host: torch.Tensor) -> np.ndarray:
+    """A result on the host as a new array: from the card in one copy into
+    ``host``, a pinned staging tensor of its shape and type (one DMA, no
+    bounce through CUDA's own pinned buffers), then out of it once the
+    copy has landed; a CPU tensor as it is."""
+    if t.device.type != "cuda":
+        return t.numpy()
+    host.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(t.device).synchronize()
+    return host.numpy().copy()

@@ -687,11 +687,14 @@ def _dgraphs(name):
     """The cases' DGraph stacks.  In ``dgraph_ops.plan``: ``stack3`` and
     ``folded`` one CTA a lane, ``grid3d_16`` two, ``root30`` (the root
     bucket of the distributed ordering's main path, 2^18 slots) 16, each
-    part spanning two CTAs' rows, and ``grid3d_40`` the grid design."""
+    part spanning two CTAs' rows, and ``grid3d_40`` and ``grid3d_100``
+    (the relaxation's and the halo's largest bucket) the grid design."""
     from repro_torch.core import dgraph as D
     from repro_torch.graphs.generators import grid2d
-    if name in ("grid3d_16", "root30", "grid3d_40"):
-        side = int(name[-2:])
+    sides = {"grid3d_16": 16, "root30": 30, "grid3d_40": 40,
+             "grid3d_100": 100}
+    if name in sides:
+        side = sides[name]
         return (D.distribute(grid3d(side, side, side), 8),)
     if name in ("stack3", "wide"):
         return (D.distribute(grid2d(13, 11), 4), D.distribute(grid2d(12, 12),
@@ -739,9 +742,10 @@ def test_halo_and_relax_kernels_equal_plain(card, name):
     L, P, nlm, d = t["nbr_gst"].shape
     rng = np.random.default_rng(5)
     x = torch.from_numpy(rng.integers(0, 99, (L, P, nlm)).astype(np.int32))
-    want = K.halo_plain(x, t["ghost_gid"], t["vtxdist"])
+    slots = K.lane_slots(t["ghost_gid"], t["vtxdist"], nlm)
+    want = K.halo_plain(x, slots)
     before = K.halo_launches
-    got = K.halo(x.to(card), t["ghost_gid"].to(card), t["vtxdist"].to(card))
+    got = K.halo(x.to(card), list(slots.to(card)))
     assert K.halo_launches == before + 1
     assert torch.equal(got.cpu(), want)
     ext = want.reshape(L * P, -1)
@@ -951,8 +955,9 @@ def test_distributed_kernels_without_ghost_slots(card, layout):
         assert K.state_place == place
         assert (want[src != 0] == 0).all()
     x = torch.arange(L * P * nlm, dtype=torch.int32).reshape(L, P, nlm)
-    assert torch.equal(K.halo(x.to(card), gg.to(card), vd.to(card)).cpu(),
-                       K.halo_plain(x, gg, vd))
+    slots = K.lane_slots(gg, vd, nlm)
+    assert torch.equal(K.halo(x.to(card), list(slots.to(card))).cpu(),
+                       K.halo_plain(x, slots))
     seeds = torch.arange(L, dtype=torch.int32)
     args = (nb, t["ewgt_gst"], gg, vd, nl, seeds)
     for cap in (0, 3):
@@ -992,3 +997,194 @@ def test_distributed_kernels_with_far_ghosts(card, layout):
             assert torch.equal(got.cpu(), K.dmatch_plain(*args, 8, cap)), \
                 (seed, cap)
             assert K.state_place == place
+
+
+# ------------------------------------------------------------------ #
+# rows 7-8 redesigned: the halo on resident slot tables, the relaxation
+# on 16-byte id loads
+# ------------------------------------------------------------------ #
+def _random_slots(rng, L, P, nlm, G):
+    """Random ghost slot tables (L, P, G): lane-local slots, a fifth -1."""
+    slots = rng.integers(0, P * nlm, (L, P, G)).astype(np.int32)
+    slots[rng.random((L, P, G)) < 0.2] = -1
+    return torch.from_numpy(slots)
+
+
+#: (L, P, nlm, G) of the halo's synthetic cases: the waves' two buckets
+#: (16-byte path), nlm or G no multiple of 4 (one word a thread), no
+#: ghosts, and 12 lanes (past the 8 of the small parameter block)
+HALO_SHAPES = [(4, 2, 128, 64), (4, 2, 256, 128), (2, 3, 37, 13),
+               (1, 2, 64, 6), (3, 4, 16, 0), (12, 4, 64, 32)]
+
+
+@pytest.mark.parametrize("L,P,nlm,G", HALO_SHAPES)
+def test_halo_kernel_equals_plain_on_slot_tables(card, L, P, nlm, G):
+    """Each lane's own table (not a stacked one), exactly the plain
+    version; then with every table one word off 16 bytes (the one-word
+    path) and with one table shared by every lane."""
+    from repro_torch.kernels import dgraph_ops as K
+    rng = np.random.default_rng(L * 1000 + nlm + G)
+    x = torch.from_numpy(rng.integers(-99, 99, (L, P, nlm)).astype(np.int32))
+    slots = _random_slots(rng, L, P, nlm, G)
+    want = K.halo_plain(x, slots)
+    before = K.halo_launches
+    got = K.halo(x.to(card), [s.to(card) for s in slots])
+    assert K.halo_launches == before + 1
+    assert torch.equal(got.cpu(), want)
+    off = []
+    for s in slots:                      # each table 4 bytes off 16
+        buf = torch.empty(P * G + 1, dtype=torch.int32, device=card)
+        buf[1:] = s.reshape(-1).to(card)
+        off.append(buf[1:].view(P, G))
+    assert torch.equal(K.halo(x.to(card), off).cpu(), want)
+    shared = [slots[0].to(card)] * L
+    assert torch.equal(K.halo(x.to(card), shared).cpu(),
+                       K.halo_plain(x, slots[:1].expand(L, P, G)))
+
+
+@pytest.mark.parametrize("name", ["root30", "grid3d_100"])
+def test_halo_exchange_at_the_path_buckets(card, name):
+    """The distributed ordering's root bucket and grid3d(100³) over 8
+    parts through ``halo_exchange_stacked`` on the card: int32 and
+    float32 payloads bit for bit the host oracle, one launch a call, the
+    slot table resolved once for the DGraph and kept on the card."""
+    from repro_torch.core import dgraph as D
+    from repro_torch.kernels import dgraph_ops as K
+    dg = _dgraphs(name)[0]
+    rng = np.random.default_rng(len(name))
+    x = rng.integers(0, 1 << 20, (dg.nparts, dg.n_loc_max)).astype(np.int32)
+    before = (K.halo_launches, D.slot_resolutions)
+    got = D.halo_exchange_fn(dg)(x)
+    assert np.array_equal(got, D.halo_reference(dg, x))
+    assert D.ghost_slots(dg, torch.device("cuda")).is_cuda
+    xf = (x - (1 << 19)).astype(np.float32) / 7
+    xf[0, :3] = (np.nan, -0.0, np.inf)
+    gotf = D.halo_exchange_fn(dg)(xf)
+    assert gotf.dtype == np.float32
+    assert np.array_equal(gotf.view(np.int32),
+                          D.halo_reference(dg, xf).view(np.int32))
+    assert K.halo_launches == before[0] + 2
+    assert D.slot_resolutions - before[1] <= 1
+    D.halo_exchange_fn(dg)(x)
+    assert D.slot_resolutions - before[1] <= 1
+
+
+def _same_bucket_dgraphs():
+    """Twelve lanes of one bucket (4 parts of grid2d graphs), of three
+    distinct DGraphs and two fresh copies, so some lanes share one."""
+    from repro_torch.core import dgraph as D
+    from repro_torch.graphs.generators import grid2d
+    dgs = [D.distribute(grid2d(a, b), 4)
+           for a, b in ((13, 11), (12, 12), (10, 14), (12, 12), (11, 13))]
+    assert len({D.dgraph_bucket(d) for d in dgs}) == 1
+    return [dgs[k % len(dgs)] for k in range(12)]
+
+
+def test_halo_lanes_of_many_dgraphs_equal_singletons(card):
+    """Lanes of different DGraphs (and repeats) in one call, past the
+    small parameter block: each lane equals its singleton call and the
+    host oracle; a table a distinct DGraph."""
+    from repro_torch.core import dgraph as D
+    from repro_torch.kernels import dgraph_ops as K
+    dgs = _same_bucket_dgraphs()
+    rng = np.random.default_rng(12)
+    xs = [rng.integers(0, 999, (d.nparts, d.n_loc_max)).astype(np.int32)
+          for d in dgs]
+    before = (K.halo_launches, D.slot_resolutions)
+    got = D.halo_exchange_stacked(dgs, xs)
+    assert K.halo_launches == before[0] + 1
+    assert D.slot_resolutions == before[1] + len({id(d) for d in dgs})
+    for dg, x, lane in zip(dgs, xs, got):
+        assert np.array_equal(lane, D.halo_exchange_fn(dg)(x))
+        assert np.array_equal(lane, D.halo_reference(dg, x))
+    assert D.slot_resolutions == before[1] + len({id(d) for d in dgs})
+
+
+def _relax_inputs(rng, L, n, d, m):
+    nbr = rng.integers(-1, m + 3, (L, n, d)).astype(np.int32)
+    ext = rng.integers(0, 50, (L, m)).astype(np.int32)
+    return torch.from_numpy(nbr), torch.from_numpy(ext)
+
+
+@pytest.mark.parametrize("L,n,d,m", [(3, 1000, 8, 1300), (3, 1000, 5, 1300),
+                                     (2, 333, 32, 500), (4, 129, 4, 129),
+                                     (1, 700, 12, 900)])
+def test_relax_kernel_vector_and_scalar_paths(card, L, n, d, m):
+    """The plain form on its 16-byte path (d % 4 == 0), on its scalar
+    path (d = 5, and d = 8 with the ids one word off 16 bytes); ids past
+    the vector and -1 read as padding."""
+    from repro_torch.kernels import dgraph_ops as K
+    nbr, ext = _relax_inputs(np.random.default_rng(n + d), L, n, d, m)
+    want = K.ell_relax_plain(nbr, ext, 2 ** 30)
+    assert torch.equal(K.ell_relax(nbr.to(card), ext.to(card),
+                                   2 ** 30).cpu(), want)
+    buf = torch.empty(nbr.numel() + 1, dtype=torch.int32, device=card)
+    buf[1:] = nbr.reshape(-1).to(card)
+    assert torch.equal(K.ell_relax(buf[1:].view(L, n, d), ext.to(card),
+                                   2 ** 30).cpu(), want)
+
+
+def _dist_random(rng, L, P, nlm, d, G):
+    """Random lanes for the distributed kernels: ranges with an empty
+    part, ghost ids over every lane's vertices (and past them, and -1),
+    ids over the rows, the ghosts and past them."""
+    vd = np.zeros((L, P + 1), np.int32)
+    for l in range(L):
+        sizes = rng.integers(nlm // 2, nlm + 1, P)
+        sizes[1] = 0
+        vd[l, 1:] = np.cumsum(sizes)
+    gg = rng.integers(-1, int(vd[:, -1].max()) + 5, (L, P, G)).astype(np.int32)
+    nbr = rng.integers(-1, nlm + G + 3, (L, P, nlm, d)).astype(np.int32)
+    src = (rng.random((L, P, nlm)) < 0.05).astype(np.int32)
+    return [torch.from_numpy(a) for a in (nbr, src, gg, vd)]
+
+
+@pytest.mark.parametrize("d", [8, 5])
+def test_relax_distributed_form_through_the_grid_bfs(card, d):
+    """The grid BFS's steps (``dbfs_init`` writing the int32 lane-local
+    slot table, ``ell_relax`` in its distributed form a step) at d = 8
+    (16-byte path) and d = 5 (scalar path), many lanes: the plain
+    version exactly, 1 + width launches."""
+    from repro_torch.kernels import dgraph_ops as K
+    nbr, src, gg, vd = _dist_random(np.random.default_rng(d), 5, 3, 40, d, 16)
+    for width in (1, 3):
+        before = (K.dbfs_launches, K.relax_launches)
+        got = K.dbfs_kernel(nbr.to(card), src.to(card), gg.to(card),
+                            vd.to(card), width, "grid")
+        assert (K.dbfs_launches, K.relax_launches) == (before[0] + 1,
+                                                       before[1] + width)
+        assert torch.equal(got.cpu(), K.dbfs_plain(nbr, src, gg, vd, width))
+
+
+def test_grid_bfs_at_grid3d_100(card):
+    """The grid BFS at grid3d(100³) over 8 parts, the plan's design
+    there, width 3: the plain version exactly, 3 relaxation launches."""
+    from repro_torch.kernels import dgraph_ops as K
+    t, _ = _dlanes(_dgraphs("grid3d_100"))
+    assert _plan_of(t) == ("grid", None)
+    L, P, nlm, _ = t["nbr_gst"].shape
+    src = (torch.arange(L * P * nlm).reshape(L, P, nlm) % 101 == 0).int()
+    before = K.relax_launches
+    got = K.dbfs(t["nbr_gst"].to(card), src.to(card),
+                 t["ghost_gid"].to(card), t["vtxdist"].to(card), 3)
+    assert K.relax_launches == before + 3
+    assert torch.equal(got.cpu(), K.dbfs_plain(t["nbr_gst"], src,
+                                               t["ghost_gid"], t["vtxdist"],
+                                               3))
+
+
+def test_halo_results_outlive_the_staging_buffer(card):
+    """A call's result is an array of its own: later calls, which reuse
+    the thread's pinned staging buffer and grow it, leave it as it was."""
+    from repro_torch.core import dgraph as D
+    dgs = _same_bucket_dgraphs()
+    rng = np.random.default_rng(4)
+    xs = [rng.integers(0, 999, (d.nparts, d.n_loc_max)).astype(np.int32)
+          for d in dgs]
+    first = D.halo_exchange_fn(dgs[0])(xs[0])
+    kept = first.copy()
+    D.halo_exchange_stacked(dgs, xs)
+    assert D._HALO_STAGE.buf.is_pinned()
+    D.halo_exchange_fn(dgs[1])(xs[1])
+    assert np.array_equal(first, kept)
+    assert np.array_equal(first, D.halo_reference(dgs[0], xs[0]))

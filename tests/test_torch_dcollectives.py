@@ -20,6 +20,7 @@ singleton calls (a stacked call has ``lanes_pad == lanes`` in the port,
 the next power of two in the reference).
 """
 import ctypes
+import dataclasses
 import os
 import textwrap
 import types
@@ -35,11 +36,13 @@ import torch  # noqa: E402
 from procutil import run_json_script  # noqa: E402
 from repro.kernels.ops import ell_relax_step as jax_relax  # noqa: E402
 from repro_torch.core import dgraph as D  # noqa: E402
-from repro_torch.core.dnd import DBFSWork, DHaloWork, \
-    DMatchWork  # noqa: E402
+from repro_torch.core.dnd import DBFSWork, DHaloWork, DMatchWork, \
+    DNDConfig  # noqa: E402
 from repro_torch.graphs import generators as G  # noqa: E402
 from repro_torch.kernels import dgraph_ops as K  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.service.fingerprint import \
+    dgraph_fingerprint  # noqa: E402
 from repro_torch.service.router import execute_wave  # noqa: E402
 
 CPU = "cpu"
@@ -73,6 +76,9 @@ CASES = textwrap.dedent("""
             # induced in place, then folded: parts 2-3 are empty
             "folded": D.dgraph_fold(
                 D.dgraph_induced(g20, D.shard_gids(g20) < 150)[0]),
+            # induced in place: parts 1, 4 and 7 are empty
+            "induced": D.dgraph_induced(
+                g20, (D.shard_gids(g20) // 50) % 3 != 1)[0],
             "mid_empty": D.distribute(
                 g0, 4, vtxdist=np.array([0, 40, 40, 100, 143])),
         }
@@ -97,6 +103,10 @@ SCRIPT = SHIM + textwrap.dedent("""
         dg = cases[name]
         x, src, seed = inputs(dg, k)
         res = {"halo": D.halo_exchange_fn(dg)(x).tolist()}
+        # the reference's owner slots: its halo of each slot's own index
+        iota = np.arange(dg.nparts * dg.n_loc_max, dtype=np.int32)
+        res["slots"] = D.halo_exchange_fn(dg)(
+            iota.reshape(dg.nparts, -1)).tolist()
         for width in (1, 3):
             res[f"bfs{width}"] = D.distributed_bfs(dg, src, width).tolist()
         for compact in (False, True):
@@ -123,7 +133,8 @@ SCRIPT = SHIM + textwrap.dedent("""
 """)
 
 _CACHE: dict = {}
-NAMES = ("folded", "g10x14", "g12x12", "g13x11", "mid_empty", "rgg150")
+NAMES = ("folded", "g10x14", "g12x12", "g13x11", "induced", "mid_empty",
+         "rgg150")
 
 
 def _ref() -> dict:
@@ -156,6 +167,10 @@ def test_cases_keep_their_shapes():
     # empty parts repeat vtxdist entries, at the end and in the middle
     assert list(cases["folded"].n_loc).count(0) >= 1
     assert list(cases["mid_empty"].n_loc) == [40, 0, 60, 43]
+    assert [k for k, n in enumerate(cases["induced"].n_loc) if n == 0] == \
+        [1, 4, 7]
+    # every case pads some part's ghost slots with -1
+    assert all((cases[n].ghost_gid < 0).any() for n in NAMES)
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -169,6 +184,199 @@ def test_halo_equals_reference(name):
     xf = x.astype(np.float32) + 0.5
     assert np.array_equal(D.halo_exchange_fn(dg, CPU)(xf),
                           D.halo_reference(dg, xf))
+
+
+# ------------------------------------------------------------------ #
+# the halo's ghost slot tables: resolved once a DGraph, kept beside it
+# ------------------------------------------------------------------ #
+def _fresh_cases() -> dict:
+    """The cases built anew: DGraphs on which no slot table is kept."""
+    scope = {"np": np}
+    exec(CASES, scope)
+    return scope["build_cases"](D, G)
+
+
+def _iota(dg):
+    return np.arange(dg.nparts * dg.n_loc_max,
+                     dtype=np.int32).reshape(dg.nparts, -1)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_slot_table_equals_owner_slots_and_reference_owners(name):
+    """The kept table is ``lane_slots``: ``owner_slots`` on real ghosts,
+    -1 on padding, and the reference's owner slots (its halo of each
+    slot's own index), on bucketed, folded and induced layouts with
+    empty parts."""
+    dg, _ = _case(name)
+    P, nlm = dg.nparts, dg.n_loc_max
+    table = D.ghost_slots(dg, torch.device(CPU))
+    assert table.dtype == torch.int32
+    assert table.shape == dg.ghost_gid.shape
+    gg = torch.from_numpy(dg.ghost_gid.astype(np.int32))[None]
+    vd = torch.from_numpy(dg.vtxdist.astype(np.int32))[None]
+    assert torch.equal(table, K.lane_slots(gg, vd, nlm)[0])
+    real = dg.ghost_gid >= 0
+    flat = K.owner_slots(gg.reshape(1, -1), vd, nlm).reshape(table.shape)
+    assert np.array_equal(table.numpy()[real], flat.numpy()[real])
+    assert (table.numpy()[~real] == -1).all()
+    ref = np.array(_ref()[name]["slots"])
+    assert np.array_equal(ref[:, :nlm], _iota(dg))
+    assert np.array_equal(np.where(real, table.numpy(), 0), ref[:, nlm:])
+    assert (table.numpy() < P * nlm).all()
+
+
+def test_slot_tables_resolved_once_per_dgraph():
+    """Repeated exchanges of one DGraph resolve its table once; a wave of
+    several DGraphs (some repeated) one table a distinct DGraph, in one
+    launch record; the table stays out of the fields, the repr and the
+    fingerprint."""
+    cases = _fresh_cases()
+    dgs = [cases[n] for n in ("g13x11", "g12x12", "g10x14")]
+    xs = [_iota(d) * 3 + k for k, d in enumerate(dgs)]
+    fp = dgraph_fingerprint(dgs[0], 0, DNDConfig())
+    before = D.slot_resolutions
+    for _ in range(3):
+        got = D.halo_exchange_fn(dgs[0], CPU)(xs[0])
+        assert np.array_equal(got, D.halo_reference(dgs[0], xs[0]))
+    assert D.slot_resolutions == before + 1
+    works = [DHaloWork(dgs[k % 3], xs[k % 3]) for k in range(7)]
+    for _ in range(2):
+        with D.instrument() as ins:
+            outs, summary = execute_wave(works, device=CPU)
+        assert D.slot_resolutions == before + 3
+        assert summary["launches"]["dhalo"] == 1 == len(ins.launches)
+        for w, out in zip(works, outs):
+            assert np.array_equal(out, D.halo_reference(w.dg, w.x))
+    assert dgraph_fingerprint(dgs[0], 0, DNDConfig()) == fp
+    assert "_ghost_slots" not in repr(dgs[0])
+    assert "_ghost_slots" not in {f.name for f in dataclasses.fields(D.DGraph)}
+    assert dgs[0] == dgs[0]
+
+
+@pytest.mark.parametrize("rebuild", ["fold", "induced", "coarsen"])
+def test_rebuilt_dgraph_gets_its_own_table(rebuild):
+    """A structure rebuild makes a new DGraph, which resolves its own
+    table (the old one keeps its), and exchanges bit for bit."""
+    dg = _fresh_cases()["g12x12"]
+    old = D.ghost_slots(dg, torch.device(CPU))
+    if rebuild == "fold":
+        new = D.dgraph_fold(dg)
+    elif rebuild == "induced":
+        new, _ = D.dgraph_induced(dg, D.shard_gids(dg) % 3 != 0)
+    else:
+        new, _ = D.dgraph_coarsen(dg, D.distributed_matching(
+            dg, 5, flat=False, device=CPU))
+    before = D.slot_resolutions
+    x = _iota(new) + 1
+    assert np.array_equal(D.halo_exchange_fn(new, CPU)(x),
+                          D.halo_reference(new, x))
+    assert D.slot_resolutions == before + 1
+    table = D.ghost_slots(new, torch.device(CPU))
+    assert table is not old and D.ghost_slots(dg, torch.device(CPU)) is old
+    assert torch.equal(table, K.lane_slots(
+        torch.from_numpy(new.ghost_gid.astype(np.int32))[None],
+        torch.from_numpy(new.vtxdist.astype(np.int32))[None],
+        new.n_loc_max)[0])
+    assert D.slot_resolutions == before + 1
+
+
+def _slot_of(vd, P, nlm, lane, g):
+    """dgraph.cu's slot_of: gid g's flat slot over every lane (int64 in
+    the grid matching's table), by owner_of's upper-bound search, -1 for
+    g < 0."""
+    if g < 0:
+        return -1
+    lo, hi = 0, P + 1
+    while lo < hi:
+        mid = (lo + hi) >> 1
+        if vd[mid] <= g:
+            lo = mid + 1
+        else:
+            hi = mid
+    o = min(max(lo - 1, 0), P - 1)
+    return lane * P * nlm + o * nlm + min(max(g - int(vd[o]), 0), nlm - 1)
+
+
+def test_int32_lane_tables_match_the_int64_flat_form():
+    """Over many lanes (ranges with an empty part, ghost ids past the
+    last part and -1): the int32 lane-local table plus the lane's base
+    is the int64 flat slot of dgraph.cu's search, and a grid BFS step
+    reading ghosts through either (the lane base from the row's lane)
+    is the plain version's step."""
+    rng = np.random.default_rng(16)
+    L, P, nlm, d, Gn = 16, 5, 24, 6, 12
+    vd = np.zeros((L, P + 1), np.int64)
+    for lane in range(L):
+        sizes = rng.integers(nlm // 2, nlm + 1, P)
+        sizes[lane % P] = 0
+        vd[lane, 1:] = np.cumsum(sizes)
+    gg = rng.integers(-1, int(vd[:, -1].max()) + 4, (L, P, Gn))
+    t32 = K.lane_slots(torch.from_numpy(gg.astype(np.int32)),
+                       torch.from_numpy(vd.astype(np.int32)), nlm)
+    assert t32.dtype == torch.int32
+    flat = np.array([[[_slot_of(vd[lane], P, nlm, lane, g) for g in part]
+                      for part in gg[lane]] for lane in range(L)])
+    base = (np.arange(L) * P * nlm)[:, None, None]
+    assert np.array_equal(np.where(gg >= 0, t32.numpy() + base, -1), flat)
+    # one grid BFS step, ghosts read through each table
+    nbr = torch.from_numpy(rng.integers(-1, nlm + Gn + 2, (L, P, nlm, d)
+                                        ).astype(np.int32))
+    dist = torch.from_numpy(rng.integers(0, 9, (L, P, nlm)).astype(np.int32))
+    src = (dist == 0).int()
+    dist = torch.where(src != 0, 0, K.BIG).int()
+    every = dist.reshape(-1)
+    by_lane = dist.reshape(L, P * nlm)
+    ghosts32 = torch.where(t32 >= 0, by_lane.gather(
+        1, t32.clamp(min=0).reshape(L, -1).long()).reshape(t32.shape), 0)
+    f64 = torch.from_numpy(flat)
+    ghosts64 = torch.where(f64 >= 0, every[f64.clamp(min=0)], 0)
+    assert torch.equal(ghosts32, ghosts64)
+    ext = torch.cat([dist, ghosts32], dim=2).reshape(L * P, -1)
+    step = torch.minimum(dist, K.ell_relax_plain(
+        nbr.reshape(L * P, nlm, d), ext, K.BIG).reshape(L, P, nlm))
+    assert torch.equal(step, K.dbfs_plain(
+        nbr, src, torch.from_numpy(gg.astype(np.int32)),
+        torch.from_numpy(vd.astype(np.int32)), 1))
+
+
+def test_halo_checks_its_lanes_and_tables():
+    """A table a lane, alike, 1 to HALO_LANES lanes (the kernel's
+    parameter block), and one vector of the bucket's shape a graph."""
+    tb = torch.full((3, 4), -1, dtype=torch.int32)
+    x = torch.zeros((2, 3, 8), dtype=torch.int32)
+    for bad in ([tb], [tb, tb[:2]], [tb, tb.long()]):
+        with pytest.raises(ValueError):
+            K.halo(x, bad)
+    with pytest.raises(ValueError):
+        K.halo(x[:0], [])
+    most = torch.zeros((K.HALO_LANES + 1, 3, 8), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        K.halo(most, [tb] * (K.HALO_LANES + 1))
+    assert K.halo(most[1:], [tb] * K.HALO_LANES).shape == (K.HALO_LANES, 3,
+                                                            12)
+    dg, (xg, _, _) = _case("g13x11")
+    for dgs, xs in (([dg], [xg[:, :-1]]), ([dg, dg], [xg])):
+        with pytest.raises(ValueError):
+            D.halo_exchange_stacked(dgs, xs, device=CPU)
+
+
+def test_stacked_halo_of_many_dgraphs_equals_singletons():
+    """Twelve lanes of five DGraphs (three cases, two fresh copies) with
+    float32 words: each lane its singleton exchange and the host oracle,
+    bit for bit."""
+    cases, _, stack = _cases()
+    fresh = _fresh_cases()
+    pool = [cases[n] for n in stack] + [fresh[n] for n in stack[:2]]
+    dgs = [pool[k % len(pool)] for k in range(12)]
+    rng = np.random.default_rng(12)
+    xs = [rng.standard_normal((d.nparts, d.n_loc_max)).astype(np.float32)
+          for d in dgs]
+    got = D.halo_exchange_stacked(dgs, xs, device=CPU)
+    for dg, x, lane in zip(dgs, xs, got):
+        assert lane.dtype == np.float32
+        assert np.array_equal(lane.view(np.int32),
+                              D.halo_reference(dg, x).view(np.int32))
+        assert np.array_equal(lane, D.halo_exchange_fn(dg, CPU)(x))
 
 
 @pytest.mark.parametrize("width", [1, 3])
