@@ -125,7 +125,27 @@ Phases, each of which must pass:
    and at the root bucket (2^18 slots, where the plan switches) and the
    many-lane buckets also on 8 CTAs and in the other design, each held
    to its plain version;
-11. a ``{"kernels": [...]}`` line with each kernel's launches, error,
+11. the LM serving path (``serve.engine``) at full width and depth:
+   ``yi-6b`` (32 layers, d 4096, 32 / 4 heads, vocab 64000, about 6.06 B
+   parameters in bfloat16) initialised on the card from a seeded
+   generator; 4 prompts of 128 seeded tokens, prefill padded to 160
+   positions, then 32 greedy decode steps (after a warm-up of 2).  The
+   prefill and every step's logits equal the port's own ``forward`` over
+   the same teacher-forced tokens within 0.15 (the reference test's
+   tolerance), and a float32 copy of the weights run through the same
+   modules (no TF32) within ``LM_F32_MAX`` / ``LM_F32_RMS``;
+   ``greedy_generate`` gives the loop's tokens.  Prints the prefill ms,
+   its ``flopcount.forward_flops`` as a share of the dense bfloat16 peak,
+   the decode ms a step beside its bound (the bytes a step reads over
+   the HBM rate), the card's name and power limit.  Then the ten
+   ``reduced()`` architectures (MoE ones at capacity factor 8): prefill
+   and teacher-forced decode equal their own forward within 0.15, a
+   MoE's up to its first routing difference, which must be a near tie;
+12. every example of the port (``repro_torch.examples``: quickstart,
+   serve_orderings, order_mesh, expert_placement, serve_lm) on the card
+   with small arguments, the service example traced and the trace
+   summarised by ``repro_torch.scripts.trace_summary``;
+13. a ``{"kernels": [...]}`` line with each kernel's launches, error,
    times, bound and library time (rows 0-2 also with their phase 7
    launches and phase 8 multi-lane times, rows 7-10 with their launches
    on phase 10's distributed main path, row 7 marked off that path when
@@ -2502,6 +2522,385 @@ def phase_dist(main_run: dict) -> dict:
             "requests": reqs, "cases": cases, "launch_floor": floor}
 
 
+# ---------------------------------------------------------------- LM
+#: phase 11's model, served at its published width and depth: a batch of
+#: LM_BATCH prompts of LM_PROMPT tokens, prefill padded to LM_PAD
+#: positions, then LM_STEPS greedy decode steps
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_PAD, LM_STEPS = "yi-6b", 4, 128, 160, 32
+#: bfloat16 serving logits against the port's own bfloat16 forward over
+#: the same tokens: the reference test's tolerance (tests/test_models.py)
+LM_SELF_TOL = 0.15
+#: bfloat16 serving logits against a float32 copy of the weights: the
+#: largest difference and the RMS difference over the RMS logit.  A few
+#: bfloat16 roundings (relative 2^-9) a layer, adding up over 32 layers
+#: as a random walk, give an RMS difference near 2% of the RMS logit
+#: (about 1.0 with these random weights); the largest of 4.1e7 logits
+#: lies near 6 RMS (about 0.12).  Both bounds leave about 2x for the
+#: card's other summation order.
+LM_F32_MAX, LM_F32_RMS = 0.25, 0.03
+#: H100 SXM dense bfloat16 tensor-core peak (NVIDIA data sheet)
+BF16_PEAK = 989e12
+#: the reduced MoE architectures' capacity factor on the card, as in the
+#: reference test: no token dropped, so a routing difference stays in its
+#: row
+MOE_CF = 8.0
+#: the widest gap between a token's k-th and (k+1)-th router
+#: probabilities that bfloat16 rounding may swap
+NEAR_TIE = 2.0 ** -8
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def _float32(tree):
+    if isinstance(tree, dict):
+        return {k: _float32(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_float32(v) for v in tree]
+    return tree.float()
+
+
+def _logit_errs(got, want) -> dict:
+    """Largest difference, RMS difference over the RMS of ``want``, and
+    whether every logit lies within ``LM_SELF_TOL`` (abs and rel)."""
+    d = (got.float() - want.float()).abs()
+    w = want.float()
+    return {"max_abs_err": float(d.max()),
+            "rms_rel_err": float(d.pow(2).mean().sqrt() /
+                                 w.pow(2).mean().sqrt()),
+            "within_tol": bool((d <= LM_SELF_TOL * (1 + w.abs())).all())}
+
+
+def _serve(params, cfg, prompt, pad_to, steps):
+    """Prefill ``prompt`` then ``steps`` greedy decode steps through
+    ``serve.engine``; (prefill logits, decode logits (B, steps, V), the
+    generated tokens (B, steps + 1), the steps' times)."""
+    import torch
+    from repro_torch.serve import engine
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2 * steps)]
+    logits_p, caches = engine.prefill(params, cfg, {"tokens": prompt},
+                                      pad_to=pad_to)
+    step = engine.make_decode_step(cfg)
+    tok = logits_p[:, -1:].argmax(-1)
+    toks, dec = [tok], []
+    S0 = prompt.shape[1]
+    t0 = time.perf_counter()
+    for t in range(steps):
+        ev[2 * t].record()
+        lg, caches = step(params, tok, caches, S0 + t)
+        ev[2 * t + 1].record()
+        dec.append(lg[:, 0])
+        tok = lg[:, -1:].argmax(-1)
+        toks.append(tok)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    times = {"step_ms": [ev[2 * t].elapsed_time(ev[2 * t + 1])
+                         for t in range(steps)],
+             "decode_wall_ms_per_step": 1e3 * wall / max(steps, 1)}
+    return logits_p, torch.stack(dec, 1), torch.cat(toks, 1), times
+
+
+def _device_busy(fn) -> dict:
+    """One run of ``fn()`` under ``torch.profiler``: its CUDA kernels'
+    count and summed device time (one stream, so no overlap), and the
+    CPU-side op count (the host's share of the wall, with the run's
+    unprofiled wall)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        raise AssertionError("torch.profiler saw no kernel on the card")
+    return {"kernels": len(kernels),
+            "busy_ms": sum(e.time_range.elapsed_us() for e in kernels)
+            / 1e3}
+
+
+class _Routing:
+    """Each MoE call's router probabilities (T, E) on the card, recorded
+    around ``layers.moe_apply`` while installed."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import layers
+        self.mod, self.orig = layers, layers.moe_apply
+
+        def rec(p, x, cfg):
+            logits = x.reshape(-1, x.shape[-1]) @ p["router"]
+            self.calls.append(torch.softmax(logits.float(), -1).cpu())
+            return self.orig(p, x, cfg)
+        layers.moe_apply = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.moe_apply = self.orig
+
+
+def _first_differences(full, served, B, S, half, K):
+    """Per row, the first position whose routing in the served path
+    (prefill on ``half`` positions, then one decode step a position)
+    differs from the full forward's; fails unless every difference with
+    none before it at or before its position in its row is a near tie in
+    the forward."""
+    import torch
+    n_moe = len(full)
+    first = {}
+    for c, pr in enumerate(served):
+        layer = c % n_moe
+        if c < n_moe:
+            t = torch.arange(B * half)
+            rows, pos = t // half, t % half
+        else:
+            rows = torch.arange(B)
+            pos = torch.full((B,), half + (c - n_moe) // n_moe)
+        ref = full[layer][rows * S + pos]
+        srt = ref.sort(dim=-1, descending=True, stable=True)
+        gap = srt.values[:, K - 1] - srt.values[:, K]
+        top_r = srt.indices[:, :K].sort(-1).values
+        top_s = pr.sort(dim=-1, descending=True, stable=True).indices[:, :K]
+        diff = (top_r != top_s.sort(-1).values).any(-1)
+        seen = dict(first)
+        for i in torch.nonzero(diff).flatten().tolist():
+            b, s = int(rows[i]), int(pos[i])
+            if s < seen.get(b, S) and float(gap[i]) > NEAR_TIE:
+                raise AssertionError(
+                    f"routing differs at row {b}, position {s} with a gap "
+                    f"of {float(gap[i])}")
+            first[b] = min(first.get(b, S), s)
+    return first
+
+
+def _reduced_case(arch: str, seed: int) -> dict:
+    """One reduced architecture on the card: prefill on the first half
+    of a sequence, teacher-forced decode over the rest, held to its own
+    forward (a MoE's at a routing difference and after it excepted, each
+    first difference a near tie)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve import engine
+    cfg = get_config(arch).reduced()
+    if cfg.moe:
+        cfg = dataclasses.replace(cfg, capacity_factor=MOE_CF)
+    params = lm.init_params(lm.generator(seed), cfg)
+    B, S, S_max = 2, 8, 16
+    if cfg.frontend == "patches":
+        S = 2 * cfg.n_patches
+    half = S // 2
+    rng = np.random.default_rng(seed)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)),
+                             device="cuda")
+    gen, extra = lm.generator(seed + 1), {}
+    if cfg.enc_dec:
+        extra["frames"] = torch.randn(
+            (B, cfg.enc_len, cfg.d_model), generator=gen, device="cuda")
+    if cfg.frontend == "patches":
+        extra["patches"] = torch.randn(
+            (B, cfg.n_patches, cfg.d_model), generator=gen, device="cuda")
+    with _Routing() as full_route:
+        full, _ = lm.forward(params, cfg, dict(extra, tokens=tokens))
+    with _Routing() as served:
+        lp, caches = engine.prefill(
+            params, cfg, dict(extra, tokens=tokens[:, :half]), pad_to=S_max)
+        step = engine.make_decode_step(cfg)
+        dec = []
+        for t in range(half, S):
+            lg, caches = step(params, tokens[:, t:t + 1], caches, t)
+            dec.append(lg[:, 0])
+    got = torch.cat([lp, torch.stack(dec, 1)], 1)
+    if not torch.isfinite(got.float()).all() or got.shape != full.shape:
+        raise AssertionError(f"{arch}: {got.shape} logits, not finite or "
+                             f"not {tuple(full.shape)}")
+    first = _first_differences(full_route.calls, served.calls, B, S, half,
+                               cfg.top_k) if cfg.moe else {}
+    worst, compared = 0.0, 0
+    for b in range(B):
+        end = first.get(b, S)
+        e = _logit_errs(got[b, :end], full[b, :end]) if end else None
+        if e and not e["within_tol"]:
+            raise AssertionError(f"{arch} row {b}: {e}")
+        worst = max(worst, e["max_abs_err"] if e else 0.0)
+        compared += end
+    if compared < B * S // 2:
+        raise AssertionError(f"{arch}: compared {compared} of {B * S}")
+    return {"max_abs_err": worst, "compared": compared, "of": B * S,
+            "routing_differs_from": first}
+
+
+def phase_lm(gpu: str) -> dict:
+    """Phase 11: the LM serving path (``serve.engine``) on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import ARCH_IDS, get_config
+    from repro_torch.flopcount import forward_flops
+    from repro_torch.models import lm
+    from repro_torch.serve import engine
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    params = lm.init_params(lm.generator(0), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = _leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    weight_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    rng = np.random.default_rng(0)
+    prompt = torch.as_tensor(
+        rng.integers(0, cfg.vocab, (LM_BATCH, LM_PROMPT)), device="cuda")
+    _serve(params, cfg, prompt, LM_PAD, 2)          # warm-up
+    logits_p, logits_d, toks, times = _serve(params, cfg, prompt, LM_PAD,
+                                             LM_STEPS)
+    batch = {"tokens": prompt}
+    prefill_ms = cuda_ms(lambda: engine.prefill(params, cfg, batch,
+                                                pad_to=LM_PAD), 3)
+    pre_busy = _device_busy(lambda: engine.prefill(params, cfg, batch,
+                                                   pad_to=LM_PAD))
+    _, caches = engine.prefill(params, cfg, batch, pad_to=LM_PAD)
+    step = engine.make_decode_step(cfg)
+    dec_busy = _device_busy(lambda: step(params, toks[:, :1], caches,
+                                         LM_PROMPT))
+    del caches
+    served = torch.cat([logits_p, logits_d], 1)
+    want_shape = (LM_BATCH, LM_PROMPT + LM_STEPS, cfg.vocab)
+    if tuple(served.shape) != want_shape or \
+            not torch.isfinite(served.float()).all():
+        raise AssertionError(f"served logits {tuple(served.shape)}, "
+                             f"want {want_shape}, finite")
+    gen = engine.greedy_generate(params, cfg, prompt, LM_STEPS + 1, LM_PAD)
+    if not torch.equal(gen, toks):
+        raise AssertionError("greedy_generate differs from the served loop")
+    seq = torch.cat([prompt, toks[:, :-1]], 1)      # teacher-forced tokens
+    full, _ = lm.forward(params, cfg, {"tokens": seq})
+    self_err = _logit_errs(served, full)
+    if not self_err["within_tol"]:
+        raise AssertionError(f"serving != forward: {self_err}")
+    p32 = _float32(params)
+    full32, _ = lm.forward(p32, cfg, {"tokens": seq})
+    del p32
+    f32_err = _logit_errs(served, full32)
+    fwd_f32_err = _logit_errs(full, full32)
+    del full32
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if f32_err["max_abs_err"] > LM_F32_MAX or \
+            f32_err["rms_rel_err"] > LM_F32_RMS:
+        raise AssertionError(f"bfloat16 serving vs float32: {f32_err} "
+                             f"(bounds {LM_F32_MAX}, {LM_F32_RMS})")
+    flops = forward_flops(cfg, LM_BATCH * LM_PROMPT, LM_PROMPT)
+    steps = times["step_ms"][1:]
+    embed = params["embed"]
+    kv_bytes = 2 * cfg.n_layers * LM_BATCH * LM_PAD * cfg.n_kv_heads * \
+        cfg.hd * 2
+    dec_bytes = weight_bytes - embed.numel() * embed.element_size() + \
+        LM_BATCH * cfg.d_model * embed.element_size() + kv_bytes
+    res = {
+        "arch": LM_ARCH, "params": n_params, "weight_bytes": weight_bytes,
+        "batch": LM_BATCH, "prompt": LM_PROMPT, "pad_to": LM_PAD,
+        "decode_steps": LM_STEPS, "init_s": init_s, "peak_gb": peak_gb,
+        "prefill_ms": prefill_ms,
+        "prefill_flops": flops,
+        "prefill_peak_share": flops / (prefill_ms / 1e3) / BF16_PEAK,
+        "prefill_kernels": pre_busy["kernels"],
+        "prefill_device_busy_ms": pre_busy["busy_ms"],
+        "prefill_idle_share": 1 - pre_busy["busy_ms"] / prefill_ms,
+        "decode_ms_per_step": sum(steps) / len(steps),
+        "decode_ms_first_step": times["step_ms"][0],
+        "decode_ms_min_max": [min(steps), max(steps)],
+        "decode_wall_ms_per_step": times["decode_wall_ms_per_step"],
+        "decode_kernels_per_step": dec_busy["kernels"],
+        "decode_device_busy_ms": dec_busy["busy_ms"],
+        "decode_idle_share": 1 - dec_busy["busy_ms"] / (
+            sum(steps) / len(steps)),
+        "decode_bound_bytes": dec_bytes,
+        "decode_bound_ms": 1e3 * dec_bytes / HBM_BYTES_PER_S,
+        "serve_vs_forward": self_err, "serve_vs_f32": f32_err,
+        "forward_vs_f32": fwd_f32_err,
+        "tolerances": {"self": LM_SELF_TOL, "f32_max": LM_F32_MAX,
+                       "f32_rms": LM_F32_RMS},
+        "gpu": gpu}
+    del params, full, served
+    torch.cuda.empty_cache()
+    log(f"phase 11 LM serving {LM_ARCH} (full width and depth): "
+        f"{json.dumps(res)}")
+    reduced = {arch: _reduced_case(arch, seed=1) for arch in ARCH_IDS}
+    log(f"phase 11 reduced architectures, prefill + decode == forward: "
+        f"{json.dumps(reduced)}")
+    return {"serve": res, "reduced": reduced}
+
+
+def phase_examples() -> dict:
+    """Phase 12: every example of the port on the card with small
+    arguments, the service example traced and its trace summarised."""
+    import numpy as np
+    from repro_torch import obs
+    from repro_torch.examples import (expert_placement, order_mesh,
+                                      quickstart, serve_lm, serve_orderings)
+    from repro_torch.scripts import trace_summary
+    out, secs = {}, {}
+
+    def run(name, fn):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        secs[name] = time.perf_counter() - t0
+
+    def perm_ok(perm, n):
+        return np.array_equal(np.sort(np.asarray(perm)), np.arange(n))
+    run("quickstart", lambda: quickstart.main(["--side", "10",
+                                               "--nproc", "8"]))
+    qs = out["quickstart"]
+    if min(o for name, (_, o) in qs.items() if name != "natural") >= \
+            qs["natural"][1]:
+        raise AssertionError(f"quickstart: no ordering beat natural: {qs}")
+    trace = ROOT / "build" / "examples_trace.json"
+    trace.parent.mkdir(exist_ok=True)
+    with obs.tracing() as tracer:
+        run("serve_orderings", lambda: serve_orderings.main([]))
+    tracer.export_chrome(str(trace))
+    if len(out["serve_orderings"]) != 4:
+        raise AssertionError("serve_orderings: not 4 results")
+    run("trace_summary", lambda: trace_summary.main([str(trace)]))
+    if out["trace_summary"] != 0 or not obs.load_chrome(str(trace)):
+        raise AssertionError("trace_summary failed or the trace is empty")
+    run("order_mesh", lambda: order_mesh.main(["--side", "8"]))
+    om = out["order_mesh"]
+    if not perm_ok(om["perm"], 512) or om["band"] <= 0:
+        raise AssertionError(f"order_mesh: band {om['band']}, or the "
+                             "distributed ordering is no permutation")
+    run("expert_placement", lambda: expert_placement.main([]))
+    ep = out["expert_placement"]
+    if not ep["scotch"] < ep["random"]:
+        raise AssertionError(f"expert_placement: {ep}")
+    for arch in ("yi-6b", "jamba-v0.1-52b"):
+        run(f"serve_lm {arch}", lambda a=arch: serve_lm.main(
+            ["--arch", a, "--new-tokens", "8"]))
+        if out[f"serve_lm {arch}"]["tokens"].shape != (4, 8):
+            raise AssertionError(f"serve_lm {arch}: not 4 × 8 tokens")
+    res = {"seconds": secs,
+           "quickstart_opc": {k: v[1] for k, v in qs.items()},
+           "order_mesh_dnd_opc": om["dnd_opc"],
+           "expert_placement": {k: float(ep[k]) for k in
+                                ("scotch", "random", "round_robin")},
+           "trace": str(trace.relative_to(ROOT))}
+    log(f"phase 12 examples on the card: {json.dumps(res)}")
+    return res
+
+
 def gpu_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2548,6 +2947,9 @@ def main() -> int:
     lanes = phase_lanes(service)
     phase_chaos()
     dist = phase_dist(main_run)
+    gpu = gpu_line()
+    phase_lm(gpu)
+    phase_examples()
     src = "src/repro_torch/kernels/csrc"
     big = ell["cases"][-1]                      # grid3d(100, 100, 100)
 

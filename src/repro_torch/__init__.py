@@ -9,7 +9,9 @@ FM pass loop and the hoisted path's one-pass move loop
 (``kernels.fm_fused``), the ELL SpMV (``kernels.ell_spmv``) and the
 diffusion step (``kernels.diffusion``).  ``kernels.ops`` holds the public
 batched entries and the ``REPRO_FM_MODE`` switch.  Module names follow
-``repro``'s so each counterpart is easy to find.
+``repro``'s so each counterpart is easy to find.  The LM scaffold's
+serving path (``configs``, ``models``, ``serve.engine``, ``flopcount``)
+is plain PyTorch: the reference's LM has no Pallas kernel.
 
 Entry points take a ``device`` argument that defaults to ``"cuda"`` and
 raise when no card is present, unless the caller asks for ``"cpu"``;

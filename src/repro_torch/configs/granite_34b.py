@@ -1,0 +1,9 @@
+"""granite-34b — dense 88L code model, llama-arch, MQA (GQA kv=1).
+[arXiv:2405.04324; hf]"""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="granite-34b", family="dense", n_layers=88, d_model=6144,
+    n_heads=48, n_kv_heads=1, d_ff=24576, vocab=49152, head_dim=128,
+    source="arXiv:2405.04324; hf",
+)

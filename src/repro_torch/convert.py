@@ -1,17 +1,20 @@
 """The state carried across from the reference package.
 
 The ordering has no weights; what crosses between the two packages is a
-graph (host or distributed) and a PRNG key.  Each arrives as plain numpy
-arrays, so a test can build its inputs once and hand the same values to
-each side.
+graph (host or distributed) and a PRNG key.  The LM's state is its
+parameter tree.  Each arrives as plain numpy arrays, so a test can build
+its inputs once and hand the same values to each side.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.core.dgraph import DGraph
 from repro_torch.core.graph import Graph
+from repro_torch.models.lm import group_descs, layer_descs
+from repro_torch.util import resolve_device
 
 
 def graph_from_arrays(xadj, adjncy, vwgt, adjwgt) -> Graph:
@@ -36,3 +39,44 @@ def key_from_array(u32_pair, device=None) -> torch.Tensor:
     if arr.shape[-1:] != (2,):
         raise ValueError(f"a key has two 32-bit words, got shape {arr.shape}")
     return torch.from_numpy(arr.astype(np.int64)).to(device)
+
+
+def _tensor(a, device) -> torch.Tensor:
+    """One leaf: bfloat16 from its raw ``uint16`` bits (or numpy's
+    ``bfloat16``), any other dtype as it is."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        a = a.view(np.uint16)
+    if a.dtype == np.uint16:
+        return torch.from_numpy(a.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def lm_params_from_arrays(cfg: ArchConfig, tree, device=None):
+    """The port's LM parameters from the reference's parameter tree given
+    as numpy arrays: bfloat16 leaves as raw ``uint16`` bits (exact) or as
+    float32 (a float32 model), float32 leaves as they are.  The port holds
+    the reference's tree (a repeated group stacked on its ``count``
+    axis); the groups are checked against ``cfg``.  On the card unless
+    ``device`` names the CPU."""
+    dev = resolve_device(device)
+    groups = group_descs(layer_descs(cfg))
+    if len(tree["groups"]) != len(groups):
+        raise ValueError(f"{len(tree['groups'])} groups given, {cfg.name} "
+                         f"has {len(groups)}")
+    for (count, block), gp in zip(groups, tree["groups"]):
+        if sorted(gp) != sorted(f"p{i}" for i in range(len(block))):
+            raise ValueError(f"group keys {sorted(gp)} for a super-block "
+                             f"of {len(block)} layers")
+        lead = np.asarray(gp["p0"]["norm1"]["scale"]).shape[:-1]
+        if lead != (() if count == 1 else (count,)):
+            raise ValueError(f"a group of {count} layers stacked as {lead}")
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [walk(v) for v in t]
+        return _tensor(t, dev)
+    return walk(tree)

@@ -1,14 +1,37 @@
-"""Balanced edge bisection, the fallback separator's building block.
+"""Static mapping by dual recursive bipartitioning (Scotch's k-way mapping).
 
-Only ``edge_bisect`` of the reference's static-mapping module is needed
-here: ``nd._fallback_separator`` turns its boundary into a vertex
+The paper's §5 names static mapping as the intended extension of the same
+building blocks; here it is the integration point of the ordering library
+into the LM framework: MoE experts (tasks, weighted by co-activation
+traffic) are mapped onto the device hierarchy (pods × chips, slow
+inter-pod links) so that heavy-traffic expert pairs land close together —
+minimizing the expensive cross-pod all-to-all bytes.
+
+Algorithm: recursively bisect the task graph (balanced min-cut) while
+bisecting the device set along its slowest axis; recurse until single
+devices remain.  ``edge_bisect`` is also the building block of
+``nd._fallback_separator``, which turns its boundary into a vertex
 separator when the multilevel pipeline fails on a large subgraph.
+
+Host numpy throughout (task graphs of experts or stages are small), bit
+for bit the reference's ``core.mapping``.
 """
 from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
 
 import numpy as np
 
 from repro_torch.core.graph import Graph
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceTier:
+    """One level of the device hierarchy: ``count`` groups, crossing such a
+    group boundary costs ``link_cost`` per unit traffic."""
+    count: int
+    link_cost: float
 
 
 def edge_bisect(g: Graph, seed: int = 0, k_tries: int = 4,
@@ -88,3 +111,72 @@ def cut_weight(g: Graph, assign: np.ndarray) -> float:
     src = np.repeat(np.arange(g.n), g.degrees())
     cut = assign[src] != assign[g.adjncy]
     return float(g.adjwgt[cut].sum()) / 2.0
+
+
+def static_map(g: Graph, tiers: Sequence[DeviceTier], seed: int = 0
+               ) -> np.ndarray:
+    """Map task graph vertices onto the leaves of the device hierarchy.
+
+    Returns assign[v] = flat device index in [0, Π tier.count).
+    """
+    n_dev = int(np.prod([t.count for t in tiers]))
+    assign = np.zeros(g.n, dtype=np.int64)
+
+    def rec(sub: Graph, ids: np.ndarray, dev_lo: int, n_dev_here: int,
+            s: int) -> None:
+        if n_dev_here <= 1 or sub.n == 0:
+            assign[ids] = dev_lo
+            return
+        half = edge_bisect(sub, seed=s)
+        left = n_dev_here // 2
+        g0, old0 = sub.induced_subgraph(half == 0)
+        g1, old1 = sub.induced_subgraph(half == 1)
+        rec(g0, ids[old0], dev_lo, left, s * 2 + 1)
+        rec(g1, ids[old1], dev_lo + left, n_dev_here - left, s * 2 + 2)
+
+    rec(g, np.arange(g.n), 0, n_dev, seed + 1)
+    return assign
+
+
+def traffic_cost(g: Graph, assign: np.ndarray,
+                 tiers: Sequence[DeviceTier]) -> float:
+    """Σ over edges of link_cost(highest tier boundary crossed) · weight."""
+    counts = [t.count for t in tiers]
+    src = np.repeat(np.arange(g.n), g.degrees())
+    a, b = assign[src], assign[g.adjncy]
+    cost = np.zeros(len(a))
+
+    def coords(x):
+        """Device index -> per-tier coordinates (row-major)."""
+        out = []
+        for c in reversed(counts):
+            out.append(x % c)
+            x = x // c
+        return list(reversed(out))
+    ca, cb = coords(a), coords(b)
+    crossed = np.zeros(len(a), bool)
+    for t, (xa, xb) in enumerate(zip(ca, cb)):
+        newly = (~crossed) & (xa != xb)
+        cost[newly] = tiers[t].link_cost
+        crossed |= newly
+    return float((cost * g.adjwgt).sum()) / 2.0
+
+
+def expert_placement(coactivation: np.ndarray, n_pods: int, chips_per_pod: int,
+                     inter_pod_cost: float = 10.0, seed: int = 0
+                     ) -> np.ndarray:
+    """Place E experts on (n_pods × chips_per_pod) devices.
+
+    ``coactivation[i, j]`` = expected tokens routed through experts i and j
+    in the same layer step (the all-to-all traffic proxy).
+    Returns device index per expert.
+    """
+    E = coactivation.shape[0]
+    w = np.maximum(coactivation, coactivation.T)
+    iu, ju = np.nonzero(np.triu(w, 1))
+    scale = max(w.max(), 1e-9)
+    ew = np.maximum((w[iu, ju] / scale * 1000).astype(np.int64), 1)
+    g = Graph.from_edges(E, np.stack([iu, ju], 1), ewgt=ew)
+    tiers = [DeviceTier(n_pods, inter_pod_cost),
+             DeviceTier(chips_per_pod, 1.0)]
+    return static_map(g, tiers, seed=seed)

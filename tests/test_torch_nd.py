@@ -103,14 +103,21 @@ def test_fallback_and_small_graph_policies():
     assert sorted(perm) == list(range(9))
 
 
-#: the service and distributed slices' modules, which the import gate
-#: must reach
+#: the service, distributed and LM serving slices' modules, which the
+#: import gate must reach
 SERVICE_SLICE = [f"repro_torch.{m}" for m in (
     "obs", "obs.tracer", "obs.metrics", "obs.instrument", "train",
     "train.fault", "core.dnd", "service", "service.api", "service.batch",
     "service.cache", "service.faults", "service.fingerprint",
     "service.router", "service.sched_policy", "service.scheduler",
-    "core.dgraph", "kernels.dgraph_ops", "convert")]
+    "core.dgraph", "kernels.dgraph_ops", "convert")] + [
+    f"repro_torch.{m}" for m in (
+        "configs", "configs.base", "configs.yi_6b", "configs.arctic_480b",
+        "models", "models.layers", "models.mamba2", "models.sharding",
+        "models.lm", "serve", "serve.engine", "flopcount", "core.mapping",
+        "examples", "examples.quickstart", "examples.serve_orderings",
+        "examples.order_mesh", "examples.expert_placement",
+        "examples.serve_lm", "scripts", "scripts.trace_summary")]
 
 
 def test_import_pulls_in_neither_jax_nor_reference():
