@@ -142,10 +142,32 @@ Phases, each of which must pass:
    and teacher-forced decode equal their own forward within 0.15, a
    MoE's up to its first routing difference, which must be a near tie;
 12. every example of the port (``repro_torch.examples``: quickstart,
-   serve_orderings, order_mesh, expert_placement, serve_lm) on the card
-   with small arguments, the service example traced and the trace
-   summarised by ``repro_torch.scripts.trace_summary``;
-13. a ``{"kernels": [...]}`` line with each kernel's launches, error,
+   serve_orderings, order_mesh, expert_placement, serve_lm, train_lm) on
+   the card with small arguments, the service example traced and the
+   trace summarised by ``repro_torch.scripts.trace_summary``; train_lm
+   with a checkpoint every 2 steps and a simulated failure at step 3
+   (restarted through the trainer's own loop, step 2 replayed bit for
+   bit), then resumed from step 6;
+13. the LM training path (``train.step``, ``optim.adamw``, remat,
+   ``train.checkpoint``, ``data.pipeline``) at full width and depth:
+   ``mamba2-130m`` (24 layers, d 768, vocab 50280) in bfloat16 from
+   seed 0 on the card, AdamW lr 3e-4 with a warm-up of 20, batches of
+   8 × 512 from the port's pipeline (seed 0), remat "full"; 2 warm-up
+   and 10 timed steps, every loss and grad norm finite and the
+   parameters changed; the first step's loss and grad norm against a
+   float32 copy of the weights through the same modules (no TF32) within
+   ``TRAIN_F32_*``; a checkpoint after step 12, two more steps, a
+   restore into a fresh tree and the same two steps replayed: the losses
+   and every leaf bit-equal.  Prints the step ms (CUDA events), tokens/s,
+   model FLOPs (3 × ``flopcount.forward_flops``) as a share of the
+   bfloat16 peak, kernels a step, the card's busy ms and idle share and
+   the aten ops of the most device time (``torch.profiler`` over one
+   step), peak memory with remat "full" and off.  Then the ten
+   ``reduced()`` architectures one train step each (finite, parameters
+   changed; the float32 step card == CPU within ``REDUCED_STEP_RTOL``, a
+   MoE's routing recorded on both sides, any difference a near tie) and
+   the reference's ``test_loss_decreases`` (reduced yi-6b, 30 steps);
+14. a ``{"kernels": [...]}`` line with each kernel's launches, error,
    times, bound and library time (rows 0-2 also with their phase 7
    launches and phase 8 multi-lane times, rows 7-10 with their launches
    on phase 10's distributed main path, row 7 marked off that path when
@@ -173,7 +195,9 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -2549,22 +2573,6 @@ MOE_CF = 8.0
 NEAR_TIE = 2.0 ** -8
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in _leaves(v)]
-    if isinstance(tree, list):
-        return [x for v in tree for x in _leaves(v)]
-    return [tree]
-
-
-def _float32(tree):
-    if isinstance(tree, dict):
-        return {k: _float32(v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_float32(v) for v in tree]
-    return tree.float()
-
-
 def _logit_errs(got, want) -> dict:
     """Largest difference, RMS difference over the RMS of ``want``, and
     whether every logit lies within ``LM_SELF_TOL`` (abs and rel)."""
@@ -2605,11 +2613,11 @@ def _serve(params, cfg, prompt, pad_to, steps):
     return logits_p, torch.stack(dec, 1), torch.cat(toks, 1), times
 
 
-def _device_busy(fn) -> dict:
+def _device_busy(fn, top: int = 0) -> dict:
     """One run of ``fn()`` under ``torch.profiler``: its CUDA kernels'
-    count and summed device time (one stream, so no overlap), and the
-    CPU-side op count (the host's share of the wall, with the run's
-    unprofiled wall)."""
+    count and summed device time (one stream, so no overlap), and with
+    ``top`` the ``top`` aten ops of the most device time launched
+    directly by them (name, calls, ms)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2622,9 +2630,16 @@ def _device_busy(fn) -> dict:
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     if not kernels:
         raise AssertionError("torch.profiler saw no kernel on the card")
-    return {"kernels": len(kernels),
-            "busy_ms": sum(e.time_range.elapsed_us() for e in kernels)
-            / 1e3}
+    out = {"kernels": len(kernels),
+           "busy_ms": sum(e.time_range.elapsed_us() for e in kernels) / 1e3}
+    if top:
+        ops = sorted((a for a in prof.key_averages()
+                      if a.key.startswith("aten::")
+                      and a.self_device_time_total > 0),
+                     key=lambda a: -a.self_device_time_total)[:top]
+        out["top_ops"] = [[a.key, a.count, a.self_device_time_total / 1e3]
+                          for a in ops]
+    return out
 
 
 class _Routing:
@@ -2747,6 +2762,7 @@ def phase_lm(gpu: str) -> dict:
     """Phase 11: the LM serving path (``serve.engine``) on the card."""
     import numpy as np
     import torch
+    from repro_torch import tree
     from repro_torch.configs.base import ARCH_IDS, get_config
     from repro_torch.flopcount import forward_flops
     from repro_torch.models import lm
@@ -2758,7 +2774,7 @@ def phase_lm(gpu: str) -> dict:
     params = lm.init_params(lm.generator(0), cfg)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    leaves = _leaves(params)
+    leaves = tree.leaves(params)
     n_params = sum(t.numel() for t in leaves)
     weight_bytes = sum(t.numel() * t.element_size() for t in leaves)
     rng = np.random.default_rng(0)
@@ -2791,7 +2807,7 @@ def phase_lm(gpu: str) -> dict:
     self_err = _logit_errs(served, full)
     if not self_err["within_tol"]:
         raise AssertionError(f"serving != forward: {self_err}")
-    p32 = _float32(params)
+    p32 = tree.map(torch.Tensor.float, params)
     full32, _ = lm.forward(p32, cfg, {"tokens": seq})
     del p32
     f32_err = _logit_errs(served, full32)
@@ -2850,7 +2866,8 @@ def phase_examples() -> dict:
     import numpy as np
     from repro_torch import obs
     from repro_torch.examples import (expert_placement, order_mesh,
-                                      quickstart, serve_lm, serve_orderings)
+                                      quickstart, serve_lm, serve_orderings,
+                                      train_lm)
     from repro_torch.scripts import trace_summary
     out, secs = {}, {}
 
@@ -2891,7 +2908,26 @@ def phase_examples() -> dict:
             ["--arch", a, "--new-tokens", "8"]))
         if out[f"serve_lm {arch}"]["tokens"].shape != (4, 8):
             raise AssertionError(f"serve_lm {arch}: not 4 × 8 tokens")
+    # the trainer: a simulated failure at step 3 restarts from the step-2
+    # checkpoint through the trainer's own loop (step 2 replayed, bit for
+    # bit), then a resume from step 6 to 8
+    ck = ROOT / "build" / "train_lm_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    targs = ["--batch", "4", "--seq", "64", "--ckpt", str(ck),
+             "--ckpt-every", "2", "--log-every", "1"]
+    run("train_lm", lambda: train_lm.main(targs + ["--steps", "6",
+                                                   "--fail-at", "3"]))
+    run("train_lm resume", lambda: train_lm.main(targs + ["--steps", "8",
+                                                          "--resume"]))
+    shutil.rmtree(ck, ignore_errors=True)
+    tl, tr = out["train_lm"], out["train_lm resume"]
+    if tl["restarts"] != 1 or tl["step_ids"] != [0, 1, 2, 2, 3, 4, 5] or \
+            tl["losses"][2] != tl["losses"][3] or \
+            tr["step_ids"] != [6, 7] or \
+            not all(map(math.isfinite, tl["losses"] + tr["losses"])):
+        raise AssertionError(f"train_lm: {tl}, resumed {tr}")
     res = {"seconds": secs,
+           "train_lm_losses": tl["losses"] + tr["losses"],
            "quickstart_opc": {k: v[1] for k, v in qs.items()},
            "order_mesh_dnd_opc": om["dnd_opc"],
            "expert_placement": {k: float(ep[k]) for k in
@@ -2899,6 +2935,298 @@ def phase_examples() -> dict:
            "trace": str(trace.relative_to(ROOT))}
     log(f"phase 12 examples on the card: {json.dumps(res)}")
     return res
+
+
+# ---------------------------------------------------------------- training
+#: phase 13's model, trained at its published width and depth (the
+#: reference trainer's ``--full`` run): TRAIN_BATCH × TRAIN_SEQ tokens a
+#: step from the port's data pipeline (seed 0), AdamW at TRAIN_LR with a
+#: warm-up of TRAIN_WARMUP steps, remat "full"; TRAIN_WARM untimed steps,
+#: then TRAIN_TIMED timed ones, then the checkpoint's two
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ = "mamba2-130m", 8, 512
+TRAIN_LR, TRAIN_WARMUP, TRAIN_WARM, TRAIN_TIMED = 3e-4, 20, 2, 10
+#: the first bfloat16 step against a float32 copy of its weights (no
+#: TF32), relative.  Predicted on the CPU (mamba2-130m at full width, 1-16
+#: layers, batch 2 × 512, two seeds each): the loss within 7e-6 - 8e-5,
+#: the grad norm within 1.4e-3 - 2.1e-3 (bfloat16 low), neither growing
+#: with depth; bounds about 10x and 5x above those
+TRAIN_F32_LOSS_RTOL, TRAIN_F32_GNORM_RTOL = 1e-3, 1e-2
+#: a reduced architecture's float32 step, card against CPU (no TF32):
+#: the same math summed in other orders (about 1e-6 on the CPU between
+#: the two packages), relative, loss and grad norm
+REDUCED_STEP_RTOL = 1e-4
+
+
+def _pipeline_batches(cfg, B: int, S: int, n: int, device="cuda") -> list:
+    """The first ``n`` batches of the port's data pipeline (seed 0) on
+    ``device``, the pipeline's thread closed after."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    pipe = Pipeline(DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B))
+    out = []
+    try:
+        for i in range(n):
+            step, b = next(pipe)
+            if step != i:
+                raise AssertionError(f"pipeline gave step {step}, not {i}")
+            out.append({k: torch.from_numpy(v).to(device)
+                        for k, v in b.items()})
+    finally:
+        pipe.close()
+    return out
+
+
+def _peak_gb(fn) -> float:
+    """Peak device memory (GB) during ``fn()``."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def _restart_case(cfg, step, params, opt, batches, k: int) -> dict:
+    """Save (params, opt) after step k, run steps k and k + 1; restore
+    into a fresh tree and replay them: the losses and every leaf of the
+    parameters and the optimizer state must be bit-equal."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.train import checkpoint as ckpt
+    path = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(path, ignore_errors=True)
+    t0 = time.perf_counter()
+    ckpt.save(str(path), k, (params, opt), extra={"arch": TRAIN_ARCH})
+    save_s = time.perf_counter() - t0
+
+    def two(p, o):
+        losses = []
+        for i in (k, k + 1):
+            p, o, m = step(p, o, batches[i])
+            losses.append(float(m["loss"]))
+        return p, o, losses
+    pa, oa, la = two(params, opt)
+    fresh = lm.init_params(lm.generator(1), cfg)
+    t0 = time.perf_counter()
+    st, (pb, ob) = ckpt.restore(str(path), (fresh, adamw.init(fresh)))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    del fresh
+    pb, ob, lb = two(pb, ob)
+    shutil.rmtree(path, ignore_errors=True)
+    leaves = tree.leaves((pa, oa))
+    differ = [i for i, (a, b) in enumerate(zip(leaves, tree.leaves((pb, ob))))
+              if not torch.equal(a, b)]
+    if st != k or la != lb or differ:
+        raise AssertionError(f"restart not bit-exact: step {st} (want {k}),"
+                             f" losses {la} then {lb}, leaves {differ} of "
+                             f"{len(leaves)} differ")
+    return {"at_step": k, "losses": la, "leaves": len(leaves),
+            "save_s": save_s, "restore_s": restore_s}
+
+
+def _full_width_train(gpu: str) -> dict:
+    """Phase 13 (a): mamba2-130m at full width and depth on the card."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs.base import get_config
+    from repro_torch.flopcount import forward_flops
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step, value_and_grad
+    torch.cuda.empty_cache()
+    cfg = get_config(TRAIN_ARCH)
+    params = lm.init_params(lm.generator(0), cfg)
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    opt = adamw.init(params)
+    step = make_train_step(cfg, adamw.AdamWConfig(lr=TRAIN_LR,
+                                                  warmup=TRAIN_WARMUP))
+    n_run = TRAIN_WARM + TRAIN_TIMED
+    batches = _pipeline_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, n_run + 2)
+    # the first step's loss and grad norm in float32 (no TF32)
+    p32 = tree.map(torch.Tensor.float, params)
+    (loss32, _), g32 = value_and_grad(p32, cfg, batches[0])
+    gnorm32 = float(adamw.global_norm(g32))
+    loss32 = float(loss32)
+    del p32, g32
+    master0 = [t.clone() for t in tree.leaves(opt.master)]
+    p0 = tree.leaves(params)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2 * n_run)]
+    metrics = []
+    t0 = time.perf_counter()
+    for i in range(n_run):
+        ev[2 * i].record()
+        params, opt, m = step(params, opt, batches[i])
+        ev[2 * i + 1].record()
+        metrics.append(m)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / n_run
+    ms = [ev[2 * i].elapsed_time(ev[2 * i + 1]) for i in range(n_run)]
+    timed = ms[TRAIN_WARM:]
+    losses = [float(m["loss"]) for m in metrics]
+    gnorms = [float(m["grad_norm"]) for m in metrics]
+    if not all(map(math.isfinite, losses + gnorms)):
+        raise AssertionError(f"not finite: losses {losses}, grad norms "
+                             f"{gnorms}")
+    moved = [not torch.equal(a, b) for a, b in zip(
+        master0, tree.leaves(opt.master))]
+    moved_bf16 = sum(not torch.equal(a, b) for a, b in zip(
+        p0, tree.leaves(params)))
+    if not all(moved) or not moved_bf16:
+        raise AssertionError(f"parameters unchanged: master {moved}, "
+                             f"{moved_bf16} bfloat16 leaves moved")
+    del master0, p0
+    f32 = {"loss": losses[0], "loss_f32": loss32,
+           "loss_rel": abs(losses[0] - loss32) / abs(loss32),
+           "grad_norm": gnorms[0], "grad_norm_f32": gnorm32,
+           "grad_norm_rel": abs(gnorms[0] - gnorm32) / gnorm32}
+    if f32["loss_rel"] > TRAIN_F32_LOSS_RTOL or \
+            f32["grad_norm_rel"] > TRAIN_F32_GNORM_RTOL:
+        raise AssertionError(f"bfloat16 step vs float32: {f32} (bounds "
+                             f"{TRAIN_F32_LOSS_RTOL}, {TRAIN_F32_GNORM_RTOL})")
+    restart = _restart_case(cfg, step, params, opt, batches, n_run)
+    busy = _device_busy(lambda: step(params, opt, batches[0]), top=15)
+    mem = {"state_gb": torch.cuda.memory_allocated() / 1e9,
+           "peak_gb_remat_full": _peak_gb(
+               lambda: step(params, opt, batches[0]))}
+    old = lm.REMAT_POLICY
+    try:
+        lm.REMAT_POLICY = "none"
+        mem["peak_gb_remat_none"] = _peak_gb(
+            lambda: step(params, opt, batches[0]))
+    finally:
+        lm.REMAT_POLICY = old
+    step_ms = sum(timed) / len(timed)
+    flops = 3 * forward_flops(cfg, TRAIN_BATCH * TRAIN_SEQ, TRAIN_SEQ)
+    res = {"arch": TRAIN_ARCH, "params": n_params,
+           "param_count": cfg.param_count(), "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "lr": TRAIN_LR, "warmup": TRAIN_WARMUP,
+           "remat": old,
+           "step_ms": step_ms, "step_ms_min_max": [min(timed), max(timed)],
+           "warm_step_ms": ms[:TRAIN_WARM], "wall_ms_per_step": wall_ms,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+           "model_flops": flops,
+           "peak_share": flops / (step_ms / 1e3) / BF16_PEAK,
+           "kernels_per_step": busy["kernels"],
+           "device_busy_ms": busy["busy_ms"],
+           "idle_share": 1 - busy["busy_ms"] / step_ms,
+           "top_ops_device_ms": busy["top_ops"],
+           "memory": mem, "losses": losses, "grad_norms": gnorms,
+           "vs_f32": f32, "tolerances": {"loss": TRAIN_F32_LOSS_RTOL,
+                                         "grad_norm": TRAIN_F32_GNORM_RTOL},
+           "restart": restart, "gpu": gpu}
+    del params, opt, batches
+    torch.cuda.empty_cache()
+    return res
+
+
+def _reduced_train_case(arch: str) -> dict:
+    """Phase 13 (b): one train step of a reduced architecture on the card
+    (bfloat16: finite, parameters changed), and its float32 step on the
+    card against the same step on the CPU (no TF32); a MoE's routing is
+    recorded on both sides, and a difference must be a near tie (then
+    the losses are not compared)."""
+    import numpy as np
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step
+    cfg = get_config(arch).reduced()
+    B, S = 2, 16
+    rng = np.random.default_rng(0)
+    host = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (B, S))),
+            "labels": torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)))}
+    if cfg.enc_dec:
+        host["frames"] = torch.as_tensor(rng.standard_normal(
+            (B, cfg.enc_len, cfg.d_model)), dtype=torch.bfloat16)
+    if cfg.frontend == "patches":
+        host["patches"] = torch.as_tensor(rng.standard_normal(
+            (B, cfg.n_patches, cfg.d_model)), dtype=torch.bfloat16)
+    card = {k: v.cuda() for k, v in host.items()}
+    step = make_train_step(cfg, adamw.AdamWConfig(lr=1e-3))
+    params = lm.init_params(lm.generator(42), cfg)
+    p1, _, m = step(params, adamw.init(params), card)
+    first = tree.leaves(params)[0]
+    if not math.isfinite(float(m["loss"])) or \
+            torch.equal(first, tree.leaves(p1)[0]):
+        raise AssertionError(f"{arch}: loss {float(m['loss'])}, or the "
+                             "parameters did not change")
+    p32 = tree.map(torch.Tensor.float, params)
+    cpu32 = tree.map(lambda t: t.cpu(), p32)
+    with _Routing() as r_card:
+        _, _, mc = step(p32, adamw.init(p32), card)
+    with _Routing() as r_cpu:
+        _, _, mh = step(cpu32, adamw.init(cpu32), host)
+    if len(r_card.calls) != len(r_cpu.calls):
+        raise AssertionError(f"{arch}: {len(r_card.calls)} MoE calls on the "
+                             f"card, {len(r_cpu.calls)} on the CPU")
+    swaps, K = 0, cfg.top_k
+    for pc, ph in zip(r_card.calls, r_cpu.calls):
+        srt = ph.sort(dim=-1, descending=True, stable=True)
+        top_h = srt.indices[:, :K].sort(-1).values
+        top_c = pc.sort(dim=-1, descending=True,
+                        stable=True).indices[:, :K].sort(-1).values
+        gap = srt.values[:, K - 1] - srt.values[:, K]
+        diff = (top_h != top_c).any(-1)
+        if bool((gap[diff] > NEAR_TIE).any()):
+            raise AssertionError(f"{arch}: routing differs beyond a near "
+                                 "tie")
+        swaps += int(diff.sum())
+    out = {"loss_bf16": float(m["loss"]), "loss_f32_card": float(mc["loss"]),
+           "loss_f32_cpu": float(mh["loss"]), "routing_swaps": swaps}
+    for k in ("loss", "grad_norm"):
+        out[f"{k}_rel"] = abs(float(mc[k]) - float(mh[k])) / \
+            abs(float(mh[k]))
+        if not swaps and out[f"{k}_rel"] > REDUCED_STEP_RTOL:
+            raise AssertionError(f"{arch}: float32 step card vs cpu: {out}")
+    return out
+
+
+def _loss_decreases() -> dict:
+    """Phase 13 (c): the reference's ``test_loss_decreases`` on the card:
+    reduced yi-6b, lr 3e-3, warm-up 5, 30 steps of 4 × 32 tokens."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig, _batch_at
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step
+    cfg = get_config("yi-6b").reduced()
+    params = lm.init_params(lm.generator(0), cfg)
+    opt = adamw.init(params)
+    step = make_train_step(cfg, adamw.AdamWConfig(lr=3e-3, warmup=5))
+    d = DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=4)
+    losses = []
+    for i in range(30):
+        b = {k: torch.from_numpy(v).cuda() for k, v in _batch_at(d, i).items()}
+        params, opt, m = step(params, opt, b)
+        losses.append(float(m["loss"]))
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not last < first - 0.2:
+        raise AssertionError(f"loss did not fall: {losses}")
+    return {"first5": first, "last5": last}
+
+
+def phase_train(gpu: str) -> dict:
+    """Phase 13: the LM training path on the card."""
+    t0 = time.perf_counter()
+    full = _full_width_train(gpu)
+    log(f"phase 13 LM training {TRAIN_ARCH} (full width and depth): "
+        f"{json.dumps(full)}")
+    from repro_torch.configs.base import ARCH_IDS
+    reduced = {arch: _reduced_train_case(arch) for arch in ARCH_IDS}
+    log(f"phase 13 reduced architectures, a train step, float32 card == "
+        f"cpu: {json.dumps(reduced)}")
+    falls = _loss_decreases()
+    log(f"phase 13 loss decreases (reduced yi-6b, 30 steps on the card): "
+        f"{json.dumps(falls)}; phase 13 took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"full": full, "reduced": reduced, "loss_decreases": falls}
 
 
 def gpu_line() -> str:
@@ -2950,6 +3278,7 @@ def main() -> int:
     gpu = gpu_line()
     phase_lm(gpu)
     phase_examples()
+    phase_train(gpu)
     src = "src/repro_torch/kernels/csrc"
     big = ell["cases"][-1]                      # grid3d(100, 100, 100)
 

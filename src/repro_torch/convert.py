@@ -2,18 +2,21 @@
 
 The ordering has no weights; what crosses between the two packages is a
 graph (host or distributed) and a PRNG key.  The LM's state is its
-parameter tree.  Each arrives as plain numpy arrays, so a test can build
-its inputs once and hand the same values to each side.
+parameter tree and, in training, its optimizer state.  Each arrives as
+plain numpy arrays, so a test can build its inputs once and hand the
+same values to each side.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch import tree as T
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.dgraph import DGraph
 from repro_torch.core.graph import Graph
 from repro_torch.models.lm import group_descs, layer_descs
+from repro_torch.optim.adamw import OptState
 from repro_torch.util import resolve_device
 
 
@@ -53,14 +56,9 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(a.copy()).to(device)
 
 
-def lm_params_from_arrays(cfg: ArchConfig, tree, device=None):
-    """The port's LM parameters from the reference's parameter tree given
-    as numpy arrays: bfloat16 leaves as raw ``uint16`` bits (exact) or as
-    float32 (a float32 model), float32 leaves as they are.  The port holds
-    the reference's tree (a repeated group stacked on its ``count``
-    axis); the groups are checked against ``cfg``.  On the card unless
-    ``device`` names the CPU."""
-    dev = resolve_device(device)
+def _check_groups(cfg: ArchConfig, tree) -> None:
+    """``tree``'s groups are ``cfg``'s: as many, each super-block's
+    layers, each repeated group stacked on its ``count`` axis."""
     groups = group_descs(layer_descs(cfg))
     if len(tree["groups"]) != len(groups):
         raise ValueError(f"{len(tree['groups'])} groups given, {cfg.name} "
@@ -73,10 +71,33 @@ def lm_params_from_arrays(cfg: ArchConfig, tree, device=None):
         if lead != (() if count == 1 else (count,)):
             raise ValueError(f"a group of {count} layers stacked as {lead}")
 
-    def walk(t):
-        if isinstance(t, dict):
-            return {k: walk(v) for k, v in t.items()}
-        if isinstance(t, (list, tuple)):
-            return [walk(v) for v in t]
-        return _tensor(t, dev)
-    return walk(tree)
+
+def lm_params_from_arrays(cfg: ArchConfig, tree, device=None):
+    """The port's LM parameters from the reference's parameter tree given
+    as numpy arrays: bfloat16 leaves as raw ``uint16`` bits (exact) or as
+    float32 (a float32 model), float32 leaves as they are.  The port holds
+    the reference's tree (a repeated group stacked on its ``count``
+    axis); the groups are checked against ``cfg``.  On the card unless
+    ``device`` names the CPU."""
+    dev = resolve_device(device)
+    _check_groups(cfg, tree)
+    return T.map(lambda a: _tensor(a, dev), tree)
+
+
+def opt_state_from_arrays(cfg: ArchConfig, master, m, v, count,
+                          device=None) -> OptState:
+    """The port's AdamW state from the reference's ``OptState`` given as
+    numpy arrays: the float32 master weights and moments (each a tree of
+    the parameters' structure, its groups checked against ``cfg``) and
+    the int32 step count.  On the card unless ``device`` names the
+    CPU."""
+    dev = resolve_device(device)
+    for t in (master, m, v):
+        _check_groups(cfg, t)
+    count = np.asarray(count)
+    if count.shape != () or count.dtype != np.int32:
+        raise ValueError(f"count is a 0-d int32, got {count.dtype} "
+                         f"{count.shape}")
+    return OptState(*(T.map(lambda a: _tensor(a, dev), t)
+                      for t in (master, m, v)),
+                    torch.from_numpy(count.copy()).to(dev))

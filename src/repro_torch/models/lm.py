@@ -9,6 +9,10 @@ assigned architectures:
     and caches are stacked on a leading ``count`` axis, as in the
     reference, and a Python loop walks it (the reference's ``lax.scan``);
     layer ``i`` reads views ``a[i]``, no copies;
+  * in training, each repetition of a repeated group's super-block and
+    each encoder layer is checkpointed (remat), where the reference wraps
+    ``jax.checkpoint``: only while grad is enabled, so serving runs the
+    plain code;
   * decode threads per-layer caches through the same groups, writing
     each new token's entries in place.
 
@@ -20,9 +24,12 @@ float32.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
@@ -31,6 +38,40 @@ from repro_torch.models.sharding import NO_SHARD, ShardCfg
 from repro_torch.util import resolve_device
 
 PyTree = Any
+
+#: remat policy for the per-layer checkpoint: "full" recomputes everything
+#: (min memory, max recompute flops); "dots" saves matmul outputs (the
+#: reference's ``dots_with_no_batch_dims_saveable``: plain matrix
+#: products, not batched ones); "none" checkpoints nothing.
+REMAT_POLICY = "full"
+
+#: the aten ops of a matmul without batch dims (``x @ w`` on a (B, S, d)
+#: activation folds to ``mm``); ``bmm`` (einsums, the MoE's experts) has
+#: a batch dim and is recomputed, as in the reference
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn):
+    """``fn`` checkpointed under ``REMAT_POLICY`` while grad is enabled;
+    ``fn`` itself otherwise (serving, ``torch.no_grad``)."""
+    @functools.wraps(fn)
+    def run(*args):
+        if REMAT_POLICY == "none" or not torch.is_grad_enabled():
+            return fn(*args)
+        if REMAT_POLICY == "dots":
+            return checkpoint(fn, *args, use_reentrant=False,
+                              context_fn=functools.partial(
+                                  create_selective_checkpoint_contexts,
+                                  _save_dots))
+        if REMAT_POLICY != "full":
+            raise ValueError(f"unknown REMAT_POLICY {REMAT_POLICY!r}")
+        return checkpoint(fn, *args, use_reentrant=False)
+    return run
 
 
 def _take(tree: PyTree, i: int) -> PyTree:
@@ -238,8 +279,18 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> PyTree:
 # forward (train / prefill)
 # ------------------------------------------------------------------ #
 def _layers(gp: PyTree, count: int):
-    """The ``count`` layers' parameters (or caches) of one group."""
-    return [gp] if count == 1 else [_take(gp, i) for i in range(count)]
+    """The ``count`` layers' parameters (or caches) of one group: views,
+    by one ``unbind`` a leaf, whose backward stacks the layers'
+    gradients in one op (a ``select`` a layer would write a zero-filled
+    copy of the whole stacked leaf for each layer, then sum them)."""
+    if count == 1:
+        return [gp]
+
+    def unbind(t):
+        return {k: unbind(v) if isinstance(v, dict) else v.unbind(0)
+                for k, v in t.items()}
+    layers = unbind(gp)
+    return [_take(layers, i) for i in range(count)]
 
 
 def _embed(params, cfg: ArchConfig, batch: Dict[str, Any]) -> torch.Tensor:
@@ -267,22 +318,37 @@ def _encode(params, cfg: ArchConfig, batch: Dict[str, Any],
 
 
 def _run_encoder(params, cfg, e, shard):
+    """Every encoder layer checkpointed, as the reference's scan body."""
+    @_remat
+    def enc_body(xx, bp):
+        xx, _ = _block_apply(bp["p0"], xx, ("attn", "dense"), cfg, shard,
+                             causal=False)
+        return xx
     for bp in _layers(params["enc"], cfg.n_enc_layers):
-        e, _ = _block_apply(bp["p0"], e, ("attn", "dense"), cfg, shard,
-                            causal=False)
+        e = enc_body(e, bp)
     return e
 
 
 def _run_groups(params, cfg, x, shard, enc_out=None, causal=True):
+    """The groups in order; a repeated group's super-block checkpointed
+    once a repetition (however many layers it holds), a ``count == 1``
+    group's not, as in the reference."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for (count, block), gp in zip(group_descs(layer_descs(cfg)),
                                   params["groups"]):
-        for bp in _layers(gp, count):
+        def super_block(xx, bp, block=block):
+            a_tot = None
             for i, desc in enumerate(block):
-                x, a = _block_apply(bp[f"p{i}"], x, desc, cfg, shard,
-                                    enc_out=enc_out, causal=causal)
+                xx, a = _block_apply(bp[f"p{i}"], xx, desc, cfg, shard,
+                                     enc_out=enc_out, causal=causal)
                 if a is not None:
-                    aux_total = aux_total + a
+                    a_tot = a if a_tot is None else a_tot + a
+            return xx, a_tot
+        body = super_block if count == 1 else _remat(super_block)
+        for bp in _layers(gp, count):
+            x, a = body(x, bp)
+            if a is not None:
+                aux_total = aux_total + a
     return x, aux_total
 
 

@@ -84,7 +84,13 @@ def ssd_chunked(x, dt, A_log, B_, C_, chunk: int):
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # (B,nc,L,L,H)
     ltri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                  device=x.device))
-    decay = torch.where(ltri[None, None, :, :, None], torch.exp(diff), 0.0)
+    # masked before the exp, not after: above the diagonal ``diff`` is
+    # positive and its exp overflows (at L = 256, once the decay passes
+    # 88), and the gradient of a ``where`` after it is 0 * inf = NaN (the
+    # reference's, ``jnp.where(ltri, exp(diff), 0)``, is NaN there); the
+    # forward is the same, exp(-inf) = 0
+    decay = torch.exp(torch.where(ltri[None, None, :, :, None], diff,
+                                  float("-inf")))
     cb = torch.einsum("bcin,bcjn->bcij", Cc, Bc)           # (B,nc,L,L)
     w = cb[..., None] * decay * dtc[:, :, None, :, :]      # (B,nc,L,L,H)
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", w, xc)

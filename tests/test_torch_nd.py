@@ -103,8 +103,8 @@ def test_fallback_and_small_graph_policies():
     assert sorted(perm) == list(range(9))
 
 
-#: the service, distributed and LM serving slices' modules, which the
-#: import gate must reach
+#: the service, distributed, LM serving and LM training slices' modules,
+#: which the import gate must reach
 SERVICE_SLICE = [f"repro_torch.{m}" for m in (
     "obs", "obs.tracer", "obs.metrics", "obs.instrument", "train",
     "train.fault", "core.dnd", "service", "service.api", "service.batch",
@@ -117,7 +117,11 @@ SERVICE_SLICE = [f"repro_torch.{m}" for m in (
         "models.lm", "serve", "serve.engine", "flopcount", "core.mapping",
         "examples", "examples.quickstart", "examples.serve_orderings",
         "examples.order_mesh", "examples.expert_placement",
-        "examples.serve_lm", "scripts", "scripts.trace_summary")]
+        "examples.serve_lm", "scripts", "scripts.trace_summary")] + [
+    f"repro_torch.{m}" for m in (
+        "tree", "optim", "optim.adamw", "optim.compress", "data",
+        "data.pipeline", "train.step", "train.checkpoint", "launch",
+        "launch.train", "examples.train_lm")]
 
 
 def test_import_pulls_in_neither_jax_nor_reference():
