@@ -167,7 +167,26 @@ Phases, each of which must pass:
    changed; the float32 step card == CPU within ``REDUCED_STEP_RTOL``, a
    MoE's routing recorded on both sides, any difference a near tie) and
    the reference's ``test_loss_decreases`` (reduced yi-6b, 30 steps);
-14. a ``{"kernels": [...]}`` line with each kernel's launches, error,
+14. the roofline (``roofline.analyze``: FLOPs by ``FlopCounterMode``'s
+   formulas, bytes as each op's inputs read and outputs written, the
+   ring model over collectives, live bytes; H100 constants) and the dry
+   run (``launch.dryrun``): (a) phase 11's yi-6b prefill and one step of
+   phase 13's mamba2-130m training (remat "full"), real tensors on the
+   card, ``NO_SHARD``: each term, the bound and its term beside the
+   CUDA-event time of this run and the profiler's busy time; the bound
+   at most ``ROOF_BOUND_SLACK`` × the measured time and the counted
+   FLOPs within ``ROOF_FLOPS_RTOL`` of ``flopcount`` (the prefill's
+   ``forward_flops``, 4 × for the step: remat recomputes the forward);
+   (b) the dry run of phase 13's step on a 1 × 1 mesh of fake card
+   tensors, remat "full" and off: its peak within ``ROOF_MEM_RTOL`` of
+   ``torch.cuda.max_memory_allocated`` of the real step, its argument
+   bytes equal to the real state's; (c) ``ROOF_CELLS`` at full width on
+   the fake H100 meshes (32 × 8 cards, 2 × 32 × 8), with the depth
+   slope: each OK, its argument bytes equal to its specs' local shard
+   bytes, the slope's FLOPs equal to the full-depth count; each cell's
+   three terms, bottleneck, peak a card (and whether it fits in 80 GB)
+   and collective counts;
+15. a ``{"kernels": [...]}`` line with each kernel's launches, error,
    times, bound and library time (rows 0-2 also with their phase 7
    launches and phase 8 multi-lane times, rows 7-10 with their launches
    on phase 10's distributed main path, row 7 marked off that path when
@@ -3229,6 +3248,221 @@ def phase_train(gpu: str) -> dict:
     return {"full": full, "reduced": reduced, "loss_decreases": falls}
 
 
+# ---------------------------------------------------------------- roofline
+#: phase 14's tolerances: a roofline bound is a least time, so it may not
+#: pass the measured time (5% for the timer); the counted FLOPs against
+#: ``flopcount`` and the dry run's peak memory against the card's, the
+#: reference test's 25%
+ROOF_BOUND_SLACK, ROOF_FLOPS_RTOL, ROOF_MEM_RTOL = 1.05, 0.25, 0.25
+#: phase 14 (c): full-width cells on the fake H100 meshes, with the slope
+ROOF_CELLS = (("yi-6b", "train_4k", False),
+              ("deepseek-v2-lite-16b", "prefill_32k", True),
+              ("mamba2-130m", "long_500k", False),
+              ("jamba-v0.1-52b", "decode_32k", True))
+CARD_BYTES = 80e9
+
+
+def _terms(roof) -> dict:
+    return {"flops": roof.flops_per_chip, "bytes": roof.bytes_per_chip,
+            "coll_bytes": roof.coll_bytes_per_chip,
+            "t_compute_ms": 1e3 * roof.t_compute,
+            "t_memory_ms": 1e3 * roof.t_memory,
+            "t_collective_ms": 1e3 * roof.t_collective,
+            "bound_ms": 1e3 * roof.t_bound, "bound_by": roof.bottleneck}
+
+
+def _real_roofline(name, fn, args, kwargs, flops_want, reps) -> dict:
+    """``roofline.analyze`` over one real run of ``fn`` on the card,
+    against ``reps`` CUDA-event-timed runs and the profiler's busy time;
+    fails if the bound passes the measured time or the counted FLOPs
+    miss ``flops_want`` by more than ``ROOF_FLOPS_RTOL``."""
+    from repro_torch import roofline
+    c = roofline.Counter()
+    roof = roofline.analyze(fn, *args, counter=c, **kwargs)
+    ms = cuda_ms(lambda: fn(*args, **kwargs), reps)
+    busy = _device_busy(lambda: fn(*args, **kwargs))
+    res = dict(_terms(roof), measured_ms=ms, busy_ms=busy["busy_ms"],
+               bound_share=1e3 * roof.t_bound / ms,
+               bound_over_busy=1e3 * roof.t_bound / busy["busy_ms"],
+               flops_flopcount=flops_want,
+               flops_rel=roof.flops_per_chip / flops_want - 1,
+               memory=roof.memory,
+               top_bytes=sorted(([k, v[0], v[2]] for k, v in c.by_op.items()),
+                                key=lambda r: -r[2])[:8])
+    if 1e3 * roof.t_bound > ROOF_BOUND_SLACK * ms:
+        raise AssertionError(f"{name}: bound {1e3 * roof.t_bound} ms above "
+                             f"the measured {ms} ms")
+    if abs(res["flops_rel"]) > ROOF_FLOPS_RTOL:
+        raise AssertionError(f"{name}: counted {roof.flops_per_chip} FLOPs, "
+                             f"flopcount {flops_want}")
+    return res
+
+
+def _roof_prefill() -> dict:
+    """Phase 14 (a): phase 11's yi-6b prefill, real tensors, NO_SHARD."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.flopcount import forward_flops
+    from repro_torch.models import lm
+    from repro_torch.serve import engine
+    cfg = get_config(LM_ARCH)
+    params = lm.init_params(lm.generator(0), cfg)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab, (LM_BATCH, LM_PROMPT)), device="cuda")}
+    engine.prefill(params, cfg, batch, pad_to=LM_PAD)       # warm-up
+    res = _real_roofline(
+        f"{LM_ARCH} prefill", engine.prefill, (params, cfg, batch),
+        {"pad_to": LM_PAD},
+        forward_flops(cfg, LM_BATCH * LM_PROMPT, LM_PROMPT), 3)
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def _roof_train() -> tuple:
+    """Phase 14 (a) and (b): phase 13's mamba2-130m step, real tensors,
+    remat "full"; and the dry run's memory analysis of that step on a
+    1 × 1 mesh of fake card tensors (remat "full" and off) against the
+    card's peak, the argument bytes against the real state's."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs.base import get_config
+    from repro_torch.flopcount import forward_flops
+    from repro_torch.launch import dryrun
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step
+    cfg = get_config(TRAIN_ARCH)
+    params = lm.init_params(lm.generator(0), cfg)
+    opt = adamw.init(params)
+    step = make_train_step(cfg, adamw.AdamWConfig(lr=TRAIN_LR,
+                                                  warmup=TRAIN_WARMUP))
+    batch = _pipeline_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, 1)[0]
+    step(params, opt, batch)                                # warm-up
+    real = _real_roofline(
+        f"{TRAIN_ARCH} train step", step, (params, opt, batch), {},
+        4 * forward_flops(cfg, TRAIN_BATCH * TRAIN_SEQ, TRAIN_SEQ), 5)
+    state = sum(t.numel() * t.element_size()
+                for t in tree.leaves((params, opt, batch)))
+    shape = {"kind": "train", "seq_len": TRAIN_SEQ,
+             "global_batch": TRAIN_BATCH}
+    mem = {"state_bytes": state}
+    old = lm.REMAT_POLICY
+    try:
+        for remat in ("full", "none"):
+            lm.REMAT_POLICY = remat
+            peak = _peak_gb(lambda: step(params, opt, batch)) * 1e9
+            low = dryrun.lower_cell_cfg(cfg, shape, False, remat=remat,
+                                        mesh_shape=(1, 1), device="cuda")
+            m = low.roofline.memory
+            pred = low.roofline.peak_mem_bytes
+            mem[remat] = {"card_peak_bytes": peak,
+                          "predicted_peak_bytes": pred,
+                          "rel": pred / peak - 1, "memory_analysis": m,
+                          "dryrun_s": low.seconds}
+            if m["argument_size_in_bytes"] != state:
+                raise AssertionError(f"dry-run arguments "
+                                     f"{m['argument_size_in_bytes']} B, the "
+                                     f"real state {state} B")
+            if abs(pred / peak - 1) > ROOF_MEM_RTOL:
+                raise AssertionError(f"remat {remat}: predicted peak {pred} "
+                                     f"B, the card's {peak} B")
+    finally:
+        lm.REMAT_POLICY = old
+    del params, opt
+    torch.cuda.empty_cache()
+    return real, mem
+
+
+#: one dry-run cell with its depth slope, as a JSON line (phase 14 (c)
+#: runs the cells side by side, one process each: they use only the host)
+ROOF_CELL_SCRIPT = (
+    "import json, sys\n"
+    "from repro_torch.launch import dryrun\n"
+    "rec = dryrun.run_cell(sys.argv[1], sys.argv[2], sys.argv[3] == 'multi',"
+    " extrapolate=True)\n"
+    "print(json.dumps(rec))\n")
+
+
+def _dry_cells(cells, timeout: float = 300) -> list:
+    """``run_cell`` of each (arch, shape, multi) with its depth slope,
+    each in a process of its own, all at once; the records in order."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", ROOF_CELL_SCRIPT, arch, shape,
+         "multi" if multi else "single"], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env)
+        for arch, shape, multi in cells]
+    recs = []
+    try:
+        for p, cell in zip(procs, cells):
+            out, err = p.communicate(timeout=timeout)
+            if p.returncode != 0:
+                raise AssertionError(f"dry run of {cell} exited "
+                                     f"{p.returncode}: {err[-2000:]}")
+            recs.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return recs
+
+
+def _roof_cells() -> dict:
+    """Phase 14 (c): the dry run at full width on the fake H100 meshes,
+    with the depth slope beside the full-depth count."""
+    out = {}
+    for (arch, shape, multi), rec in zip(ROOF_CELLS, _dry_cells(ROOF_CELLS)):
+        key = f"{arch} × {shape} × {rec['mesh']}"
+        if rec["status"] != "OK":
+            raise AssertionError(f"{key}: {rec['status']} "
+                                 f"{rec.get('error', rec.get('reason'))}")
+        mem, r = rec["memory_analysis"], rec["roofline"]
+        if mem["argument_size_in_bytes"] != rec["spec_argument_bytes"]:
+            raise AssertionError(f"{key}: arguments "
+                                 f"{mem['argument_size_in_bytes']} B, specs "
+                                 f"{rec['spec_argument_bytes']} B")
+        slope = rec["depth_slope"]
+        rel = {f: slope[f] / r[f] - 1 if r[f] else slope[f]
+               for f in ("flops_per_chip", "bytes_per_chip",
+                         "coll_bytes_per_chip")}
+        if abs(rel["flops_per_chip"]) > 1e-6:
+            raise AssertionError(f"{key}: slope FLOPs off by {rel}")
+        peak = r["peak_mem_bytes"]
+        out[key] = {"t_compute_ms": 1e3 * r["t_compute_s"],
+                    "t_memory_ms": 1e3 * r["t_memory_s"],
+                    "t_collective_ms": 1e3 * r["t_collective_s"],
+                    "bottleneck": r["bottleneck"],
+                    "peak_gb_per_card": peak / 1e9,
+                    "fits_80gb": peak <= CARD_BYTES,
+                    "coll_counts": r["coll_counts"],
+                    "argument_bytes": mem["argument_size_in_bytes"],
+                    "slope_rel": rel, "run_s": rec["compile_s"],
+                    "slope_s": rec["extrap_compile_s"]}
+    return out
+
+
+def phase_roofline(gpu: str) -> dict:
+    """Phase 14: the roofline of the real program and the dry run."""
+    t0 = time.perf_counter()
+    prefill = _roof_prefill()
+    log(f"phase 14 (a) roofline of {LM_ARCH} prefill ({LM_BATCH} x "
+        f"{LM_PROMPT}, full width and depth): {json.dumps(prefill)}")
+    train, mem = _roof_train()
+    log(f"phase 14 (a) roofline of a {TRAIN_ARCH} train step "
+        f"({TRAIN_BATCH} x {TRAIN_SEQ}, remat full): {json.dumps(train)}")
+    log(f"phase 14 (b) dry-run memory vs the card: {json.dumps(mem)}")
+    cells = _roof_cells()
+    log(f"phase 14 (c) dry run at full width on fake H100 meshes: "
+        f"{json.dumps(cells)}")
+    log(f"phase 14 took {time.perf_counter() - t0:.1f} s ({gpu})")
+    return {"prefill": prefill, "train": train, "memory": mem,
+            "cells": cells}
+
+
 def gpu_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3279,6 +3513,7 @@ def main() -> int:
     phase_lm(gpu)
     phase_examples()
     phase_train(gpu)
+    phase_roofline(gpu)
     src = "src/repro_torch/kernels/csrc"
     big = ell["cases"][-1]                      # grid3d(100, 100, 100)
 

@@ -34,7 +34,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
-from repro_torch.models.sharding import NO_SHARD, ShardCfg
+from repro_torch.models.sharding import NO_SHARD, ShardCfg, reduce_partial
 from repro_torch.util import resolve_device
 
 PyTree = Any
@@ -154,10 +154,10 @@ def _block_init(gen: torch.Generator, desc: Tuple[str, str],
     return p
 
 
-def _ffn(p, x, cfg: ArchConfig):
+def _ffn(p, x, cfg: ArchConfig, shard: ShardCfg = NO_SHARD):
     """The block's FFN sum (MoE and/or dense MLP) on normed ``h``, and the
     MoE's aux loss (None without one)."""
-    h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
+    h = shard.act_gathered(L.rmsnorm(p["norm2"], x, cfg.norm_eps))
     add, aux = None, None
     if "moe" in p:
         add, aux = L.moe_apply(p["moe"], h, cfg)
@@ -171,21 +171,22 @@ def _block_apply(p, x, desc, cfg: ArchConfig, shard: ShardCfg,
                  enc_out=None, causal=True):
     """Full-sequence block.  Returns (x, aux_loss)."""
     mixer, ffn = desc
-    h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
+    h = shard.act_gathered(L.rmsnorm(p["norm1"], x, cfg.norm_eps))
     if mixer == "attn":
         h = L.attn_apply(p["attn"], h, cfg, causal=causal)
     elif mixer == "mla":
         h = L.mla_apply(p["attn"], h, cfg)
     else:
         h = M.mamba_apply(p["ssm"], h, cfg)
-    x = x + h
+    x = x + shard.act_residual(h)
     if "xattn" in p:
-        h = L.rmsnorm(p["normx"], x, cfg.norm_eps)
-        x = x + L.cross_attn_apply(p["xattn"], h, enc_out, cfg)
+        h = shard.act_gathered(L.rmsnorm(p["normx"], x, cfg.norm_eps))
+        x = x + shard.act_residual(
+            L.cross_attn_apply(p["xattn"], h, enc_out, cfg))
     aux = None
     if ffn != "none":
-        add, aux = _ffn(p, x, cfg)
-        x = x + add
+        add, aux = _ffn(p, x, cfg, shard)
+        x = x + shard.act_residual(add)
     return shard.act_residual(x), aux
 
 
@@ -233,11 +234,11 @@ def _block_decode(p, x, cache, pos: int, desc, cfg: ArchConfig):
         hq = L.rmsnorm(p["normx"], x, cfg.norm_eps)
         B = x.shape[0]
         H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-        q = (hq @ p["xattn"]["wq"]).reshape(B, 1, H, hd)
-        k = cache["xk"].reshape(B, -1, Hkv, hd)
-        v = cache["xv"].reshape(B, -1, Hkv, hd)
+        q = L._heads(hq @ p["xattn"]["wq"], B, 1, H, hd)
+        k = L._heads(cache["xk"], B, cfg.enc_len, Hkv, hd)
+        v = L._heads(cache["xv"], B, cfg.enc_len, Hkv, hd)
         o = L._attend(q, k, v, causal=False)
-        x = x + o.reshape(B, 1, H * hd) @ p["xattn"]["wo"]
+        x = x + L._merge(o, B, 1, H * hd) @ p["xattn"]["wo"]
     if ffn != "none":
         add, _ = _ffn(p, x, cfg)
         x = x + add
@@ -298,11 +299,12 @@ def _embed(params, cfg: ArchConfig, batch: Dict[str, Any]) -> torch.Tensor:
     over the first ``n_patches`` positions."""
     emb = params["embed"]
     tokens = torch.as_tensor(batch["tokens"], device=emb.device)
-    x = emb[tokens]
+    x = L.embed_lookup(emb, tokens)
     if cfg.frontend == "patches" and "patches" in batch:
         patches = torch.as_tensor(batch["patches"], device=emb.device)
         proj = patches.to(emb.dtype) @ params["patch_proj"]
         proj = proj[:, :min(cfg.n_patches, x.shape[1])]
+        x = reduce_partial(x)
         x[:, :proj.shape[1]] = proj
     return x
 
@@ -314,7 +316,7 @@ def _encode(params, cfg: ArchConfig, batch: Dict[str, Any],
     emb = params["embed"]
     e = torch.as_tensor(batch["frames"], device=emb.device).to(emb.dtype)
     e = _run_encoder(params, cfg, shard.act_residual(e), shard)
-    return L.rmsnorm(params["enc_norm"], e, cfg.norm_eps)
+    return shard.act_gathered(L.rmsnorm(params["enc_norm"], e, cfg.norm_eps))
 
 
 def _run_encoder(params, cfg, e, shard):
@@ -360,7 +362,7 @@ def forward(params, cfg: ArchConfig, batch: Dict[str, Any],
     x = shard.act_residual(_embed(params, cfg, batch))
     enc_out = _encode(params, cfg, batch, shard) if cfg.enc_dec else None
     x, aux = _run_groups(params, cfg, x, shard, enc_out=enc_out)
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    x = shard.act_gathered(L.rmsnorm(params["final_norm"], x, cfg.norm_eps))
     logits = x @ params["unembed"]
     return shard.act_logits(logits), aux
 

@@ -15,7 +15,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import PDT, _dense, rmsnorm, rmsnorm_init
+from repro_torch.models import sharding as shd
+from repro_torch.models.layers import (PDT, _dense, _heads, _merge,
+                                      rmsnorm, rmsnorm_init)
 
 PyTree = Any
 
@@ -51,7 +53,14 @@ def mamba_init(gen: torch.Generator, cfg: ArchConfig) -> PyTree:
 
 
 def _causal_conv(u: torch.Tensor, kern: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv. u (B,S,ch), kern (W,ch)."""
+    """Depthwise causal conv. u (B,S,ch), kern (W,ch).  Over DTensors each
+    card convolves its batch rows, whole along the sequence and the
+    channels (the shifts are views along a dim no card may split)."""
+    mesh = shd.mesh_of(u, kern)
+    if mesh is not None:
+        pl = shd.batch_heads(mesh, u.shape[0], None)
+        return shd.local_map(_causal_conv, mesh, (u, kern),
+                             (pl, shd.replicated(mesh)), pl)
     W = kern.shape[0]
     S = u.shape[1]
     acc = u * kern[-1]
@@ -67,6 +76,9 @@ def ssd_chunked(x, dt, A_log, B_, C_, chunk: int):
     x (B,S,H,P), dt (B,S,H) (post-softplus), A_log (H,), B_/C_ (B,S,N).
     Returns (y (B,S,H,P), final_state (B,H,N,P)).
     """
+    mesh = shd.mesh_of(x, dt, B_, C_)
+    if mesh is not None:
+        return _ssd_sharded(mesh, x, dt, A_log, B_, C_, chunk)
     Bb, S, H, P = x.shape
     N = B_.shape[-1]
     if S % chunk:
@@ -112,23 +124,61 @@ def ssd_chunked(x, dt, A_log, B_, C_, chunk: int):
     return y.to(x.dtype), prev
 
 
+def _ssd_sharded(mesh, x, dt, A_log, B_, C_, chunk):
+    """``ssd_chunked`` over DTensors: each card scans its batch rows and
+    its heads (split on the model axis where they divide) on its local
+    shards; the chunk einsums never view a split head dim."""
+    Bb, _, H, _ = x.shape
+    h = 2 if shd.heads_split(mesh, H) else None
+    xpl = shd.batch_heads(mesh, Bb, h)
+    bpl = shd.batch_heads(mesh, Bb, None)
+    spl = shd.batch_heads(mesh, Bb, None if h is None else 1)
+    return shd.local_map(
+        lambda *a: ssd_chunked(*a, chunk), mesh, (x, dt, A_log, B_, C_),
+        (xpl, xpl, shd.heads_only(mesh, None if h is None else 0), bpl,
+         bpl), (xpl, spl))
+
+
+def ssd_step(state, dt, A_log, b, c, xh, D):
+    """One token of the SSD: state (B,H,N,P), dt (B,H) (post-softplus),
+    b/c (B,N) and xh (B,H,P) float32, D (H,).  Returns (y (B,H,P), the
+    new state)."""
+    mesh = shd.mesh_of(state, dt, b, c, xh)
+    if mesh is not None:
+        H = xh.shape[1]
+        h = shd.heads_split(mesh, H)
+        Bb = xh.shape[0]
+        spl = shd.batch_heads(mesh, Bb, 1 if h else None)
+        vec = shd.heads_only(mesh, 0 if h else None)
+        bpl = shd.batch_heads(mesh, Bb, None)
+        return shd.local_map(ssd_step, mesh, (state, dt, A_log, b, c, xh, D),
+                             (spl, spl, vec, bpl, bpl, spl, vec), (spl, spl))
+    A = -torch.exp(A_log)
+    dA = torch.exp(dt * A)                                 # (B,H)
+    state = state * dA[..., None, None] + torch.einsum(
+        "bn,bh,bhp->bhnp", b, dt, xh)
+    y = torch.einsum("bn,bhnp->bhp", c, state)
+    y = y + D[None, :, None] * xh
+    return y, state
+
+
 def mamba_apply(p, x, cfg: ArchConfig, chunk: int = 256,
                 return_state: bool = False):
     """Full-sequence Mamba-2 block (train / prefill).  With
     ``return_state``, also (final state, the last W-1 conv inputs)."""
     Bb, S, d = x.shape
     inner, H, P, N = ssm_dims(cfg)
-    z = x @ p["wz"]                                        # (B,S,inner)
+    z = shd.pinned(x @ p["wz"])                            # (B,S,inner)
     u_in = torch.cat([x @ p["wx"], x @ p["wB"], x @ p["wC"]], -1)
     u = F.silu(_causal_conv(u_in, p["conv"]))
     xs, Bv, Cv = torch.split(u, [inner, N, N], dim=-1)
     dt = F.softplus((x @ p["wdt"]).float() + p["dt_bias"].float())
-    xh = xs.reshape(Bb, S, H, P)
+    xh = _heads(xs, Bb, S, H, P)
     ch = min(chunk, S) if S % chunk else chunk
     y, state = ssd_chunked(xh, dt, p["A_log"], Bv, Cv, ch)
     y = y + p["D"][None, None, :, None].to(y.dtype) * xh
-    y = y.reshape(Bb, S, inner)
-    y = rmsnorm(p["norm"], y * F.silu(z), cfg.norm_eps)
+    y = _merge(y, Bb, S, inner)
+    y = rmsnorm(p["norm"], shd.pinned(y * F.silu(z)), cfg.norm_eps)
     out = y @ p["wo"]
     if return_state:
         return out, (state, u_in[:, -(cfg.ssm_conv - 1):])
@@ -148,13 +198,9 @@ def mamba_decode(p, x, state, conv_cache, cfg: ArchConfig):
     xs, Bv, Cv = torch.split(u, [inner, N, N], dim=-1)
     dt = F.softplus((x @ p["wdt"]).float()
                     + p["dt_bias"].float())[:, 0]          # (B,H)
-    A = -torch.exp(p["A_log"])
-    dA = torch.exp(dt * A)                                 # (B,H)
-    xh = xs.reshape(Bb, H, P).float()
-    state = state * dA[..., None, None] + torch.einsum(
-        "bn,bh,bhp->bhnp", Bv[:, 0].float(), dt, xh)
-    y = torch.einsum("bn,bhnp->bhp", Cv[:, 0].float(), state)
-    y = y + p["D"][None, :, None] * xh
-    y = y.reshape(Bb, 1, inner).to(x.dtype)
+    xh = _heads(xs, Bb, H, P).float()
+    y, state = ssd_step(state, dt, p["A_log"], Bv[:, 0].float(),
+                        Cv[:, 0].float(), xh, p["D"])
+    y = _merge(y, Bb, 1, inner).to(x.dtype)
     y = rmsnorm(p["norm"], y * F.silu(z), cfg.norm_eps)
     return y @ p["wo"], state, win[:, 1:]

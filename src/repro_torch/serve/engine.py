@@ -49,7 +49,7 @@ def _prefill_block(p, x, desc, cfg, shard, enc_out, pad_to):
     """Block apply that also returns its cache (padded to pad_to)."""
     mixer, ffn = desc
     cache: Dict[str, torch.Tensor] = {}
-    h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
+    h = shard.act_gathered(L.rmsnorm(p["norm1"], x, cfg.norm_eps))
     B, S, _ = x.shape
     if mixer == "attn":
         h, (k, v) = L.attn_apply(p["attn"], h, cfg, causal=True,
@@ -67,15 +67,16 @@ def _prefill_block(p, x, desc, cfg, shard, enc_out, pad_to):
         h, (state, conv_tail) = M.mamba_apply(p["ssm"], h, cfg,
                                               return_state=True)
         cache["state"], cache["conv"] = state, conv_tail
-    x = x + h
+    x = x + shard.act_residual(h)
     if "xattn" in p:
-        hq = L.rmsnorm(p["normx"], x, cfg.norm_eps)
-        x = x + L.cross_attn_apply(p["xattn"], hq, enc_out, cfg)
+        hq = shard.act_gathered(L.rmsnorm(p["normx"], x, cfg.norm_eps))
+        x = x + shard.act_residual(
+            L.cross_attn_apply(p["xattn"], hq, enc_out, cfg))
         cache["xk"] = enc_out @ p["xattn"]["wk"]
         cache["xv"] = enc_out @ p["xattn"]["wv"]
     if ffn != "none":
-        add, _ = _ffn(p, x, cfg)
-        x = x + add
+        add, _ = _ffn(p, x, cfg, shard)
+        x = x + shard.act_residual(add)
     return shard.act_residual(x), cache
 
 
@@ -97,7 +98,7 @@ def prefill(params, cfg: ArchConfig, batch: Dict[str, Any],
                                                 shard, enc_out, pad_to)
             per_layer.append(cc)
         caches.append(per_layer[0] if count == 1 else _stack(per_layer))
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    x = shard.act_gathered(L.rmsnorm(params["final_norm"], x, cfg.norm_eps))
     logits = x @ params["unembed"]
     return shard.act_logits(logits), caches
 

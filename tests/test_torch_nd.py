@@ -103,8 +103,8 @@ def test_fallback_and_small_graph_policies():
     assert sorted(perm) == list(range(9))
 
 
-#: the service, distributed, LM serving and LM training slices' modules,
-#: which the import gate must reach
+#: the service, distributed, LM serving, LM training and launch slices'
+#: modules, which the import gate must reach
 SERVICE_SLICE = [f"repro_torch.{m}" for m in (
     "obs", "obs.tracer", "obs.metrics", "obs.instrument", "train",
     "train.fault", "core.dnd", "service", "service.api", "service.batch",
@@ -121,7 +121,10 @@ SERVICE_SLICE = [f"repro_torch.{m}" for m in (
     f"repro_torch.{m}" for m in (
         "tree", "optim", "optim.adamw", "optim.compress", "data",
         "data.pipeline", "train.step", "train.checkpoint", "launch",
-        "launch.train", "examples.train_lm")]
+        "launch.train", "examples.train_lm")] + [
+    f"repro_torch.{m}" for m in (
+        "roofline", "launch.mesh", "launch.specs", "launch.dryrun",
+        "launch.enrich", "launch.report", "launch.hillclimb")]
 
 
 def test_import_pulls_in_neither_jax_nor_reference():
