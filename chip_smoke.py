@@ -186,13 +186,34 @@ Phases, each of which must pass:
    bytes, the slope's FLOPs equal to the full-depth count; each cell's
    three terms, bottleneck, peak a card (and whether it fits in 80 GB)
    and collective counts;
-15. a ``{"kernels": [...]}`` line with each kernel's launches, error,
+15. the distributed ordering on a group (``dgraph.make_parts_group``, the
+   counterpart of the reference's ``make_parts_mesh``): a line says
+   whether the groups are distinct cards (where
+   ``torch.cuda.device_count()`` allows) or ``cuda:0`` repeated (the same
+   code path, the rows crossing inside the card).  On groups of 2, 4 and
+   8: ``distribute(grid3d(30, 30, 30), 8)`` ordered under both drivers,
+   each permutation's sha256 equal to phase 10's one-card permutation's,
+   the distributed kernels' launches equal to what
+   ``dgraph_ops.planned_launches`` gives the run's records (each member's
+   own), no plain version called, the wall and its split by stage, the
+   bytes copied between members; then the halo, the BFS (width 3) and
+   the matching (8 rounds) at each of phase 10's kernel buckets (the
+   root bucket, ``grid3d(100, 100, 100)`` over 8 parts and the frontier
+   waves' many-lane buckets of the BFS and of the matching) on each
+   group, each equal to the one-card call, and the members' kernels
+   (their part ranges' lane offsets included) to their plain versions on
+   the card (the matching at the path's cap, dense, at its lossless cap
+   and at a cap that drops proposals), with the call's CUDA-event time,
+   the members' kernels' alone, the one-card call's, launches a call and
+   the bytes copied between members;
+16. a ``{"kernels": [...]}`` line with each kernel's launches, error,
    times, bound and library time (rows 0-2 also with their phase 7
    launches and phase 8 multi-lane times, rows 7-10 with their launches
    on phase 10's distributed main path, row 7 marked off that path when
    it launched 0 times there, rows 9-10 with their designs' times, and
-   their times at the other two places), the card's name and power
-   limit, and as the last
+   their times at the other two places; rows 7-10 also with phase 15's
+   launches a call on each group, times and bytes), the card's name and
+   power limit, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without that last line.  Imports neither jax
@@ -208,7 +229,9 @@ distributed ordering of grid3d(30³) over 8 parts (wall, stage split,
 the dhalo stage's split, launches, the permutation's hash), and prints
 one JSON line and the card's name and power limit: run it for the
 parent and the change in one call, in the order parent, change, change,
-parent.
+parent.  With ``--groups D`` the same run also times the halo, BFS and
+matching at those buckets and the ordering with their parts on a group
+of D (phase 15's layout), in a tree that has groups.
 """
 from __future__ import annotations
 
@@ -1356,7 +1379,8 @@ def wave_groups(log: list, keep: dict, big_tags):
     from repro_torch.service import router
     real = router.execute_wave
 
-    def logged(works, level=None, tags=None, recovery=None, device=None):
+    def logged(works, level=None, tags=None, recovery=None, device=None,
+               **kw):
         groups = defaultdict(list)
         for w, tag in zip(works, tags):
             for item in (w if isinstance(w, list) else [w]):
@@ -1374,7 +1398,7 @@ def wave_groups(log: list, keep: dict, big_tags):
             if lanes > keep.get(("wide", kind), (0, None))[0]:
                 keep[("wide", kind)] = (lanes, ws)
         log.append(dict(wave))
-        return real(works, level, tags, recovery, device)
+        return real(works, level, tags, recovery, device, **kw)
     router.execute_wave = logged
     try:
         yield
@@ -1889,8 +1913,12 @@ def dhalo_split(split: dict):
             fn = module.halo_exchange_stacked
             stack.callback(setattr, module, "halo_exchange_stacked", fn)
             module.halo_exchange_stacked = flagged(fn)
-        stack.enter_context(on_card(build.load("dgraph"), "halo_launch",
-                                    events))
+        # the wrapper's C entry: the part-range one, or in a tree before
+        # part ranges the whole-lane one
+        lib = build.load("dgraph")
+        stack.enter_context(on_card(
+            lib, "halo_parts_launch" if hasattr(lib, "halo_parts_launch")
+            else "halo_launch", events))
         yield
     torch.cuda.synchronize()
     split.update({k: v[0] for k, v in host.items()})
@@ -2302,8 +2330,9 @@ def _dist_caps(dgs, nlm):
 def _halo_entry(K, x, gg, vd, out):
     """Row 8's C entry with its arguments, and its wrapper's call, in the
     tree on ``sys.path``: with resident slot tables (``K.lane_slots``) a
-    host array of each lane's table pointer; before them, the ghost ids
-    and ranges, which the kernel searched."""
+    host array of each lane's table pointer (and, with part ranges, the
+    whole range [0, P)); before them, the ghost ids and ranges, which the
+    kernel searched."""
     import torch
     L, P, nlm = x.shape
     G = gg.shape[2]
@@ -2312,6 +2341,9 @@ def _halo_entry(K, x, gg, vd, out):
                 lambda: K.halo(x, gg, vd))
     tables = list(K.lane_slots(gg.cpu(), vd.cpu(), nlm).to(x.device))
     ptrs = torch.tensor([tb.data_ptr() for tb in tables], dtype=torch.int64)
+    if hasattr(K, "part_range"):        # the entry takes a part range
+        return (("halo_parts_launch", x, ptrs, out, L, P, nlm, G, 0, P),
+                lambda: K.halo(x, tables))
     return (("halo_launch", x, ptrs, out, L, P, nlm, G),
             lambda: K.halo(x, tables))
 
@@ -2513,17 +2545,30 @@ def _dist_buckets(main_largest=None):
     return out
 
 
-def dist_rows_bench() -> dict:
-    """``chip_smoke.py --dist-rows SRC``: rows 7-10 alone (C entries; rows
-    7-8 also queued behind a device sleep, beside the launch floor) and
-    through their wrappers at the three buckets, in the package under SRC
-    (this tree's ``src`` or a parent commit's), each held to its plain
-    version, and a warm ordering with its dhalo split; one JSON line."""
+def dist_rows_bench(groups=None) -> dict:
+    """``chip_smoke.py --dist-rows SRC [--groups D]``: rows 7-10 alone (C
+    entries; rows 7-8 also queued behind a device sleep, beside the launch
+    floor) and through their wrappers at the three buckets, in the package
+    under SRC (this tree's ``src`` or a parent commit's), each held to its
+    plain version, and a warm ordering with its dhalo split; with a group
+    size D also the ordering under both drivers and the halo, BFS and
+    matching at each bucket with their parts on a group of D (phase 15);
+    one JSON line."""
     from repro_torch.kernels import build
     build.build_all()
     buckets = _dist_buckets()
-    out = {"order_grid3d_30": _dist_order(buckets.pop(0)[1]),
+    root = buckets.pop(0)[1]
+    out = {"order_grid3d_30": _dist_order(root),
            "launch_floor": launch_floor_ms()}
+    if groups:
+        group, distinct = parts_group(groups)
+        want = out["order_grid3d_30"]["perm_sha256"]
+        out["groups"] = {"size": groups, "distinct": distinct, **{
+            name: _group_kernel_case(group, dgs, srcs, seeds, width, rounds)
+            for name, dgs, srcs, seeds, width, rounds in buckets}}
+        for frontier in (True, False):
+            res = _group_order(root, group, frontier, want)
+            out["groups"][f"order_{res['driver']}"] = res
     for name, dgs, srcs, seeds, width, rounds in buckets:
         t, src, sd = _dist_inputs(dgs, srcs, seeds)
         nlm = t["nbr"].shape[2]
@@ -2545,9 +2590,8 @@ def phase_dist(main_run: dict) -> dict:
     """Phase 10: the distributed ordering (``core.dnd``) on the card."""
     main = _dist_main(main_run)
     reqs = _dist_requests(main)
-    cases = {}
-    for name, dgs, srcs, seeds, width, rounds in _dist_buckets(
-            main["largest"])[1:]:
+    cases, buckets = {}, _dist_buckets(main["largest"])[1:]
+    for name, dgs, srcs, seeds, width, rounds in buckets:
         cases[name] = _dist_kernel_case(dgs, srcs, seeds, width, rounds,
                                         both=name != "grid3d_100")
         log(f"phase 10 {name}: {json.dumps(cases[name])}")
@@ -2562,7 +2606,231 @@ def phase_dist(main_run: dict) -> dict:
         f"{json.dumps(floor)}")
     return {"main": {k: v for k, v in main.items()
                      if k not in ("perm", "dg", "largest")},
-            "requests": reqs, "cases": cases, "launch_floor": floor}
+            "requests": reqs, "cases": cases, "launch_floor": floor,
+            "perm_sha256": perm_sha(main["perm"]), "dg": main["dg"],
+            "buckets": buckets}
+
+
+def perm_sha(perm) -> str:
+    import hashlib
+    import numpy as np
+    return hashlib.sha256(np.asarray(perm, np.int64).tobytes()).hexdigest()
+
+
+# ---------------------------------------------------------------- groups
+#: phase 15's group sizes
+GROUP_SIZES = (2, 4, 8)
+#: the C entries of a group member's kernels (csrc/dgraph.cu)
+GROUP_ENTRIES = ("halo_parts_launch", "dbfs_parts_init_launch",
+                 "dbfs_parts_step_launch", "dmatch_parts_launch")
+
+
+def parts_group(size: int, nparts: int = 8):
+    """A group of ``size`` members for ``nparts`` parts and whether its
+    members are distinct cards: the host's first cards where it has as
+    many, else ``cuda:0`` repeated."""
+    import torch
+    from repro_torch.core import dgraph
+    if torch.cuda.device_count() >= size:
+        group = dgraph.make_parts_group(size, nparts)
+    else:
+        group = dgraph.make_parts_group(["cuda:0"] * size, nparts)
+    return group, group.distinct
+
+
+@contextlib.contextmanager
+def group_plain_calls(calls: list):
+    """Count into ``calls[0]`` every call of a plain version of the
+    distributed kernels, the group members' phases included, and of the
+    centralized kernels (``plain_calls``), while the block runs."""
+    from repro_torch.kernels import dgraph_ops
+    with contextlib.ExitStack() as stack:
+        for name in ("ell_relax_plain", "halo_plain", "dbfs_plain",
+                     "dmatch_plain", "dbfs_init_plain", "dbfs_step_plain",
+                     "_PlainMatch"):
+            fn = getattr(dgraph_ops, name)
+
+            def counted_fn(*args, _fn=fn, **kw):
+                calls[0] += 1
+                return _fn(*args, **kw)
+            stack.callback(setattr, dgraph_ops, name, fn)
+            setattr(dgraph_ops, name, counted_fn)
+        stack.enter_context(plain_calls(calls, []))
+        yield
+
+
+@contextlib.contextmanager
+def member_kernels(events: list):
+    """CUDA events around every call of a group member's C entries, on the
+    member's stream (``on_card``), while the block runs."""
+    from repro_torch.kernels import build
+    lib = build.load("dgraph")
+    with contextlib.ExitStack() as stack:
+        for name in GROUP_ENTRIES:
+            stack.enter_context(on_card(lib, name, events))
+        yield
+
+
+def _group_order(dg, group, frontier: bool, want_sha: str) -> dict:
+    """One ordering of ``dg`` (seed 0, default DNDConfig, one driver) with
+    its parts on ``group``: wall, split by stage, launches against the
+    plan, bytes copied between members, the permutation's hash, which
+    must be ``want_sha``."""
+    import torch
+    from repro_torch import obs
+    from repro_torch.core import dgraph
+    from repro_torch.core.dnd import (DNDConfig,
+                                      distributed_nested_dissection)
+    from repro_torch.kernels import dgraph_ops
+    by_kind, calls = StageByKind(), [0]
+    with group_plain_calls(calls):
+        torch.cuda.synchronize()
+        for attr in DIST_COUNTS.values():
+            setattr(dgraph_ops, attr, 0)
+        obs.register_collector(by_kind)
+        t0 = time.perf_counter()
+        try:
+            with dgraph.instrument() as ins:
+                perm = distributed_nested_dissection(
+                    dg, 0, DNDConfig(frontier=frontier), group=group)
+        finally:
+            obs.unregister_collector(by_kind)
+        wall = time.perf_counter() - t0
+    launches = {k: getattr(dgraph_ops, a) for k, a in DIST_COUNTS.items()}
+    planned = dgraph_ops.planned_launches(ins.launches)
+    want = {k: planned[a] for k, a in DIST_COUNTS.items()}
+    split = {k: by_kind.seconds.get(k, 0.0) for k in (
+        "dmatch", "dbfs", "dhalo", "fm", "match", "bfs", "rebuild",
+        "endgame")}
+    split["host"] = wall - sum(v for k, v in split.items()
+                               if k != "endgame")
+    dist = [r for r in ins.launches
+            if r["kind"] in ("dhalo", "dbfs", "dmatch")]
+    sizes = sorted({r.get("group", 1) for r in dist})
+    res = {"driver": "frontier" if frontier else "dfs", "wall_s": wall,
+           "split_s": split, "launches": launches,
+           "calls": {k: sum(r["kind"] == k for r in dist)
+                     for k in ("dhalo", "dbfs", "dmatch")},
+           "calls_on_group": sum(r.get("group", 1) == group.size
+                                 for r in dist),
+           "group_sizes": sizes,
+           "xbytes": sum(r.get("xbytes", 0) for r in dist),
+           "plain_calls": calls[0], "perm_sha256": perm_sha(perm)}
+    if res["perm_sha256"] != want_sha:
+        raise AssertionError(f"group of {group.size}: the permutation "
+                             f"differs from the one card's: {res}")
+    if launches != want:
+        raise AssertionError(f"group of {group.size}: launches {launches}, "
+                             f"the plan gives {want}")
+    if calls[0] or not res["calls_on_group"] or sizes[-1] != group.size:
+        raise AssertionError(f"group of {group.size}: plain calls, or no "
+                             f"call on the whole group: {res}")
+    return res
+
+
+def _group_kernel_case(group, dgs, srcs, seeds, width=3,
+                       rounds=8) -> dict:
+    """The halo, BFS and matching at one bucket with their parts on
+    ``group``: each equal to the one-card call, and the raw kernels'
+    results to their plain versions on the card (the matching at the
+    path's cap, then dense, at the lossless cap and at a cap that drops
+    proposals); the call's CUDA-event time (upload to download), the
+    members' kernels' alone, the one-card call's, launches a call and
+    bytes copied between members a call."""
+    import numpy as np
+    import torch
+    from repro_torch.core import dgraph
+    from repro_torch.kernels import dgraph_ops as K
+    t, src, sd = _dist_inputs(dgs, srcs, seeds)
+    L, P, nlm, d = t["nbr"].shape
+    where = (L, P, nlm, d, t["gg"].shape[2], group.size)
+    x = _halo_payload(t)
+    xs = list(x.cpu().numpy())
+    caps = _dist_caps(dgs, nlm)
+    ranges = group.layout(P)
+    calls = {
+        "halo": lambda grp: dgraph.halo_exchange_stacked(dgs, xs, group=grp),
+        "dbfs": lambda grp: dgraph.distributed_bfs_stacked(
+            dgs, srcs, width, group=grp),
+        "dmatch": lambda grp: dgraph.distributed_matching_stacked(
+            dgs, seeds, rounds, group=grp)}
+    counts = {"halo": ("halo_launches",),
+              "dbfs": ("dbfs_launches", "relax_launches"),
+              "dmatch": ("dmatch_launches",)}
+    out = {"shape": list(where)}
+    for name, call in calls.items():
+        one = call(None)
+        before = {c: getattr(K, c) for c in counts[name]}
+        events = []
+        with dgraph.instrument() as ins, member_kernels(events):
+            got = call(group)
+        torch.cuda.synchronize()
+        rec, = ins.launches
+        launched = sum(getattr(K, c) - before[c] for c in counts[name])
+        planned = sum(K.planned_launches([rec])[c] for c in counts[name])
+        if not all(np.array_equal(a, b) for a, b in zip(got, one)):
+            raise AssertionError(f"{name} on a group of {group.size} "
+                                 f"differs from one card at {where}")
+        if launched != planned or rec["group"] != len(ranges):
+            raise AssertionError(f"{name} on a group of {group.size}: "
+                                 f"{launched} launches, the plan gives "
+                                 f"{planned}")
+        out[name] = {"ms": cuda_ms(lambda: call(group), 3),
+                     "one_card_ms": cuda_ms(lambda: call(None), 3),
+                     "kernel_ms": device_s(events) * 1e3,
+                     "launches_per_call": launched,
+                     "xbytes_per_call": rec["xbytes"]}
+    # the raw kernels against their plain versions on the card: the halo
+    # and the BFS through the group's own schedule, the matching at every
+    # cap (the path's first)
+    moved = []
+    halo = dgraph._halo_group(group, ranges, dgs, xs, t["gg"].shape[2],
+                              moved)
+    _exact("halo on a group", torch.from_numpy(halo).cuda(),
+           K.halo_plain(x, K.lane_slots(t["gg"], t["vd"], nlm)), where)
+    dist = dgraph._dbfs_group(group, ranges, dgs, srcs, width, moved)
+    _exact("dbfs on a group", torch.from_numpy(dist).cuda(),
+           K.dbfs_plain(t["nbr"], src, t["gg"], t["vd"], width), where)
+    margs = (t["nbr"], t["ew"], t["gg"], t["vd"], t["nl"], sd)
+    for cap in caps:
+        got = dgraph._dmatch_group(group, ranges, dgs, seeds, rounds, cap,
+                                   moved)
+        _exact(f"dmatch on a group, cap {cap}", torch.from_numpy(got).cuda(),
+               K.dmatch_plain(*margs, rounds, cap), where)
+    out["dmatch"]["caps"] = list(caps)
+    return out
+
+
+def phase_groups(dist: dict) -> dict:
+    """Phase 15: the distributed ordering and its collectives on groups of
+    2, 4 and 8 (distinct cards where the host has them)."""
+    import torch
+    cards = torch.cuda.device_count()
+    groups = {size: parts_group(size) for size in GROUP_SIZES}
+    log(f"phase 15 groups: {cards} card(s) on this host; " + ", ".join(
+        f"{size} members on " + ("distinct cards" if distinct
+                                 else "cuda:0 repeated")
+        for size, (_, distinct) in groups.items()))
+    dg, want = dist.pop("dg"), dist["perm_sha256"]
+    orders, cases = {}, {}
+    for size, (group, distinct) in groups.items():
+        orders[size] = {"distinct": distinct, **{
+            res["driver"]: res for res in (
+                _group_order(dg, group, frontier, want)
+                for frontier in (True, False))}}
+        log(f"phase 15 grid3d(30,30,30) over 8 parts on a group of {size}: "
+            f"{json.dumps(orders[size])}")
+    # every bucket of phase 10's kernel cases: one lane of 131,072 rows a
+    # part at 100³, and lanes of several parts at the others, where the
+    # part ranges' lane offsets are not zero
+    for name, *bucket in dist.pop("buckets"):
+        cases[name] = {}
+        for size, (group, distinct) in groups.items():
+            cases[name][size] = dict(_group_kernel_case(group, *bucket),
+                                     distinct=distinct)
+            log(f"phase 15 {name} bucket on a group of {size}: "
+                f"{json.dumps(cases[name][size])}")
+    return {"orders": orders, "buckets": cases, "cards": cards}
 
 
 # ---------------------------------------------------------------- LM
@@ -3482,16 +3750,19 @@ def main() -> int:
         print("no CUDA device: this smoke run needs the card",
               file=sys.stderr)
         return 1
-    # --dist-rows SRC: rows 7-10 alone, in the package under SRC
+    # --dist-rows SRC [--groups D]: rows 7-10 alone, in the package under
+    # SRC (and on a group of D)
     rows_only = sys.argv[1:2] == ["--dist-rows"]
     src_root = Path(sys.argv[2]).resolve() if rows_only else SRC
+    groups = (int(sys.argv[sys.argv.index("--groups") + 1])
+              if rows_only and "--groups" in sys.argv else None)
     if not (src_root / "repro_torch").is_dir():
         print(f"the port's package is missing under {src_root}",
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(src_root))
     if rows_only:
-        rows = dist_rows_bench()
+        rows = dist_rows_bench(groups)
         print(json.dumps({"dist_rows": rows, "src": str(src_root)}))
         print(gpu_line(), flush=True)
         return 0
@@ -3514,6 +3785,7 @@ def main() -> int:
     phase_examples()
     phase_train(gpu)
     phase_roofline(gpu)
+    grouped = phase_groups(dist)
     src = "src/repro_torch/kernels/csrc"
     big = ell["cases"][-1]                      # grid3d(100, 100, 100)
 
@@ -3606,6 +3878,18 @@ def main() -> int:
             "many_lanes": dict(
                 {k: many[k] for k in keys},
                 shape=many.get("shape", wide["shape"]))}
+        # phase 15: the route on a group (the grid design, each member's
+        # own launches): launches on the ordering under both drivers, and
+        # each bucket's call (the BFS's for the relaxation)
+        on_group = "dbfs" if case == "relax" else case
+        r["groups"] = {
+            str(size): {
+                "distinct": order["distinct"],
+                "launches": order["frontier"]["launches"][name],
+                "launches_dfs": order["dfs"]["launches"][name],
+                **{bucket: by_size[size][on_group]
+                   for bucket, by_size in grouped["buckets"].items()}}
+            for size, order in grouped["orders"].items()}
         rows.append(r)
     # the multi-lane cases of rows 0-2 (phase 8): shapes, times, and the
     # service path's launches (phase 7)

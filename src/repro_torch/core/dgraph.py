@@ -28,6 +28,15 @@ Two kinds of routines live here:
     Only the real lanes launch: there is no power-of-two lane padding
     (the reference's ``_lane_pad`` bounded its jit cache), so each launch
     record has ``lanes_pad == lanes``.
+  * **groups of devices** (``make_parts_group``, ``PartsGroup``) — the
+    counterpart of the reference's ``make_parts_mesh``: a collective
+    called with ``group=`` places the P parts on the group's members in
+    contiguous blocks, each member's kernels write its own parts' rows,
+    and each ``all_gather`` is a copy of every member's rows into the
+    others' replicas (``Tensor.copy_``: a peer copy between cards, a copy
+    inside the card between members on one card), ordered by CUDA events
+    and no host synchronisation.  The result is the one-device call's, bit
+    for bit, for every group.
   * **structure rebuilds** (``distribute``, ``dgraph_induced``,
     ``dgraph_fold``, ``dgraph_coarsen``) — host reshuffles of the stacked
     arrays that model the owner-routed ``MPI_Alltoallv`` of the paper's
@@ -36,13 +45,15 @@ Two kinds of routines live here:
 
 The instrumentation (``instrument``, ``track_gathers``, ``track_halos``,
 ``stage`` and the emitters) lives in ``obs.instrument`` and is
-re-exported here under the reference's names.  The reference's JAX mesh
-and jit-cache management (``make_parts_mesh``, ``_JitCache``,
-``set_jit_cache_capacity``, ``jit_cache_size``) has no counterpart.
+re-exported here under the reference's names.  The reference's jit-cache
+management (``_JitCache``, ``set_jit_cache_capacity``, ``jit_cache_size``)
+has no counterpart: PyTorch compiles nothing a shape.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 import time
 from typing import List, Optional, Sequence, Tuple
 
@@ -60,12 +71,13 @@ from repro_torch.util import HostStage, download, download_into, \
     pow2, resolve_device, upload
 
 __all__ = [
-    "DGraph", "boundary_mask", "color_by_gid",
+    "DGraph", "PartsGroup", "boundary_mask", "color_by_gid",
     "dgraph_arcs", "dgraph_bucket", "dgraph_coarsen", "dgraph_fold",
     "dgraph_induced", "distribute", "distributed_bfs",
     "distributed_bfs_stacked", "distributed_matching",
     "distributed_matching_stacked", "ghost_slots", "halo_exchange_fn",
-    "halo_exchange_stacked", "halo_reference", "instrument", "np_hash_mix",
+    "halo_exchange_stacked", "halo_reference", "instrument",
+    "make_parts_group", "np_hash_mix",
     "pull_by_gid", "reshard_vector", "scatter_by_gid", "shard_gids",
     "shard_vector", "stage", "to_host", "track_gathers",
     "track_halos", "unshard_vector", "valid_mask", "_note_band_stats",
@@ -212,6 +224,153 @@ def distribute(g: Graph, nparts: int,
     src = np.repeat(np.arange(n, dtype=np.int64), g.degrees())
     return _build_dgraph(vtxdist, src, g.adjncy, g.adjwgt, g.vwgt,
                          bucket=bucket)
+
+
+# ------------------------------------------------------------------ #
+# groups of devices: the counterpart of the reference's parts mesh
+# ------------------------------------------------------------------ #
+class PartsGroup:
+    """D devices that hold a distributed graph's P parts (the reference's
+    ``parts`` mesh, ``make_parts_mesh``; built by ``make_parts_group``).
+
+    A collective of P parts runs on the group's first ``min(D, P)``
+    members, member g holding the contiguous, balanced block of parts
+    ``layout(P)[g]`` = [g·P // D', (g+1)·P // D'); at D' = 1 it is the
+    one-device call on the first member.  ``ranges`` is the layout of the
+    group's own ``nparts``.  Each member has its own CUDA stream (on the
+    CPU none); a call allocates each member's
+    replica of the per-row state, (L, P, ...) every part's rows, on that
+    member's stream, and synchronises every member before it returns, so
+    nothing of a call outlives it.  A sequence of devices may repeat one:
+    two members on one card take the path two cards take, their rows
+    crossing by a copy inside the card instead of over NVLink.  Calls on
+    one group are serialised (``lock``).
+    """
+
+    def __init__(self, devices: Sequence[torch.device], nparts: int):
+        self.devices = tuple(devices)
+        self.nparts = int(nparts)
+        self.streams = tuple(torch.cuda.Stream(d) if d.type == "cuda"
+                             else None for d in self.devices)
+        self.lock = threading.RLock()
+        self.ranges = self.layout(self.nparts)
+
+    def __repr__(self) -> str:
+        return (f"PartsGroup({[str(d) for d in self.devices]}, "
+                f"nparts={self.nparts})")
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    @property
+    def distinct(self) -> bool:
+        """Whether no two members share a device."""
+        return len(set(self.devices)) == len(self.devices)
+
+    def layout(self, P: int) -> Tuple[Tuple[int, int], ...]:
+        """The part ranges of a P-part collective, one a member of the
+        first ``min(D, P)``."""
+        D = min(self.size, int(P))
+        return tuple((g * P // D, (g + 1) * P // D) for g in range(D))
+
+    @contextlib.contextmanager
+    def on(self, m: int):
+        """Member m's device and stream current (the launches' and
+        copies' of its rows)."""
+        if self.streams[m] is None:
+            yield
+            return
+        with torch.cuda.device(self.devices[m]), \
+                torch.cuda.stream(self.streams[m]):
+            yield
+
+    def record(self, m: int):
+        """An event after what member m has enqueued (None on the CPU)."""
+        if self.streams[m] is None:
+            return None
+        ev = torch.cuda.Event()
+        ev.record(self.streams[m])
+        return ev
+
+    @contextlib.contextmanager
+    def copying(self, src: int, dst: int, event):
+        """The streams of a copy of member ``src``'s rows into member
+        ``dst``'s replica, after ``event`` (``record(src)``): on one device,
+        dst's stream waits for the event; between two, the copy runs on
+        src's stream (PyTorch orders it with dst's both ways)."""
+        if self.streams[dst] is None:
+            yield
+            return
+        with contextlib.ExitStack() as stack:
+            if self.devices[src] != self.devices[dst]:
+                stack.enter_context(torch.cuda.stream(self.streams[src]))
+            stack.enter_context(torch.cuda.device(self.devices[dst]))
+            stack.enter_context(torch.cuda.stream(self.streams[dst]))
+            self.streams[dst].wait_event(event)
+            yield
+
+    def synchronize(self) -> None:
+        for s in self.streams:
+            if s is not None:
+                s.synchronize()
+
+
+def make_parts_group(devices, nparts: int) -> PartsGroup:
+    """The group of devices that holds P = ``nparts`` parts, the
+    counterpart of the reference's ``make_parts_mesh``.
+
+    ``devices`` is an int D, the first D cards (raises if fewer exist:
+    the group never folds onto fewer), or a sequence of devices, which may
+    repeat one (``["cuda:0"] * D`` runs the group's every line on one
+    card) and may be all CPUs (the kernels' plain versions under the same
+    schedule: ``make_parts_group(["cpu"] * 3, 8)``).  At most ``nparts``
+    members; no mix of CPU and card.  No collective forms a group by
+    itself: ``group=None`` keeps the one-device path.
+    """
+    if isinstance(devices, int):
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if devices < 1 or devices > have:
+            raise RuntimeError(f"a group of {devices} cards: this host has "
+                               f"{have}")
+        devs = [torch.device("cuda", i) for i in range(devices)]
+    else:
+        devs = [torch.device(d) for d in devices]
+        if not devs or len({d.type for d in devs}) != 1 or \
+                devs[0].type not in ("cpu", "cuda"):
+            raise ValueError(f"want a non-empty sequence of CPU or of CUDA "
+                             f"devices, got {list(devices)}")
+        if devs[0].type == "cuda":
+            resolve_device("cuda")
+            devs = [torch.device("cuda", d.index or 0) for d in devs]
+            have = torch.cuda.device_count()
+            if max(d.index for d in devs) >= have:
+                raise RuntimeError(f"{[str(d) for d in devs]}: this host has "
+                                   f"{have} cards")
+        else:
+            devs = [torch.device("cpu")] * len(devs)
+    if len(devs) > nparts:
+        raise ValueError(f"{len(devs)} devices for {nparts} parts")
+    return PartsGroup(devs, nparts)
+
+
+def _gather_rows(group: PartsGroup, ranges, rows: Sequence[Sequence]) -> int:
+    """The reference's ``all_gather`` on a group: each member m's rows of
+    parts ``ranges[m]`` of each tensor ``rows[m][i]`` ((L, P, ...) replicas,
+    one list a member) copied into every other member's ``rows[k][i]``,
+    each copy after an event of m's stream.  Returns the bytes copied."""
+    events = [group.record(m) for m in range(len(ranges))]
+    moved = 0
+    for k in range(len(ranges)):
+        for m, (p0, p1) in enumerate(ranges):
+            if m == k:
+                continue
+            with group.copying(m, k, events[m]):
+                for dst, src in zip(rows[k], rows[m]):
+                    part = src[:, p0:p1]
+                    dst[:, p0:p1].copy_(part, non_blocking=True)
+                    moved += part.numel() * part.element_size()
+    return moved
 
 
 # ------------------------------------------------------------------ #
@@ -621,10 +780,74 @@ def stage_halo(xs: Sequence[np.ndarray], G: int,
     return payload, buf[L * P * nlm:].view(L, P, nlm + G)
 
 
+def _placement(group: Optional[PartsGroup], nparts: int, device):
+    """Where a P-part collective runs: ``(device, None)`` on one device
+    (the group's first member where its layout of P parts has one), else
+    ``(None, ranges)``, the group's layout."""
+    if group is None:
+        return resolve_device(device), None
+    ranges = group.layout(nparts)
+    if len(ranges) == 1:
+        return group.devices[0], None
+    return None, ranges
+
+
+def _group_note(group: Optional[PartsGroup], ranges, moved: list) -> dict:
+    """A group call's launch record fields: its members and the bytes
+    copied between them."""
+    if group is None:
+        return {}
+    return {"group": len(ranges) if ranges else 1,
+            "xbytes": int(sum(moved))}
+
+
+def _load_key(kind: str, dev, ranges) -> tuple:
+    """A dispatch's ``obs.first_use`` key: per device type, or per
+    group size."""
+    return (kind, "group", len(ranges)) if ranges else (kind, dev.type)
+
+
+def _halo_group(group: PartsGroup, ranges, dgs, xs, G: int, moved: list
+                ) -> np.ndarray:
+    """A halo call on a group: each member uploads its parts' rows of
+    the payload (from its block of the thread's pinned stage, sized for
+    every member's rows) into its replica, the rows are gathered, each
+    member's kernel extends its parts, and each downloads its rows."""
+    L, (P, nlm) = len(xs), xs[0].shape
+    row = L * (2 * nlm + G)
+    stage = _HALO_STAGE.take(P * row, group.devices[0])
+    reps, outs = [], []
+    for m, (p0, p1) in enumerate(ranges):
+        dev, pr = group.devices[m], p1 - p0
+        with group.on(m):
+            buf = stage[p0 * row:p1 * row]
+            payload = buf[:L * pr * nlm].view(L, pr, nlm)
+            words = payload.numpy()
+            for i, x in enumerate(xs):
+                words[i] = x[p0:p1].view(np.int32)
+            rep = torch.empty((L, P, nlm), dtype=torch.int32, device=dev)
+            rep[:, p0:p1].copy_(payload, non_blocking=True)
+            reps.append(rep)
+            outs.append(buf[L * pr * nlm:].view(L, pr, nlm + G))
+    moved.append(_gather_rows(group, ranges, [[r] for r in reps]))
+    for m, (p0, p1) in enumerate(ranges):
+        with group.on(m):
+            tables = [ghost_slots(d, group.devices[m]) for d in dgs]
+            ext = dgraph_ops.halo(reps[m], tables, parts=(p0, p1))
+            outs[m].copy_(ext, non_blocking=True)
+    group.synchronize()
+    out = np.empty((L, P, nlm + G), np.int32)
+    for m, (p0, p1) in enumerate(ranges):
+        out[:, p0:p1] = outs[m].numpy()
+    return out
+
+
 def halo_exchange_stacked(dgs: Sequence[DGraph],
                           xs: Sequence[np.ndarray],
                           tags: Optional[Sequence] = None,
-                          device=None) -> List[np.ndarray]:
+                          device=None,
+                          group: Optional[PartsGroup] = None
+                          ) -> List[np.ndarray]:
     """Halo-exchange many same-bucket graphs in ONE kernel launch.
 
     ``xs[i]`` is graph i's (P, n_loc_max) sharded vector of 4-byte words
@@ -637,10 +860,12 @@ def halo_exchange_stacked(dgs: Sequence[DGraph],
     the thread's pinned buffer (``stage_halo``), uploads it in one copy,
     reads each graph's ghost slot table where it is kept
     (``ghost_slots``), and downloads the result in one copy into the same
-    buffer.
+    buffer.  With ``group`` (``make_parts_group``) the parts lie on its
+    members: one launch a member, its rows gathered into the others'
+    first (``_halo_group``).
     """
-    dev = resolve_device(device)
     nparts, nlm, _, G = key = _same_bucket(dgs, "halo_exchange_stacked")
+    dev, ranges = _placement(group, nparts, device)
     t0 = time.perf_counter()
     xs = [np.asarray(x) for x in xs]
     dtype = xs[0].dtype
@@ -652,28 +877,37 @@ def halo_exchange_stacked(dgs: Sequence[DGraph],
         raise ValueError(f"want one ({nparts}, {nlm}) vector a graph, got "
                          f"{[x.shape for x in xs]} for {L} graphs")
 
+    moved: list = []
+
     def dispatch():
+        if ranges:
+            with group.lock:
+                return _halo_group(group, ranges, dgs, xs, G, moved)
         tables = [ghost_slots(d, dev) for d in dgs]
         payload, result = stage_halo(xs, G, dev)
         return download_into(dgraph_ops.halo(upload(payload, dev), tables),
                              result)
 
-    out = obs.timed_dispatch("halo", "dhalo", ("dhalo", dev.type), dispatch,
-                             since=t0, lanes=L, lanes_pad=L, bucket=key)
+    out = obs.timed_dispatch("halo", "dhalo", _load_key("dhalo", dev, ranges),
+                             dispatch, since=t0, lanes=L, lanes_pad=L,
+                             bucket=key)
     out = out.view(dtype)
     # words: the reference's model of the launch's all_gather traffic
     _note_launch("dhalo", nparts, L, L, key[1:], 1, L * nparts * nlm,
-                 **_tags(tags))
+                 **_tags(tags), **_group_note(group, ranges, moved))
     for _ in range(L):                   # per-work sync budget
         _note_halo(nparts * nlm)
     return [out[i] for i in range(L)]
 
 
-def halo_exchange_fn(dg: DGraph, device=None):
+def halo_exchange_fn(dg: DGraph, device=None,
+                     group: Optional[PartsGroup] = None):
     """Returns halo(x (P, n_loc_max)) -> (P, n_loc_max + n_ghost_max), the
-    one-lane form of ``halo_exchange_stacked`` on ``device``."""
+    one-lane form of ``halo_exchange_stacked`` on ``device`` or
+    ``group``."""
     def halo(x):
-        return halo_exchange_stacked([dg], [x], device=device)[0]
+        return halo_exchange_stacked([dg], [x], device=device,
+                                     group=group)[0]
     return halo
 
 
@@ -696,49 +930,92 @@ def halo_reference(dg: DGraph, x: np.ndarray) -> np.ndarray:
 # ------------------------------------------------------------------ #
 # distributed band-BFS (lane-stacked)
 # ------------------------------------------------------------------ #
+def _dbfs_group(group: PartsGroup, ranges, dgs, srcs, width: int,
+                moved: list) -> np.ndarray:
+    """A BFS call on a group: each member starts its parts' distances
+    (``dgraph_ops.dbfs_init``), then each step gathers the distances and
+    each member relaxes its parts (``dbfs_step``); the reference's
+    ``scan`` of ``all_gather`` and relaxation."""
+    L, (P, nlm) = len(dgs), dgs[0].nbr_gst.shape[:2]
+    nbrs, bufs, slots = [], [], []
+    for m, (p0, p1) in enumerate(ranges):
+        dev = group.devices[m]
+        with group.on(m):
+            nbrs.append(_lanes([d.nbr_gst[p0:p1] for d in dgs], dev))
+            bufs.append(torch.empty((2, L, P, nlm), dtype=torch.int32,
+                                    device=dev))
+            slots.append(dgraph_ops.dbfs_init(
+                _lanes([s[p0:p1] for s in srcs], dev),
+                _lanes([d.ghost_gid[p0:p1] for d in dgs], dev),
+                _lanes([d.vtxdist for d in dgs], dev), bufs[m][0],
+                (p0, p1)))
+    for k in range(width):
+        moved.append(_gather_rows(group, ranges, [[b[k % 2]] for b in bufs]))
+        for m, parts in enumerate(ranges):
+            with group.on(m):
+                dgraph_ops.dbfs_step(nbrs[m], bufs[m][k % 2],
+                                     bufs[m][(k + 1) % 2], slots[m], parts)
+    out = np.empty((L, P, nlm), np.int32)
+    for m, (p0, p1) in enumerate(ranges):
+        with group.on(m):
+            out[:, p0:p1] = download(bufs[m][width % 2][:, p0:p1])
+    group.synchronize()
+    return out
+
+
 def distributed_bfs_stacked(dgs: Sequence[DGraph],
                             srcs: Sequence[np.ndarray],
                             width: int,
                             tags: Optional[Sequence] = None,
-                            device=None) -> List[np.ndarray]:
+                            device=None,
+                            group: Optional[PartsGroup] = None
+                            ) -> List[np.ndarray]:
     """Band-distance sweeps of many same-bucket graphs in ONE call.
 
     ``width`` synchronous steps, each a halo exchange and a min-plus
     relaxation (``ell_relax_step``) of every part against its extended
     vector; distances beyond ``width`` stay ``dgraph_ops.BIG``.  Per-lane
     steps never mix lanes, so each lane equals its singleton sweep bit
-    for bit.  ``tags`` attributes lanes to requests.
+    for bit.  ``tags`` attributes lanes to requests.  With ``group`` the
+    parts lie on its members, a step a gather and a launch a member
+    (``_dbfs_group``).
     """
-    dev = resolve_device(device)
     nparts, nlm, dmax, G = key = _same_bucket(dgs,
                                               "distributed_bfs_stacked")
+    dev, ranges = _placement(group, nparts, device)
     t0 = time.perf_counter()
     L = len(dgs)
+    moved: list = []
 
     def dispatch():
+        if ranges:
+            with group.lock:
+                return _dbfs_group(group, ranges, dgs, srcs, width, moved)
         return download(dgraph_ops.dbfs(
             _lanes([d.nbr_gst for d in dgs], dev), _lanes(srcs, dev),
             _lanes([d.ghost_gid for d in dgs], dev),
             _lanes([d.vtxdist for d in dgs], dev), width))
 
-    dist = obs.timed_dispatch("bfs", "dbfs", ("dbfs", dev.type), dispatch,
-                              since=t0, lanes=L, lanes_pad=L, bucket=key,
-                              width=width)
+    dist = obs.timed_dispatch("bfs", "dbfs", _load_key("dbfs", dev, ranges),
+                              dispatch, since=t0, lanes=L, lanes_pad=L,
+                              bucket=key, width=width)
     # words: the reference's model of the all_gather traffic (one
     # exchange of the distances a step)
     _note_launch("dbfs", nparts, L, L, key[1:], width,
-                 width * L * nparts * nlm, **_tags(tags))
+                 width * L * nparts * nlm, **_tags(tags),
+                 **_group_note(group, ranges, moved))
     return [dist[i] for i in range(L)]
 
 
 def distributed_bfs(dg: DGraph, src_mask: np.ndarray, width: int,
-                    device=None) -> np.ndarray:
+                    device=None,
+                    group: Optional[PartsGroup] = None) -> np.ndarray:
     """Band-graph distance sweep (§3.3) on the distributed structure: one
     halo exchange per relaxation — the paper's 'spreading distance
     information from all of the separator vertices, using our halo exchange
     routine'.  One-lane wrapper over ``distributed_bfs_stacked``."""
     return distributed_bfs_stacked([dg], [src_mask], width,
-                                   device=device)[0]
+                                   device=device, group=group)[0]
 
 
 # ------------------------------------------------------------------ #
@@ -763,11 +1040,54 @@ def _match_proposal_cap(dgs: Sequence[DGraph], nlm: int) -> int:
     return min(nlm, -(-k // q) * q)
 
 
+def _dmatch_group(group: PartsGroup, ranges, dgs, seeds, rounds: int,
+                  cap: int, moved: list) -> np.ndarray:
+    """A matching call on a group (the reference's round, dgraph.py
+    1052-1118): each member proposes for its parts; the proposals are
+    gathered (at the cap's width with a cap); each member posts every
+    part's proposals to its own winner table, so that each derives the
+    whole table, and commits its parts; the mates are gathered before the
+    next round's proposals read the ghosts' (``dgraph_ops.DMatchParts``)."""
+    L, (P, nlm) = len(dgs), dgs[0].nbr_gst.shape[:2]
+    members = []
+    for m, (p0, p1) in enumerate(ranges):
+        dev = group.devices[m]
+        with group.on(m):
+            members.append(dgraph_ops.DMatchParts(
+                _lanes([d.nbr_gst[p0:p1] for d in dgs], dev),
+                _lanes([d.ewgt_gst[p0:p1] for d in dgs], dev),
+                _lanes([d.ghost_gid[p0:p1] for d in dgs], dev),
+                _lanes([d.vtxdist for d in dgs], dev),
+                _lanes([d.n_loc for d in dgs], dev),
+                _lanes([s & 0x7FFFFFFF for s in seeds], dev),
+                (p0, p1), cap))
+    for r in range(rounds):
+        if r:
+            moved.append(_gather_rows(
+                group, ranges, [mm.gathered("commit") for mm in members]))
+        for m, mm in enumerate(members):
+            with group.on(m):
+                mm.propose(r)
+        moved.append(_gather_rows(
+            group, ranges, [mm.gathered("propose") for mm in members]))
+        for m, mm in enumerate(members):
+            with group.on(m):
+                mm.finish(r)
+    out = np.empty((L, P, nlm), np.int32)
+    for m, (p0, p1) in enumerate(ranges):
+        with group.on(m):
+            out[:, p0:p1] = download(members[m].match[:, p0:p1])
+    group.synchronize()
+    return out
+
+
 def distributed_matching_stacked(dgs: Sequence[DGraph],
                                  seeds: Sequence[int],
                                  rounds: int = 8,
                                  tags: Optional[Sequence] = None,
-                                 device=None) -> List[np.ndarray]:
+                                 device=None,
+                                 group: Optional[PartsGroup] = None
+                                 ) -> List[np.ndarray]:
     """Match many same-bucket graphs in ONE call.
 
     Returns, per graph, the sharded (P, n_loc_max) mate global ids
@@ -783,18 +1103,27 @@ def distributed_matching_stacked(dgs: Sequence[DGraph],
     the kernels then rank each part's proposals and keep the first
     ``cap``, which by construction are all of them, so the result equals
     the dense protocol's.  The launch record carries ``cap`` and the
-    counterfactual ``words_dense``.
+    counterfactual ``words_dense``.  With ``group`` the parts lie on its
+    members, two gathers a round (``_dmatch_group``); the cap is the same
+    on every member, since every member's winner table takes every
+    proposal.
     """
-    dev = resolve_device(device)
     nparts, nlm, dmax, G = key = _same_bucket(
         dgs, "distributed_matching_stacked")
+    dev, ranges = _placement(group, nparts, device)
     t0 = time.perf_counter()
     L = len(dgs)
     cap = _match_proposal_cap(dgs, nlm)
     if 3 * cap >= 2 * nlm:
         cap = 0
 
+    moved: list = []
+
     def dispatch():
+        if ranges:
+            with group.lock:
+                return _dmatch_group(group, ranges, dgs, seeds, rounds, cap,
+                                     moved)
         return download(dgraph_ops.dmatch(
             _lanes([d.nbr_gst for d in dgs], dev),
             _lanes([d.ewgt_gst for d in dgs], dev),
@@ -803,7 +1132,8 @@ def distributed_matching_stacked(dgs: Sequence[DGraph],
             _lanes([d.n_loc for d in dgs], dev),
             _lanes([s & 0x7FFFFFFF for s in seeds], dev), rounds, cap))
 
-    m = obs.timed_dispatch("match", "dmatch", ("dmatch", dev.type), dispatch,
+    m = obs.timed_dispatch("match", "dmatch",
+                           _load_key("dmatch", dev, ranges), dispatch,
                            since=t0, lanes=L, lanes_pad=L, bucket=key,
                            rounds=rounds, cap=cap)
     # words, the reference's model of the all_gather traffic: per dense
@@ -813,7 +1143,8 @@ def distributed_matching_stacked(dgs: Sequence[DGraph],
     words_dense = rounds * 3 * L * nparts * nlm
     words = rounds * L * nparts * (nlm + 3 * cap) if cap else words_dense
     _note_launch("dmatch", nparts, L, L, key[1:], rounds, words, cap=cap,
-                 words_dense=words_dense, **_tags(tags))
+                 words_dense=words_dense, **_tags(tags),
+                 **_group_note(group, ranges, moved))
     out = []
     for i, dg in enumerate(dgs):
         gid = shard_gids(dg)
@@ -830,7 +1161,8 @@ def distributed_matching_stacked(dgs: Sequence[DGraph],
 
 
 def distributed_matching(dg: DGraph, seed: int, rounds: int = 8,
-                         flat: bool = True, device=None) -> np.ndarray:
+                         flat: bool = True, device=None,
+                         group: Optional[PartsGroup] = None) -> np.ndarray:
     """Synchronous probabilistic heavy-edge matching across parts.
 
     The paper's request/grant protocol (§3.2): each round, unmatched
@@ -849,7 +1181,7 @@ def distributed_matching(dg: DGraph, seed: int, rounds: int = 8,
     ``distributed_matching_stacked``.
     """
     m_sh = distributed_matching_stacked([dg], [seed], rounds,
-                                        device=device)[0]
+                                        device=device, group=group)[0]
     if flat:
         return unshard_vector(dg, m_sh)
     return m_sh

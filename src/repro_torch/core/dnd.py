@@ -56,7 +56,11 @@ generators:
 Lane-stacked collectives are bit-identical to singleton execution, so
 the two drivers produce **bit-identical orderings**.  Every device work
 runs on the caller's ``device`` (the card unless the caller names the
-CPU).
+CPU).  With ``group`` (``dgraph.make_parts_group``, the reference's
+``parts`` mesh) the sharded works' collectives place their parts on the
+group's members, and the centralized works (fm, match and bfs of the
+endgame and of centralized bands) run on ``device``, by default the
+group's first member; the orderings are the same bit for bit.
 """
 from __future__ import annotations
 
@@ -773,18 +777,20 @@ def _dsep_task(dg: DGraph, seed: int, cfg: DNDConfig, inst_budget: int):
 
 
 def distributed_separator(dg: DGraph, seed: int,
-                          cfg: Optional[DNDConfig] = None, device=None
-                          ) -> Optional[np.ndarray]:
+                          cfg: Optional[DNDConfig] = None, device=None,
+                          group=None) -> Optional[np.ndarray]:
     """Top-level entry: sharded separator of a distributed graph.
 
     Returns the (P, n_loc_max) int8 part vector (0/1/2, padding 3) or
     None when the graph is degenerate.  Drives ``_dsep_task`` depth-first
     (the frontier batching lives in ``distributed_nested_dissection``'s
-    driver, which owns a whole task tree).
+    driver, which owns a whole task tree), its collectives on ``group``
+    where one is given.
     """
     cfg = cfg or DNDConfig()
     return _drive_depth_first(_dsep_task(dg, seed, cfg,
-                                         max(cfg.k_fm_cap, 1)), device)
+                                         max(cfg.k_fm_cap, 1)), device,
+                              group)
 
 
 def _fallback_task(dg: DGraph):
@@ -914,31 +920,44 @@ def _dnd_task(dg: DGraph, gids_sh: np.ndarray, seed: int, cfg: DNDConfig,
 # ------------------------------------------------------------------ #
 # drivers: depth-first (oracle) and frontier (wave-batched)
 # ------------------------------------------------------------------ #
-def _drive_depth_first(gen, device=None):
+def _drive_depth_first(gen, device=None, group=None):
     """Depth-first driver: every yielded work executes immediately as a
     one-work wave of the router's ``execute_wave`` on ``device`` (the
-    program the frontier driver runs for a one-lane bucket); spawned
-    subtasks run to completion in order.  One launch per device step —
-    the oracle the frontier driver is asserted bit-identical against.
+    program the frontier driver runs for a one-lane bucket; the sharded
+    works' collectives on ``group`` where one is given, ``device`` then
+    defaulting to its first member); spawned subtasks run to completion
+    in order.  One launch per device step — the oracle the frontier driver
+    is asserted bit-identical against.
     """
     from repro_torch.service.router import execute_wave
+    device = _group_device(device, group)
     try:
         item = next(gen)
         while True:
             if isinstance(item, _Spawn):
-                res = [_drive_depth_first(sub, device) for sub in item.tasks]
+                res = [_drive_depth_first(sub, device, group)
+                       for sub in item.tasks]
             else:
-                res = execute_wave([item], device=device)[0][0]
+                res = execute_wave([item], device=device, group=group)[0][0]
             item = gen.send(res)
     except StopIteration as stop:
         return stop.value
+
+
+def _group_device(device, group):
+    """The device of the centralized works: ``device``, or the group's
+    first member where the caller names none."""
+    if device is None and group is not None:
+        return group.devices[0]
+    return device
 
 
 # ------------------------------------------------------------------ #
 # distributed ND entry points
 # ------------------------------------------------------------------ #
 def distributed_order_batch(dgs: List[DGraph], seeds=0, cfgs=None,
-                            return_trees: bool = False, device=None):
+                            return_trees: bool = False, device=None,
+                            group=None):
     """Order N distributed graphs concurrently through ONE wave router.
 
     Every request's task tree is submitted to a shared
@@ -958,6 +977,10 @@ def distributed_order_batch(dgs: List[DGraph], seeds=0, cfgs=None,
         requests must use the frontier driver (``cfg.frontier=True``);
         the DFS oracle is inherently one-at-a-time.
       return_trees: return ``DistOrdering`` trees instead of perms.
+      device: where the centralized works run (by default the group's
+        first member, or the card).
+      group: the ``dgraph.PartsGroup`` whose members hold the sharded
+        works' parts; None runs them on ``device``.
 
     Returns a list of permutations (or trees), one per request.
     """
@@ -973,7 +996,8 @@ def distributed_order_batch(dgs: List[DGraph], seeds=0, cfgs=None,
         "distributed_order_batch requires the frontier driver"
     dords = [DistOrdering(dg.n_global, dg.nparts) for dg in dgs]
     deferreds: List[List[_Deferred]] = [[] for _ in range(n)]
-    router = WaveRouter(device=device)
+    device = _group_device(device, group)
+    router = WaveRouter(device=device, group=group)
     with obs.span("dnd", requests=n,
                   n=int(sum(dg.n_global for dg in dgs)),
                   driver="frontier"):
@@ -1054,7 +1078,8 @@ def distributed_order_task(dg: DGraph, seed: int, cfg: DNDConfig,
 
 def distributed_nested_dissection(dg: DGraph, seed: int = 0,
                                   cfg: Optional[DNDConfig] = None,
-                                  return_tree: bool = False, device=None):
+                                  return_tree: bool = False, device=None,
+                                  group=None):
     """Full gather-free ordering of a distributed graph.
 
     Args:
@@ -1069,7 +1094,11 @@ def distributed_nested_dissection(dg: DGraph, seed: int = 0,
       return_tree: return the ``DistOrdering`` (fragments stay sharded)
         instead of the flat permutation.
       device: where the device works run: the card unless the caller
-        names ``"cpu"`` (raises if there is no card).
+        names ``"cpu"`` (raises if there is no card); with ``group`` only
+        the centralized ones, by default on its first member.
+      group: a ``dgraph.PartsGroup`` (``make_parts_group``) whose members
+        hold the sharded works' parts, the reference's ``parts`` mesh;
+        the permutation is the same for every group.
 
     The top levels dissect on the sharded representation — no
     ``to_host`` / ``unshard_vector`` above the configured thresholds, as
@@ -1082,10 +1111,11 @@ def distributed_nested_dissection(dg: DGraph, seed: int = 0,
     perm (perm[k] = vertex eliminated k-th) unless ``return_tree``.
     """
     cfg = cfg or DNDConfig()
+    device = _group_device(device, group)
     if cfg.frontier:
         return distributed_order_batch([dg], [seed], [cfg],
                                        return_trees=return_tree,
-                                       device=device)[0]
+                                       device=device, group=group)[0]
     from repro_torch.service.scheduler import order_batch
     dord = DistOrdering(dg.n_global, dg.nparts)
     deferred: List[_Deferred] = []
@@ -1093,7 +1123,7 @@ def distributed_nested_dissection(dg: DGraph, seed: int = 0,
                      DistOrdering.root, deferred)
     with obs.span("dnd", n=dg.n_global, nparts=dg.nparts, seed=seed,
                   driver="dfs"):
-        _drive_depth_first(root, device)
+        _drive_depth_first(root, device, group)
         if deferred:
             with _dg.stage("endgame"):
                 perms = order_batch([d.g for d in deferred],

@@ -47,7 +47,10 @@ SIGNATURES = {
                  "matching_cluster_launch": [_P] * 5 + [_I] * 5 + [_P]},
     "dgraph": {"empty_launch": [_P],
                "ell_relax_launch": [_P] * 3 + [_I] * 5 + [_P],
-               "halo_launch": [_P] * 3 + [_I] * 4 + [_P],
+               "halo_parts_launch": [_P] * 3 + [_I] * 6 + [_P],
+               "dbfs_parts_init_launch": [_P] * 5 + [_I] * 6 + [_P],
+               "dbfs_parts_step_launch": [_P] * 4 + [_I] * 7 + [_P],
+               "dmatch_parts_launch": [_P] * 15 + [_I] * 10 + [_P] * 2,
                "dbfs_launch": [_P] * 7 + [_I] * 6 + [_P] * 2,
                "dbfs_cluster_launch": [_P] * 7 + [_I] * 7 + [_P] * 2,
                "dmatch_launch": [_P] * 8 + [_I] * 7 + [_P] * 2,

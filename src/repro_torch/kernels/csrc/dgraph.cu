@@ -69,6 +69,31 @@
 // and the cluster state's placement; the wrappers add these to their
 // launch counts.
 //
+// A group of devices (core/dgraph.py, make_parts_group: the reference's
+// `parts` mesh, make_parts_mesh) holds a lane's P parts in D contiguous
+// blocks, block g parts [p0, p1) on member g.  Each member keeps a replica
+// of the per-row state of all P parts (L, P, nlm), writes only its own
+// parts' rows, and the host copies each member's rows into the others'
+// replicas between phases (the reference's all_gather; a peer copy over
+// NVLink between cards, a copy inside the card for members on one card).
+// So the kernels of the grid designs take a part range: halo_exchange,
+// ell_relax (the grid BFS's step) and dbfs_init write the rows of parts
+// [p0, p1) only, and read their structure (ELL rows, ghosts: (L, p1 - p0,
+// ...)) for those parts alone; the matching's propose and commit run on
+// the range's rows, and its grant runs on every part's proposals, which
+// the host gathered, so that each member derives the whole winner table,
+// as each shard of the reference does, and commits its own rows:
+//   dmatch_parts_launch  init (every row's mate -1, the ghosts' slots of
+//                        the range); a round: propose over the range (and,
+//                        with a cap, the range's proposals ranked and
+//                        compacted to (L, P, cap) rows: the gather's
+//                        width), then, after the host's gather, post over
+//                        all parts' proposals and commit the range:
+//                        1 + 3 * rounds launches, 1 + 4 * rounds with a
+//                        cap.
+// The one-device entries run the same kernels on the range [0, P), the
+// grid matching's compiled without the range's index arithmetic (kRange).
+//
 // The matching's protocol, in both designs (dgraph.py:1015-1131):
 //   propose  each unmatched proposer (coin hash_mix(gid, r, seed) & 1)
 //            picks its heaviest unmatched acceptor neighbour: the first
@@ -193,11 +218,13 @@ __device__ __forceinline__ int64_t slot_of(const int* vd, int P, int nlm,
 // ------------------------------------------------------------ relaxation
 // One thread a row of rows (R, n) of ELL ids (R, n, d).  Plain form
 // (kDist false): row r reads ext row r of width m.  Distributed form (kDist,
-// the grid BFS's step): ids < n read the part's own row (m == n), ids in
-// [n, n + G) read the lane's row at the ghost's lane-local slot
-// gslot[r, id - n] (0 if -1; R = L * P parts, lane r / P), and the result
-// is min(old, relaxed).  Ids outside the row read as padding, so no input
-// reads outside its buffers.
+// the grid BFS's step): the rows are those of parts [p0, p0 + pr) of each
+// lane, R = L * pr, row r of lane r / pr and part p0 + r % pr; ids < n read
+// the part's own row of the lanes' (L, P, n) distances (m == n), ids in
+// [n, n + G) read the lane's rows at the ghost's lane-local slot
+// gslot[r, id - n] (0 if -1), and the result, min(old, relaxed), goes to
+// the part's row of dout.  Ids outside the row read as padding, so no
+// input reads outside its buffers.
 //
 // Bound by bytes: each id is read once, so the row is streamed in 16-byte
 // loads (__ldcs, evict-first; kVec: d % 4 == 0 and the ids on 16 bytes) two
@@ -214,6 +241,7 @@ struct Relax {
   const int* gslot;  // (R, G) lane-local slots, kDist only
   int64_t rows;      // R
   int P, n, d, G, big;
+  int p0, pr;        // the part range [p0, p0 + pr), kDist only
   int64_t m;
 };
 
@@ -258,8 +286,13 @@ __global__ void __launch_bounds__(kThreads) ell_relax(Relax a, int gshift) {
   }
   const bool live = t < cells;
   const int64_t r = live ? row_index(t, a.n, cells <= 0xFFFFFFFFll) : 0;
-  const int* ext = a.din + r * a.m;
-  const int* lane = kDist ? a.din + r / a.P * a.P * a.m : nullptr;
+  // the row's place in the lanes' (L, P, n) rows: r itself in plain form
+  // and on the whole range (one device)
+  const bool whole = !kDist || a.pr == a.P;
+  const int64_t l = kDist ? r / a.pr : 0;
+  const int64_t rg = whole ? r : r + l * (a.P - a.pr) + a.p0;
+  const int* ext = a.din + rg * a.m;
+  const int* lane = kDist ? a.din + l * a.P * a.m : nullptr;
   const int* gs = kDist ? a.gslot + r * a.G : nullptr;
   const int4* row4 = reinterpret_cast<const int4*>(a.nbr + t * a.d);
   int best = a.big;
@@ -291,7 +324,11 @@ __global__ void __launch_bounds__(kThreads) ell_relax(Relax a, int gshift) {
     for (int s = 0; s < a.d; ++s)
       best = min(best, relax_read<kDist>(a, ext, lane, gs, __ldcs(row + s)));
   }
-  a.dout[t] = kDist ? min(__ldg(ext + (t - r * a.n)), best + 1) : best + 1;
+  if constexpr (kDist)
+    a.dout[whole ? t : rg * a.n + (t - r * a.n)] =
+        min(__ldg(ext + (t - r * a.n)), best + 1);
+  else
+    a.dout[t] = best + 1;
 }
 
 // Launch the relaxation: the vector path where the ids allow it, with a
@@ -330,9 +367,11 @@ cudaError_t relax_launch(const Relax& a, cudaStream_t s) {
 // Bound by bytes: a thread writes 4 words of a part's out row (kVec: nlm
 // and G multiples of 4, every pointer on 16 bytes), its own words in one
 // 16-byte load and store, its ghosts' slots in one 16-byte load; else one
-// word.  Grid (units / kHaloThreads, P, L): small blocks, so that even the
-// root bucket's 49,152 words spread over most SMs, and several blocks an
-// SM where the work is large.
+// word.  Grid (units / kHaloThreads, p1 - p0, L): small blocks, so that
+// even the root bucket's 49,152 words spread over most SMs, and several
+// blocks an SM where the work is large.  On a group the call covers the
+// member's parts [p0, p1): out is (L, p1 - p0, W), x the lanes' replica of
+// all P parts, and each lane's table is still (P, G), read at rows p.
 constexpr int kHaloThreads = 128;
 constexpr int kHaloLanes = 4000;  // 32,000 bytes of pointers
 
@@ -345,15 +384,16 @@ struct HaloLanes {
 // indexed by the lane, a by-value copy would go to each thread's stack.
 template <int kLanes, bool kVec>
 __global__ void __launch_bounds__(kHaloThreads)
-    halo_exchange(const int* __restrict__ x, int* __restrict__ out, int nlm,
-                  int G, const __grid_constant__ HaloLanes<kLanes> lanes) {
+    halo_exchange(const int* __restrict__ x, int* __restrict__ out, int P,
+                  int nlm, int G, int p0,
+                  const __grid_constant__ HaloLanes<kLanes> lanes) {
   constexpr int kWords = kVec ? 4 : 1;
-  const int W = nlm + G, P = gridDim.y;
+  const int W = nlm + G;
   const int k = (blockIdx.x * kHaloThreads + threadIdx.x) * kWords;
   if (k >= W) return;
-  const int p = blockIdx.y, l = blockIdx.z;
+  const int p = p0 + (int)blockIdx.y, l = blockIdx.z;
   const int* xl = x + (int64_t)l * P * nlm;
-  int* o = out + ((int64_t)l * P + p) * W + k;
+  int* o = out + ((int64_t)l * gridDim.y + blockIdx.y) * W + k;
   if (k < nlm) {
     if constexpr (kVec)
       *reinterpret_cast<int4*>(o) =
@@ -382,54 +422,62 @@ inline bool on16(const void* p) { return (uintptr_t)p % 16 == 0; }
 
 template <int kLanes>
 cudaError_t halo_lanes(const int* x, const int* const* slots, int* out,
-                       int L, int P, int nlm, int G, bool vec,
-                       cudaStream_t s) {
+                       int L, int P, int nlm, int G, int p0, int p1,
+                       bool vec, cudaStream_t s) {
   HaloLanes<kLanes> lanes;
   for (int l = 0; l < L; ++l) lanes.slots[l] = slots[l];
   const int units = vec ? (nlm + G) / 4 : nlm + G;
   const dim3 grid((unsigned)((units + kHaloThreads - 1) / kHaloThreads),
-                  (unsigned)P, (unsigned)L);
+                  (unsigned)(p1 - p0), (unsigned)L);
   if (vec)
-    halo_exchange<kLanes, true><<<grid, kHaloThreads, 0, s>>>(x, out, nlm, G,
-                                                              lanes);
+    halo_exchange<kLanes, true><<<grid, kHaloThreads, 0, s>>>(
+        x, out, P, nlm, G, p0, lanes);
   else
-    halo_exchange<kLanes, false><<<grid, kHaloThreads, 0, s>>>(x, out, nlm,
-                                                               G, lanes);
+    halo_exchange<kLanes, false><<<grid, kHaloThreads, 0, s>>>(
+        x, out, P, nlm, G, p0, lanes);
   return cudaGetLastError();
 }
 
-// The ghosts' lane-local slots of a call, gslot[l, p, g] (-1 for a padding
-// ghost), resolved by a search over the lane's ranges: the grid BFS's.
+// The ghosts' lane-local slots of a call, gslot[l, q, g] (-1 for a padding
+// ghost) for the pr parts of a range, resolved by a search over the lane's
+// ranges: the grid BFS's.
 __device__ __forceinline__ void lane_slots(const int* ghost_gid,
                                            const int* vtxdist, int* gslot,
-                                           int64_t t, int P, int nlm, int G) {
+                                           int64_t t, int P, int pr, int nlm,
+                                           int G) {
   const int tg = ghost_gid[t];
-  gslot[t] = tg >= 0 ? lane_slot(vtxdist + t / ((int64_t)P * G) * (P + 1), P,
-                                 nlm, tg)
+  gslot[t] = tg >= 0 ? lane_slot(vtxdist + t / ((int64_t)pr * G) * (P + 1),
+                                 P, nlm, tg)
                      : -1;
 }
 
-// The ghost table of the grid matching: gidx[l, p, g] = flat owner slot of
-// ghost g of part p, or -1.
+// The ghost table of the grid matching: gidx[l, q, g] = flat owner slot in
+// the lanes' (L, P, nlm) rows of ghost g of the range's part q, or -1.
 __device__ __forceinline__ void ghost_table(const int* ghost_gid,
                                             const int* vtxdist, int64_t* gidx,
-                                            int64_t t, int P, int nlm,
+                                            int64_t t, int P, int pr, int nlm,
                                             int G) {
-  const int64_t lp = t / G;
-  const int64_t l = lp / P;
+  const int64_t l = t / G / pr;
   gidx[t] = slot_of(vtxdist + l * (P + 1), P, nlm, l, ghost_gid[t]);
 }
 
 // ------------------------------------------------------------ BFS, grid
+// The sources of parts [p0, p0 + pr) (src, ghost_gid: (L, pr, ...)) into
+// their rows of the lanes' (L, P, nlm) distances, and their ghosts' slots.
 __global__ void dbfs_init(const int* __restrict__ src,
                           const int* __restrict__ ghost_gid,
                           const int* __restrict__ vtxdist,
                           int* __restrict__ dist, int* __restrict__ gslot,
-                          int L, int P, int nlm, int G) {
+                          int L, int P, int nlm, int G, int p0, int pr) {
   const int64_t t = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  const int64_t cells = (int64_t)L * P * nlm, ghosts = (int64_t)L * P * G;
-  if (t < cells) dist[t] = src[t] != 0 ? 0 : kBig;
-  if (t < ghosts) lane_slots(ghost_gid, vtxdist, gslot, t, P, nlm, G);
+  const int64_t span = (int64_t)pr * nlm;
+  const int64_t cells = L * span, ghosts = (int64_t)L * pr * G;
+  if (t < cells) {
+    int64_t at = t;  // the row in the lanes' (L, P, nlm) rows
+    if (pr != P) at += t / span * (P - pr) * nlm + (int64_t)p0 * nlm;
+    dist[at] = src[t] != 0 ? 0 : kBig;
+  }
+  if (t < ghosts) lane_slots(ghost_gid, vtxdist, gslot, t, P, pr, nlm, G);
 }
 
 // ------------------------------------------------------------ cluster state
@@ -601,6 +649,14 @@ __global__ void __launch_bounds__(kLaneThreads, 1)
 }
 
 // ------------------------------------------------------------ matching, grid
+// The rows of (L, P, nlm) state (match, prop_tgt, prop_w, tables,
+// tile_count) are every part's; the structure (nbr, ewgt, ghost_gid, gidx)
+// is that of parts [p0, p0 + pr) alone, (L, pr, ...).  The kernels'
+// kRange: a group member's range (else one device's, [0, P), compiled with
+// the range's index arithmetic left out).  On one device propose posts the
+// grant when cap == 0; on a group the post kernel does, after the gather.
+// ctgt, cw, cgid: a group's compacted proposals, (L, P, cap), each part's
+// first cap in row order.
 struct MatchArgs {
   const int* nbr;
   const int* ewgt;
@@ -614,9 +670,14 @@ struct MatchArgs {
   float* prop_w;
   int* tile_count;             // (L, P, tiles) proposals a 256-row tile
   unsigned long long* tables;  // two (L, P, nlm) winner tables
-  int L, P, nlm, d, G, cap, tiles;
+  int* ctgt;
+  float* cw;
+  int* cgid;
+  int L, P, nlm, d, G, cap, tiles, p0, pr;
 };
 
+// Every row's mate -1 and round 0's table empty (all P parts: each member
+// of a group knows them), the range's ghosts' slots.
 __global__ void dmatch_init(MatchArgs a) {
   const int64_t t = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   const int64_t cells = (int64_t)a.L * a.P * a.nlm;
@@ -624,50 +685,69 @@ __global__ void dmatch_init(MatchArgs a) {
     a.match[t] = -1;
     a.tables[t] = 0ull;
   }
-  if (t < (int64_t)a.L * a.P * a.G)
-    ghost_table(a.ghost_gid, a.vtxdist, a.gidx, t, a.P, a.nlm, a.G);
+  if (t < (int64_t)a.L * a.pr * a.G)
+    ghost_table(a.ghost_gid, a.vtxdist, a.gidx, t, a.P, a.pr, a.nlm, a.G);
 }
 
-// A row's identity: its lane, part, local index, global id (-1 on
-// padding) and whether it is unmatched at the round's start.
+// The flat (L, P) part of the range's part lpl (of L * pr): lpl itself on
+// one device.
+template <bool kRange>
+__device__ __forceinline__ int64_t part_of(const MatchArgs& a, int64_t lpl) {
+  if (!kRange) return lpl;
+  const int64_t l = lpl / a.pr;
+  return l * a.P + a.p0 + (lpl - l * a.pr);
+}
+
+// A row's identity: its lane, part (flat lp of the lanes' parts, lpl of the
+// range's), local index, state row t, global id (-1 on padding) and
+// whether it is unmatched at the round's start.
 struct Row {
-  int64_t l, lp;
+  int64_t l, lp, lpl, t;
   int i, lo, nloc, gid;
   bool unmatched;
   uint32_t seed;
 };
 
-__device__ __forceinline__ Row row_of(const MatchArgs& a, int64_t t) {
+// Row tl of the range's (L, pr, nlm) rows.
+template <bool kRange>
+__device__ __forceinline__ Row row_of(const MatchArgs& a, int64_t tl) {
   Row w;
-  w.lp = t / a.nlm;
-  w.i = (int)(t - w.lp * a.nlm);
+  w.lpl = tl / a.nlm;
+  w.i = (int)(tl - w.lpl * a.nlm);
+  w.lp = part_of<kRange>(a, w.lpl);
   w.l = w.lp / a.P;
+  w.t = w.lp * a.nlm + w.i;
   const int p = (int)(w.lp - w.l * a.P);
   w.lo = a.vtxdist[w.l * (a.P + 1) + p];
   w.nloc = a.nloc[w.lp];
   w.gid = w.i < w.nloc ? w.lo + w.i : -1;
-  w.unmatched = w.i < w.nloc && a.match[t] < 0;
+  w.unmatched = w.i < w.nloc && a.match[w.t] < 0;
   w.seed = (uint32_t)a.seeds[w.l];
   return w;
 }
 
-// A grid of (tiles, L * P): block (k, lp) proposes for rows k * 256 ..
-// of part lp, so no tile spans two parts.  With cap == 0 each proposal is
-// posted here; otherwise the tile's proposal count is kept for the grant.
+// A grid of (tiles, L * pr): block (k, lpl) proposes for rows k * 256 ..
+// of the range's part lpl, so no tile spans two parts.  With cap == 0, on
+// one device, each proposal is posted here; otherwise the tile's proposal
+// count is kept for the grant.  A group's compacted rows of the part are
+// cleared here for the grant to fill.
+template <bool kRange>
 __global__ void dmatch_propose(MatchArgs a, int r,
                                unsigned long long* __restrict__ table) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
-  const int64_t lp = blockIdx.y;
-  const int64_t t = lp * a.nlm + i;
+  const int64_t lpl = blockIdx.y;
+  const int64_t lp = part_of<kRange>(a, lpl);
+  const int64_t tl = lpl * a.nlm + i;
   int tgt = -1;
   float wsel = 0.f;
   Row w;
+  if (kRange && a.ctgt != nullptr && i < a.cap) a.ctgt[lp * a.cap + i] = -1;
   if (i < a.nlm) {
-    w = row_of(a, t);
+    w = row_of<kRange>(a, tl);
     if (w.unmatched && (hash_mix3(w.gid, r, w.seed) & 1u)) {
       float best = -INFINITY;
-      const int* row = a.nbr + t * a.d;
-      const int* ew = a.ewgt + t * a.d;
+      const int* row = a.nbr + tl * a.d;
+      const int* ew = a.ewgt + tl * a.d;
       for (int s = 0; s < a.d; ++s) {
         const int c = row[s];
         if (c < 0 || c >= a.nlm + a.G) continue;  // padding, or no slot
@@ -677,8 +757,8 @@ __global__ void dmatch_propose(MatchArgs a, int r,
           tg = c < w.nloc ? w.lo + c : -1;
           un = c < w.nloc && a.match[w.lp * a.nlm + c] < 0;
         } else {
-          tg = a.ghost_gid[w.lp * a.G + (c - a.nlm)];
-          const int64_t f = a.gidx[w.lp * a.G + (c - a.nlm)];
+          tg = a.ghost_gid[lpl * a.G + (c - a.nlm)];
+          const int64_t f = a.gidx[lpl * a.G + (c - a.nlm)];
           un = false;
           if (f >= 0) {
             const int64_t olp = f / a.nlm;
@@ -695,9 +775,9 @@ __global__ void dmatch_propose(MatchArgs a, int r,
         }
       }
     }
-    a.prop_tgt[t] = tgt;
-    a.prop_w[t] = wsel;
-    if (tgt >= 0 && a.cap == 0)
+    a.prop_tgt[w.t] = tgt;
+    a.prop_w[w.t] = wsel;
+    if (!kRange && tgt >= 0 && a.cap == 0)
       atomicMax(table + slot_of(a.vtxdist + w.l * (a.P + 1), a.P, a.nlm,
                                 w.l, tgt),
                 grant_word(wsel, w.gid, mix_step(hash_head(w.gid), tgt), r));
@@ -708,14 +788,16 @@ __global__ void dmatch_propose(MatchArgs a, int r,
   }
 }
 
-// With cap > 0, over the propose grid: block (k, lp) sums its part's
+// With cap > 0, over the propose grid: block (k, lpl) sums its part's
 // proposals on tiles 0 .. k - 1, ranks its own in row order with a block
-// scan, and posts those ranked below the cap.
+// scan, and posts those ranked below the cap (kCompact: writes them to the
+// part's compacted rows at their rank instead, for a group's gather).
+template <bool kCompact>
 __global__ void dmatch_grant(MatchArgs a, int r,
                              unsigned long long* __restrict__ table) {
   __shared__ int warp_sum[kThreads / 32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int64_t lp = blockIdx.y;
+  const int64_t lp = part_of<kCompact>(a, blockIdx.y);
   int before = 0;
   for (int j = threadIdx.x; j < (int)blockIdx.x; j += kThreads)
     before += a.tile_count[lp * a.tiles + j];
@@ -739,16 +821,59 @@ __global__ void dmatch_grant(MatchArgs a, int r,
   const int64_t l = lp / a.P;
   const int* vd = a.vtxdist + l * (a.P + 1);
   const int gid = vd[lp - l * a.P] + i;
-  atomicMax(table + slot_of(vd, a.P, a.nlm, l, tg),
-            grant_word(a.prop_w[t], gid, mix_step(hash_head(gid), tg), r));
+  if constexpr (kCompact) {
+    const int64_t c = lp * a.cap + rank;
+    a.ctgt[c] = tg;
+    a.cw[c] = a.prop_w[t];
+    a.cgid[c] = gid;
+  } else {
+    atomicMax(table + slot_of(vd, a.P, a.nlm, l, tg),
+              grant_word(a.prop_w[t], gid, mix_step(hash_head(gid), tg), r));
+  }
 }
 
+// A group's grant, after the gather: every part's proposals (prop_tgt and
+// prop_w, or with cap > 0 the compacted rows) posted to this member's
+// winner table, so that it holds the whole lanes' winners; and the next
+// round's table cleared (every row, not only the range's).
+__global__ void dmatch_post(MatchArgs a, int r,
+                           unsigned long long* __restrict__ table,
+                           unsigned long long* __restrict__ next) {
+  const int64_t t = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  const int64_t cells = (int64_t)a.L * a.P * a.nlm;
+  if (t < cells) next[t] = 0ull;
+  int tg, gid;
+  float w;
+  int64_t l;
+  if (a.cap == 0) {
+    if (t >= cells) return;
+    tg = a.prop_tgt[t];
+    const int64_t lp = t / a.nlm;
+    l = lp / a.P;
+    gid = a.vtxdist[l * (a.P + 1) + (lp - l * a.P)] + (int)(t - lp * a.nlm);
+    w = a.prop_w[t];
+  } else {
+    if (t >= (int64_t)a.L * a.P * a.cap) return;
+    tg = a.ctgt[t];
+    l = t / ((int64_t)a.P * a.cap);
+    gid = a.cgid[t];
+    w = a.cw[t];
+  }
+  if (tg < 0) return;
+  const int* vd = a.vtxdist + l * (a.P + 1);
+  atomicMax(table + slot_of(vd, a.P, a.nlm, l, tg),
+            grant_word(w, gid, mix_step(hash_head(gid), tg), r));
+}
+
+// Over the range's (L, pr, nlm) rows.
+template <bool kRange>
 __global__ void dmatch_commit(MatchArgs a, int r,
                               const unsigned long long* __restrict__ table,
                               unsigned long long* __restrict__ next) {
-  const int64_t t = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (t >= (int64_t)a.L * a.P * a.nlm) return;
-  const Row w = row_of(a, t);
+  const int64_t tl = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (tl >= (int64_t)a.L * a.pr * a.nlm) return;
+  const Row w = row_of<kRange>(a, tl);
+  const int64_t t = w.t;
   const bool proposer = (hash_mix3(w.gid, r, w.seed) & 1u) != 0;
   int mate = a.match[t];
   const int tg = a.prop_tgt[t];
@@ -1076,26 +1201,32 @@ extern "C" int empty_launch(void* stream) {
 extern "C" int ell_relax_launch(const void* nbr, const void* ext, void* out,
                                 int L, int n, int d, int m, int big,
                                 void* stream) {
-  Relax a;
-  a.nbr = (const int*)nbr;
-  a.din = (const int*)ext;
-  a.dout = (int*)out;
-  a.gslot = nullptr;
-  a.rows = L;
-  a.P = 1;
-  a.n = n;
-  a.d = d;
-  a.G = 0;
-  a.big = big;
-  a.m = m;
+  const Relax a{(const int*)nbr, (const int*)ext, (int*)out, nullptr, L,
+                1, n, d, 0, big, 0, 1, m};
   return (int)relax_launch<false>(a, (cudaStream_t)stream);
 }
 
+// The distributed relaxation of parts [p0, p0 + pr) of each of L lanes of
+// P parts against a replica of every part's rows (din, dout set a step).
+inline Relax dist_relax(const void* nbr, const void* gslot, int L, int P,
+                        int nlm, int d, int G, int p0, int pr) {
+  return Relax{(const int*)nbr, nullptr, nullptr, (const int*)gslot,
+               (int64_t)L * pr, P, nlm, d, G, kBig, p0, pr, nlm};
+}
+
+// Whether [p0, p1) is a part range of P parts.
+inline bool parts_ok(int P, int p0, int p1) {
+  return P >= 1 && 0 <= p0 && p0 < p1 && p1 <= P;
+}
+
 // x (L, P, nlm), slots: a host array of L pointers, lane l's (P, G) int32
-// slot table -> out (L, P, nlm + G): one launch, 1 <= L <= kHaloLanes.
-extern "C" int halo_launch(const void* x, const void* slots, void* out,
-                           int L, int P, int nlm, int G, void* stream) {
-  if (L < 1 || L > kHaloLanes || P < 1 || P > 65535 || nlm < 1 || G < 0)
+// slot table -> out (L, p1 - p0, nlm + G), the rows of parts [p0, p1): one
+// launch, 1 <= L <= kHaloLanes.
+extern "C" int halo_parts_launch(const void* x, const void* slots, void* out,
+                                 int L, int P, int nlm, int G, int p0, int p1,
+                                 void* stream) {
+  if (L < 1 || L > kHaloLanes || P > 65535 || nlm < 1 || G < 0 ||
+      !parts_ok(P, p0, p1))
     return (int)cudaErrorInvalidValue;
   const int* const* tables = (const int* const*)slots;
   bool vec = nlm % 4 == 0 && G % 4 == 0 && on16(x) && on16(out);
@@ -1103,9 +1234,9 @@ extern "C" int halo_launch(const void* x, const void* slots, void* out,
   cudaStream_t s = (cudaStream_t)stream;
   const cudaError_t err =
       L <= 8 ? halo_lanes<8>((const int*)x, tables, (int*)out, L, P, nlm, G,
-                             vec, s)
+                             p0, p1, vec, s)
              : halo_lanes<kHaloLanes>((const int*)x, tables, (int*)out, L, P,
-                                      nlm, G, vec, s);
+                                      nlm, G, p0, p1, vec, s);
   return (int)err;
 }
 
@@ -1129,17 +1260,8 @@ extern "C" int dbfs_launch(const void* nbr, const void* src,
   const int64_t ghosts = (int64_t)L * P * G;
   dbfs_init<<<blocks_for(cells > ghosts ? cells : ghosts), kThreads, 0, s>>>(
       (const int*)src, (const int*)ghost_gid, (const int*)vtxdist,
-      bufs[start], (int*)gslot, L, P, nlm, G);
-  Relax a;
-  a.nbr = (const int*)nbr;
-  a.gslot = (const int*)gslot;
-  a.rows = (int64_t)L * P;
-  a.P = P;
-  a.n = nlm;
-  a.d = d;
-  a.G = G;
-  a.big = kBig;
-  a.m = nlm;
+      bufs[start], (int*)gslot, L, P, nlm, G, 0, P);
+  Relax a = dist_relax(nbr, gslot, L, P, nlm, d, G, 0, P);
   for (int k = 0; k < width; ++k) {
     a.din = bufs[(start + k) % 2];
     a.dout = bufs[(start + k + 1) % 2];
@@ -1147,6 +1269,42 @@ extern "C" int dbfs_launch(const void* nbr, const void* src,
   }
   enqueued(counts, 1, width, kGrid);
   return (int)cudaGetLastError();
+}
+
+// A group member's BFS, parts [p0, p1) of each lane (core/dgraph.py drives
+// the steps and the gathers between them).  The init: src (L, p1 - p0,
+// nlm) into the parts' rows of dist (L, P, nlm), and gslot (L, p1 - p0, G)
+// the parts' ghosts' lane-local slots (ghost_gid (L, p1 - p0, G)).  One
+// launch.
+extern "C" int dbfs_parts_init_launch(const void* src, const void* ghost_gid,
+                                      const void* vtxdist, void* dist,
+                                      void* gslot, int L, int P, int nlm,
+                                      int G, int p0, int p1, void* stream) {
+  if (L < 0 || nlm < 1 || G < 0 || !parts_ok(P, p0, p1))
+    return (int)cudaErrorInvalidValue;
+  const int pr = p1 - p0;
+  const int64_t cells = (int64_t)L * pr * nlm, ghosts = (int64_t)L * pr * G;
+  if (cells == 0) return (int)cudaGetLastError();
+  dbfs_init<<<blocks_for(cells > ghosts ? cells : ghosts), kThreads, 0,
+              (cudaStream_t)stream>>>(
+      (const int*)src, (const int*)ghost_gid, (const int*)vtxdist,
+      (int*)dist, (int*)gslot, L, P, nlm, G, p0, pr);
+  return (int)cudaGetLastError();
+}
+
+// A step: the rows of parts [p0, p1) of dout (L, P, nlm) relaxed against
+// din (L, P, nlm), which holds every part's distances after the gather;
+// nbr (L, p1 - p0, nlm, d), gslot from the init.  One launch.
+extern "C" int dbfs_parts_step_launch(const void* nbr, const void* din,
+                                      void* dout, const void* gslot, int L,
+                                      int P, int nlm, int d, int G, int p0,
+                                      int p1, void* stream) {
+  if (L < 0 || nlm < 1 || d < 1 || G < 0 || !parts_ok(P, p0, p1))
+    return (int)cudaErrorInvalidValue;
+  Relax a = dist_relax(nbr, gslot, L, P, nlm, d, G, p0, p1 - p0);
+  a.din = (const int*)din;
+  a.dout = (int*)dout;
+  return (int)relax_launch<true>(a, (cudaStream_t)stream);
 }
 
 // The cluster design: one launch, one cluster of C CTAs (1-16) a lane;
@@ -1182,6 +1340,25 @@ extern "C" int dbfs_cluster_launch(const void* nbr, const void* src,
 // nbr, ewgt (L, P, nlm, d), ghost_gid (L, P, G), vtxdist (L, P + 1), nloc
 // (L, P), seeds (L,) -> match (L, P, nlm) mate gids, -1 unmatched.
 
+// The grid matching's arguments over parts [p0, p0 + pr) of each lane:
+// one device's (the whole range) or a group member's (with the compacted
+// proposals ctgt, cw, cgid).
+inline MatchArgs match_args(const void* nbr, const void* ewgt,
+                            const void* ghost_gid, const void* vtxdist,
+                            const void* nloc, const void* seeds, void* match,
+                            void* gidx, void* tables, void* prop_tgt,
+                            void* prop_w, void* tile_count, void* ctgt,
+                            void* cw, void* cgid, int L, int P, int nlm,
+                            int d, int G, int cap, int p0, int pr) {
+  return MatchArgs{(const int*)nbr, (const int*)ewgt, (const int*)ghost_gid,
+                   (const int*)vtxdist, (const int*)nloc, (const int*)seeds,
+                   (int*)match, (int64_t*)gidx, (int*)prop_tgt,
+                   (float*)prop_w, (int*)tile_count,
+                   (unsigned long long*)tables, (int*)ctgt, (float*)cw,
+                   (int*)cgid, L, P, nlm, d, G, cap, (int)blocks_for(nlm),
+                   p0, pr};
+}
+
 // The grid design.  scratch: gidx (L, P, G) int64, two (L, P, nlm) u64
 // winner tables, prop_tgt (L, P, nlm) int32, prop_w (L, P, nlm) float32,
 // tile counts (L, P, ceil(nlm / 256)) int32.  1 + 2 * rounds launches, or
@@ -1197,37 +1374,80 @@ extern "C" int dmatch_launch(const void* nbr, const void* ewgt,
   if (cells == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
   const int64_t ghosts = (int64_t)L * P * G;
-  MatchArgs a;
-  a.nbr = (const int*)nbr;
-  a.ewgt = (const int*)ewgt;
-  a.ghost_gid = (const int*)ghost_gid;
-  a.vtxdist = (const int*)vtxdist;
-  a.nloc = (const int*)nloc;
-  a.seeds = (const int*)seeds;
-  a.match = (int*)match;
-  a.gidx = (int64_t*)scratch;
-  a.tables = (unsigned long long*)(a.gidx + ghosts);
-  a.prop_tgt = (int*)(a.tables + 2 * cells);
-  a.prop_w = (float*)(a.prop_tgt + cells);
-  a.tile_count = (int*)(a.prop_w + cells);
-  a.L = L;
-  a.P = P;
-  a.nlm = nlm;
-  a.d = d;
-  a.G = G;
-  a.cap = cap;
-  a.tiles = (int)blocks_for(nlm);
+  int64_t* gidx = (int64_t*)scratch;
+  unsigned long long* tables = (unsigned long long*)(gidx + ghosts);
+  int* prop_tgt = (int*)(tables + 2 * cells);
+  float* prop_w = (float*)(prop_tgt + cells);
+  const MatchArgs a = match_args(
+      nbr, ewgt, ghost_gid, vtxdist, nloc, seeds, match, gidx, tables,
+      prop_tgt, prop_w, prop_w + cells, nullptr, nullptr, nullptr, L, P, nlm,
+      d, G, cap, 0, P);
   dmatch_init<<<blocks_for(cells > ghosts ? cells : ghosts), kThreads, 0, s>>>(
       a);
   const dim3 tiles((unsigned)a.tiles, (unsigned)(L * P));
   for (int r = 0; r < rounds; ++r) {
     unsigned long long* cur = a.tables + (r % 2) * cells;
     unsigned long long* nxt = a.tables + ((r + 1) % 2) * cells;
-    dmatch_propose<<<tiles, kThreads, 0, s>>>(a, r, cur);
-    if (cap > 0) dmatch_grant<<<tiles, kThreads, 0, s>>>(a, r, cur);
-    dmatch_commit<<<blocks_for(cells), kThreads, 0, s>>>(a, r, cur, nxt);
+    dmatch_propose<false><<<tiles, kThreads, 0, s>>>(a, r, cur);
+    if (cap > 0) dmatch_grant<false><<<tiles, kThreads, 0, s>>>(a, r, cur);
+    dmatch_commit<false><<<blocks_for(cells), kThreads, 0, s>>>(a, r, cur,
+                                                                nxt);
   }
   enqueued(counts, 1 + (cap > 0 ? 3 : 2) * rounds, 0, kGrid);
+  return (int)cudaGetLastError();
+}
+
+// A group member's matching, parts [p0, p1) of each lane, one phase a call
+// (core/dgraph.py gathers between them): nbr, ewgt (L, p1 - p0, nlm, d),
+// ghost_gid (L, p1 - p0, G), vtxdist (L, P + 1), nloc (L, P), seeds (L,);
+// state: match, prop_tgt, prop_w (L, P, nlm), gidx (L, p1 - p0, G) int64,
+// tables (2, L, P, nlm) u64, tile_count (L, P, ceil(nlm / 256)), and with
+// cap > 0 ctgt, cw, cgid (L, P, cap).  phase 0: init (1 launch); 1:
+// round r's propose over the range, and with cap > 0 its compaction (1 or
+// 2); 2: round r's post over every part's gathered proposals and its
+// commit over the range (2).
+extern "C" int dmatch_parts_launch(
+    const void* nbr, const void* ewgt, const void* ghost_gid,
+    const void* vtxdist, const void* nloc, const void* seeds, void* match,
+    void* gidx, void* tables, void* prop_tgt, void* prop_w, void* tile_count,
+    void* ctgt, void* cw, void* cgid, int L, int P, int nlm, int d, int G,
+    int cap, int p0, int p1, int phase, int r, int* counts, void* stream) {
+  enqueued(counts, 0, 0, kGrid);
+  if (L < 0 || nlm < 1 || d < 1 || G < 0 || cap < 0 || cap > nlm ||
+      !parts_ok(P, p0, p1) || phase < 0 || phase > 2)
+    return (int)cudaErrorInvalidValue;
+  const int64_t cells = (int64_t)L * P * nlm;
+  if (cells == 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  const MatchArgs a = match_args(
+      nbr, ewgt, ghost_gid, vtxdist, nloc, seeds, match, gidx, tables,
+      prop_tgt, prop_w, tile_count, cap > 0 ? ctgt : nullptr, cw, cgid, L, P,
+      nlm, d, G, cap, p0, p1 - p0);
+  unsigned long long* cur = a.tables + (r % 2) * cells;
+  unsigned long long* nxt = a.tables + ((r + 1) % 2) * cells;
+  const dim3 tiles((unsigned)a.tiles, (unsigned)(L * a.pr));
+  int own = 0;
+  if (phase == 0) {
+    const int64_t ghosts = (int64_t)L * a.pr * G;
+    dmatch_init<<<blocks_for(cells > ghosts ? cells : ghosts), kThreads, 0,
+                  s>>>(a);
+    own = 1;
+  } else if (phase == 1) {
+    dmatch_propose<true><<<tiles, kThreads, 0, s>>>(a, r, cur);
+    own = 1;
+    if (cap > 0) {
+      dmatch_grant<true><<<tiles, kThreads, 0, s>>>(a, r, cur);
+      own = 2;
+    }
+  } else {
+    const int64_t posts = cap > 0 ? (int64_t)L * P * cap : cells;
+    dmatch_post<<<blocks_for(cells > posts ? cells : posts), kThreads, 0,
+                  s>>>(a, r, cur, nxt);
+    dmatch_commit<true><<<blocks_for((int64_t)L * a.pr * nlm), kThreads, 0,
+                        s>>>(a, r, cur, nxt);
+    own = 2;
+  }
+  enqueued(counts, own, 0, kGrid);
   return (int)cudaGetLastError();
 }
 

@@ -15,6 +15,17 @@ for a lane of ``P * n_loc_max`` rows and ``d`` slots (``plan``): up to
 2^18 slots, one launch a call on a thread-block cluster per lane;
 above it, a launch a phase over the whole card.
 
+On a group of devices (``core.dgraph.make_parts_group``, the reference's
+``parts`` mesh) each member holds a contiguous range of parts
+``[p0, p1)``: it keeps a replica of every part's rows of the state, writes
+its own parts' rows, and ``core.dgraph`` copies each member's rows into
+the others' replicas between phases (the reference's ``all_gather``).
+So the grid designs' kernels take a part range: ``halo(..., parts=)``,
+``dbfs_init`` and ``dbfs_step`` (the BFS a step at a time) and
+``DMatchParts`` (the matching a phase at a time: propose, then, after the
+gather of the proposals, post and commit).  A group always runs the grid
+design: a cluster cannot wait for another device's rows.
+
 The counts are of CUDA kernel launches.  The BFS's and the matching's C
 entries report what they enqueued, and ``dbfs_kernel`` / ``dmatch_kernel``
 add that; ``dbfs_counts`` and ``dmatch_count`` are the designs' formulas,
@@ -32,6 +43,12 @@ which ``planned_launches`` applies to a run's launch records:
   design ``1 + 2 * rounds`` (init, then propose, which posts the grant,
   and commit a round), or ``1 + 3 * rounds`` with a cap (a grant launch
   a round ranks the proposals).
+
+On a group of D members each member launches its own: a halo call is D
+halo launches, a BFS call D ``dbfs_init`` and ``D * width`` relaxations,
+a matching call ``D * (1 + 3 * rounds)`` (init; propose, post and commit
+a round), ``D * (1 + 4 * rounds)`` with a cap (the range's proposals
+ranked and compacted after the propose).
 
 ``state_place`` names where the last BFS or matching launch kept its
 state: the cluster design in the CTAs' shared memory where each CTA's
@@ -93,24 +110,32 @@ def _enqueue(entry: str, what: str, args: tuple,
     return counts[0], counts[1]
 
 
-def plan(P: int, nlm: int, d: int) -> Tuple[str, Optional[int]]:
+def plan(P: int, nlm: int, d: int,
+         group: int = 1) -> Tuple[str, Optional[int]]:
     """The design of the BFS and matching kernels for lanes of P parts of
     ``nlm`` rows and ``d`` slots: ``lane_plan(P * nlm, d)``, a lane being
-    its P parts' rows."""
+    its P parts' rows; the grid on a group of ``group`` > 1 members."""
+    if group > 1:
+        return "grid", None
     return lane_plan(P * nlm, d)
 
 
-def dbfs_counts(design: str, width: int) -> Tuple[int, int]:
+def dbfs_counts(design: str, width: int, group: int = 1) -> Tuple[int, int]:
     """(``dbfs_launches``, ``relax_launches``) one BFS call adds in
-    ``design``: the cluster kernel alone, or ``dbfs_init`` and an
-    ``ell_relax`` a step."""
-    return (1, 0) if design == "cluster" else (1, int(width))
+    ``design`` on ``group`` members: the cluster kernel alone, or
+    ``dbfs_init`` and an ``ell_relax`` a step on each member."""
+    if design == "cluster":
+        return 1, 0
+    return group, group * int(width)
 
 
-def dmatch_count(design: str, rounds: int, cap: int) -> int:
-    """Kernel launches of one matching call in ``design``."""
+def dmatch_count(design: str, rounds: int, cap: int, group: int = 1) -> int:
+    """Kernel launches of one matching call in ``design`` on ``group``
+    members."""
     if design == "cluster":
         return 1
+    if group > 1:
+        return group * (1 + (4 if cap else 3) * int(rounds))
     return 1 + (3 if cap else 2) * int(rounds)
 
 
@@ -118,23 +143,34 @@ def planned_launches(records) -> dict:
     """The launches this module's counts gain on the card from a run with
     these launch records (``obs`` ``launch`` payloads; only the kinds
     ``dhalo``, ``dbfs`` and ``dmatch`` launch here), each BFS and
-    matching call in its planned design: keyed by the counts' names."""
+    matching call in its planned design on its record's ``group``
+    members (1 where the record has none): keyed by the counts' names."""
     want = dict.fromkeys(("relax_launches", "halo_launches",
                           "dbfs_launches", "dmatch_launches"), 0)
     for r in records:
+        group = r.get("group", 1)
         if r["kind"] == "dhalo":
-            want["halo_launches"] += 1
+            want["halo_launches"] += group
         if r["kind"] not in ("dbfs", "dmatch"):
             continue
-        design = plan(r["nparts"], *r["bucket"][:2])[0]
+        design = plan(r["nparts"], *r["bucket"][:2], group=group)[0]
         if r["kind"] == "dbfs":
-            own, steps = dbfs_counts(design, r["rounds"])
+            own, steps = dbfs_counts(design, r["rounds"], group)
             want["dbfs_launches"] += own
             want["relax_launches"] += steps
         else:
             want["dmatch_launches"] += dmatch_count(design, r["rounds"],
-                                                    r["cap"])
+                                                    r["cap"], group)
     return want
+
+
+def part_range(P: int, parts) -> Tuple[int, int]:
+    """``parts`` as a range ``(p0, p1)`` of P parts, ``(0, P)`` for None;
+    raises unless 0 <= p0 < p1 <= P."""
+    p0, p1 = (0, P) if parts is None else (int(parts[0]), int(parts[1]))
+    if not 0 <= p0 < p1 <= P:
+        raise ValueError(f"want a part range of {P} parts, got {parts}")
+    return p0, p1
 
 
 def dmatch_scratch(design: str, L: int, P: int, nlm: int, G: int,
@@ -221,27 +257,35 @@ def lane_slots(ghost_gid: torch.Tensor, vtxdist: torch.Tensor,
                        -1).to(torch.int32)
 
 
-def halo_plain(x: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
-    """x (L, P, nlm), slots (L, P, G) ghost slot tables (``lane_slots``)
-    → (L, P, nlm + G): each part's values, then each ghost's value at its
-    lane-local slot (0 for -1, or any slot outside the lane's rows)."""
+def halo_plain(x: torch.Tensor, slots: torch.Tensor,
+               parts=None) -> torch.Tensor:
+    """x (L, P, nlm), slots (L, p1 - p0, G) the ghost slot tables of parts
+    ``parts`` = [p0, p1) (``lane_slots``; all P parts by default) → (L,
+    p1 - p0, nlm + G): each of those parts' values, then each ghost's value
+    at its lane-local slot (0 for -1, or any slot outside the lane's
+    rows)."""
     L, P, nlm = x.shape
+    p0, p1 = part_range(P, parts)
     ok = (slots >= 0) & (slots < P * nlm)
     idx = torch.where(ok, slots, 0).reshape(L, -1).long()
     vals = x.reshape(L, P * nlm).gather(1, idx).reshape(slots.shape)
-    return torch.cat([x, torch.where(ok, vals, torch.zeros_like(vals))],
-                     dim=2)
+    return torch.cat([x[:, p0:p1],
+                      torch.where(ok, vals, torch.zeros_like(vals))], dim=2)
 
 
-def halo(x: torch.Tensor, tables: Sequence[torch.Tensor]) -> torch.Tensor:
+def halo(x: torch.Tensor, tables: Sequence[torch.Tensor],
+         parts=None) -> torch.Tensor:
     """The lane-stacked halo exchange: x (L, P, nlm) int32 and, for each
     of its 1 to ``HALO_LANES`` lanes, a (P, G) int32 ghost slot table
-    (``lane_slots``; lanes may share one) → (L, P, nlm + G) int32.  CUDA
-    tensors go to the kernel (one launch, each lane's table read where
-    it lies), CPU tensors to the plain version."""
+    (``lane_slots``; lanes may share one) → (L, p1 - p0, nlm + G) int32,
+    the rows of parts ``parts`` = [p0, p1) (all P by default: a group
+    member's call takes its own).  CUDA tensors go to the kernel (one
+    launch, each lane's table read where it lies), CPU tensors to the
+    plain version."""
     global halo_launches
     _int32("x", x, 3)
     L, P, nlm = x.shape
+    p0, p1 = part_range(P, parts)
     if not 1 <= len(tables) == L <= HALO_LANES:
         raise ValueError(f"want one slot table for each of 1 to "
                          f"{HALO_LANES} lanes, got {len(tables)} for "
@@ -253,15 +297,16 @@ def halo(x: torch.Tensor, tables: Sequence[torch.Tensor]) -> torch.Tensor:
                              f"{tuple(t.shape)}")
     _same_device(x, *tables)
     if x.device.type != "cuda":
-        return halo_plain(x, torch.stack(list(tables)))
+        return halo_plain(x, torch.stack(list(tables))[:, p0:p1], (p0, p1))
     x = x.contiguous()
     tables = [t.contiguous() for t in tables]
     G = tables[0].shape[1]
-    out = torch.empty((L, P, nlm + G), dtype=torch.int32, device=x.device)
+    out = torch.empty((L, p1 - p0, nlm + G), dtype=torch.int32,
+                      device=x.device)
     ptrs = (ctypes.c_void_p * L)(*(t.data_ptr() for t in tables))
-    err = build.load("dgraph").halo_launch(
+    err = build.load("dgraph").halo_parts_launch(
         x.data_ptr(), ctypes.addressof(ptrs), out.data_ptr(), L, P, nlm, G,
-        _stream(x))
+        p0, p1, _stream(x))
     build.check(err, "halo")
     halo_launches += 1
     return out
@@ -276,20 +321,41 @@ def _check_parts(x, ghost_gid, vtxdist) -> None:
                          f"{tuple(ghost_gid.shape)}, {tuple(vtxdist.shape)}")
 
 
+def dbfs_init_plain(src: torch.Tensor, ghost_gid: torch.Tensor,
+                    vtxdist: torch.Tensor, dist: torch.Tensor,
+                    parts=None) -> torch.Tensor:
+    """``dbfs_init``'s plain version: the sources src (L, p1 - p0, nlm) of
+    parts [p0, p1) into their rows of dist (L, P, nlm), 0 or BIG; returns
+    their ghosts' slot table (L, p1 - p0, G) (``lane_slots``)."""
+    p0, p1 = part_range(dist.shape[1], parts)
+    dist[:, p0:p1] = torch.where(src != 0, 0, BIG).to(torch.int32)
+    return lane_slots(ghost_gid, vtxdist, dist.shape[2])
+
+
+def dbfs_step_plain(nbr: torch.Tensor, dist: torch.Tensor,
+                    slots: torch.Tensor, parts=None) -> torch.Tensor:
+    """One synchronous BFS step of parts [p0, p1) (the relaxation in its
+    distributed form): each part against its halo-extended row of dist
+    (L, P, nlm), min with its old distance; nbr (L, p1 - p0, nlm, d),
+    slots (L, p1 - p0, G) → (L, p1 - p0, nlm) int32 (dgraph.py:933-943)."""
+    L, pr, nlm, d = nbr.shape
+    p0, p1 = part_range(dist.shape[1], parts)
+    ext = halo_plain(dist, slots, (p0, p1))
+    relaxed = ell_relax_plain(nbr.reshape(L * pr, nlm, d),
+                              ext.reshape(L * pr, -1), BIG)
+    return torch.minimum(dist[:, p0:p1], relaxed.reshape(L, pr, nlm))
+
+
 def dbfs_plain(nbr: torch.Tensor, src: torch.Tensor, ghost_gid: torch.Tensor,
                vtxdist: torch.Tensor, width: int) -> torch.Tensor:
     """``width`` synchronous steps, each a halo exchange and a relaxation
     of every part against its extended vector, min with the old distance
     (dgraph.py:933-943): nbr (L, P, nlm, d), src (L, P, nlm) → (L, P,
     nlm) int32, BIG beyond ``width``."""
-    L, P, nlm, d = nbr.shape
-    dist = torch.where(src != 0, 0, BIG).to(torch.int32)
-    slots = lane_slots(ghost_gid, vtxdist, nlm)
+    dist = torch.empty(src.shape, dtype=torch.int32, device=src.device)
+    slots = dbfs_init_plain(src, ghost_gid, vtxdist, dist)
     for _ in range(width):
-        ext = halo_plain(dist, slots)
-        relaxed = ell_relax_plain(nbr.reshape(L * P, nlm, d),
-                                  ext.reshape(L * P, -1), BIG)
-        dist = torch.minimum(dist, relaxed.reshape(L, P, nlm))
+        dist = dbfs_step_plain(nbr, dist, slots)
     return dist
 
 
@@ -342,7 +408,218 @@ def dbfs_kernel(nbr: torch.Tensor, src: torch.Tensor,
     return bufs[0]
 
 
+def dbfs_init(src: torch.Tensor, ghost_gid: torch.Tensor,
+              vtxdist: torch.Tensor, dist: torch.Tensor,
+              parts=None) -> torch.Tensor:
+    """A group member's BFS start: the sources src (L, p1 - p0, nlm) int32
+    of parts ``parts`` = [p0, p1) into their rows of dist (L, P, nlm)
+    int32, in place; returns their ghosts' lane-local slots (L, p1 - p0,
+    G) int32 (ghost_gid (L, p1 - p0, G), vtxdist (L, P + 1)), the table
+    ``dbfs_step`` reads.  CUDA tensors go to ``dbfs_init`` (one launch),
+    CPU tensors to the plain version."""
+    global dbfs_launches
+    for name, t, dims in (("src", src, 3), ("ghost_gid", ghost_gid, 3),
+                          ("vtxdist", vtxdist, 2), ("dist", dist, 3)):
+        _int32(name, t, dims)
+    L, P, nlm = dist.shape
+    p0, p1 = part_range(P, parts)
+    if src.shape != (L, p1 - p0, nlm) or ghost_gid.shape[:2] != (
+            L, p1 - p0) or vtxdist.shape != (L, P + 1) or \
+            not dist.is_contiguous():
+        raise ValueError(f"want src (L, p1 - p0, nlm), ghost_gid (L, p1 - "
+                         f"p0, G), vtxdist (L, P + 1) and a contiguous dist "
+                         f"for dist {tuple(dist.shape)} and parts "
+                         f"{(p0, p1)}")
+    _same_device(src, ghost_gid, vtxdist, dist)
+    if dist.device.type != "cuda":
+        return dbfs_init_plain(src, ghost_gid, vtxdist, dist, (p0, p1))
+    src, ghost_gid, vtxdist = (t.contiguous() for t in (src, ghost_gid,
+                                                        vtxdist))
+    G = ghost_gid.shape[2]
+    gslot = torch.empty((L, p1 - p0, G), dtype=torch.int32,
+                        device=dist.device)
+    err = build.load("dgraph").dbfs_parts_init_launch(
+        src.data_ptr(), ghost_gid.data_ptr(), vtxdist.data_ptr(),
+        dist.data_ptr(), gslot.data_ptr(), L, P, nlm, G, p0, p1,
+        _stream(dist))
+    build.check(err, "dbfs_init")
+    if L:
+        dbfs_launches += 1
+    return gslot
+
+
+def dbfs_step(nbr: torch.Tensor, din: torch.Tensor, dout: torch.Tensor,
+              gslot: torch.Tensor, parts=None) -> None:
+    """A group member's BFS step: the rows of parts ``parts`` = [p0, p1)
+    of dout (L, P, nlm) relaxed against din (L, P, nlm), which holds every
+    part's distances (the relaxation in its distributed form); nbr (L,
+    p1 - p0, nlm, d) and gslot (L, p1 - p0, G) int32 from ``dbfs_init``.
+    CUDA tensors go to ``ell_relax`` (one launch), CPU tensors to the
+    plain version."""
+    global relax_launches
+    for name, t, dims in (("nbr", nbr, 4), ("din", din, 3),
+                          ("dout", dout, 3), ("gslot", gslot, 3)):
+        _int32(name, t, dims)
+    L, P, nlm = din.shape
+    p0, p1 = part_range(P, parts)
+    if nbr.shape[:3] != (L, p1 - p0, nlm) or dout.shape != din.shape or \
+            gslot.shape[:2] != (L, p1 - p0) or not (
+                din.is_contiguous() and dout.is_contiguous()):
+        raise ValueError(f"want nbr (L, p1 - p0, nlm, d), gslot (L, p1 - "
+                         f"p0, G) and contiguous din, dout alike for din "
+                         f"{tuple(din.shape)} and parts {(p0, p1)}")
+    _same_device(nbr, din, dout, gslot)
+    if din.device.type != "cuda":
+        dout[:, p0:p1] = dbfs_step_plain(nbr, din, gslot, (p0, p1))
+        return
+    nbr, gslot = nbr.contiguous(), gslot.contiguous()
+    err = build.load("dgraph").dbfs_parts_step_launch(
+        nbr.data_ptr(), din.data_ptr(), dout.data_ptr(), gslot.data_ptr(),
+        L, P, nlm, nbr.shape[3], gslot.shape[2], p0, p1, _stream(din))
+    build.check(err, "dbfs_step")
+    if L:
+        relax_launches += 1
+
+
 # ------------------------------------------------------------ matching
+def _match_state(L: int, P: int, nlm: int, cap: int,
+                 device) -> dict:
+    """The rows of a matching's state that a group's members gather, every
+    part's: the mates, the proposals (target gid, -1 for none, and float
+    weight) and with a cap each part's first ``cap`` proposals in row
+    order (``ctgt``, -1 padded, ``cw``, and the proposers' gids
+    ``cgid``)."""
+    def t(shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device=device)
+    return {"match": t((L, P, nlm)), "prop_tgt": t((L, P, nlm)),
+            "prop_w": t((L, P, nlm), torch.float32),
+            "ctgt": t((L, P, cap)), "cw": t((L, P, cap), torch.float32),
+            "cgid": t((L, P, cap))}
+
+
+class _PlainMatch:
+    """The request/grant rounds of dgraph.py:1015-1131 in torch, a phase at
+    a time, for parts [p0, p1) of each lane: the plain version of the grid
+    matching's kernels.  nbr, ewgt (L, p1 - p0, nlm, d) int32; ghost_gid
+    (L, p1 - p0, G); vtxdist (L, P + 1); n_loc (L, P); seeds (L,) int32,
+    already masked to 31 bits; ``state`` (``_match_state``) holds every
+    part's rows.  ``propose`` writes the range's proposals (and, with a
+    cap, its compacted ones: the reference's compact gather keeps each
+    part's first ``cap`` in row order), ``post`` takes every part's from
+    ``state`` into the winner table, ``commit`` the range's mates.  An id
+    outside [0, nlm + G) is padding."""
+
+    def __init__(self, nbr, ewgt, ghost_gid, vtxdist, n_loc, seeds,
+                 state: dict, parts=None, cap: int = 0):
+        L, pr, nlm, d = nbr.shape
+        P = vtxdist.shape[1] - 1
+        self.p0, self.p1 = p0, p1 = part_range(P, parts)
+        G = ghost_gid.shape[2]
+        dev = nbr.device
+        self.L, self.P, self.pr, self.nlm, self.cap = L, P, pr, nlm, cap
+        self.vtxdist, self.state = vtxdist, state
+        vd = vtxdist.long()
+        li = torch.arange(nlm, device=dev)
+        self.valid_all = li.view(1, 1, nlm) < n_loc.long().unsqueeze(2)
+        self.gid_all = torch.where(self.valid_all,
+                                   vd[:, :P].unsqueeze(2) + li, -1)
+        self.my_gid = self.gid_all[:, p0:p1]                    # (L,pr,nlm)
+        self.ext_gid = torch.cat([self.my_gid, ghost_gid.long()], dim=2)
+        self.valid_e = (nbr >= 0) & (nbr < nlm + G)
+        self.nb = torch.where(self.valid_e, nbr, 0).long()
+        self.ewf = ewgt.to(torch.float32)
+        self.seed = seeds.long().view(L, 1, 1)
+        self.gslot = owner_slots(ghost_gid.reshape(L, pr * G), vtxdist, nlm)
+        self.gok = (ghost_gid >= 0).reshape(L, pr * G)
+        self.tgt = self._at(self.ext_gid, self.nb)
+
+    def _at(self, ext, idx):            # ext (L, pr, W), idx (L, pr, nlm, d)
+        return ext.gather(2, idx.reshape(self.L, self.pr, -1)).reshape(
+            idx.shape)
+
+    def propose(self, r: int, tally: Optional[List[tuple]] = None) -> None:
+        L, P, pr, nlm, p0, p1 = (self.L, self.P, self.pr, self.nlm, self.p0,
+                                 self.p1)
+        st = self.state
+        unmatched_all = (st["match"].long() < 0) & self.valid_all
+        unmatched = unmatched_all[:, p0:p1]
+        unm_g = unmatched_all.reshape(L, P * nlm).gather(1, self.gslot) \
+            & self.gok
+        ext_unm = torch.cat([unmatched, unm_g.reshape(L, pr, -1)], dim=2)
+        is_prop_ext = (hash_mix(self.ext_gid, r, self.seed) & 1) == 1
+        tgt = self.tgt
+        cand = (self.valid_e & self._at(ext_unm, self.nb)
+                & ~self._at(is_prop_ext, self.nb) & (tgt >= 0))
+        tie = hash_unit(self.my_gid.unsqueeze(3), tgt, r + 17)
+        score = torch.where(cand, self.ewf + tie,
+                            torch.tensor(float("-inf"), device=tgt.device))
+        slot = score.argmax(dim=3, keepdim=True)
+        is_prop = is_prop_ext[:, :, :nlm]
+        has = cand.any(dim=3) & unmatched & is_prop
+        prop_tgt = torch.where(has, tgt.gather(3, slot)[..., 0], -1)
+        prop_w = torch.where(has, self.ewf.gather(3, slot)[..., 0], 0.0)
+        if tally is not None:
+            scans = unmatched & is_prop
+            tally.append((L * pr * nlm,
+                          int((self.valid_e & scans[..., None]).sum()),
+                          int(has.sum())))
+        st["prop_tgt"][:, p0:p1] = prop_tgt.to(torch.int32)
+        st["prop_w"][:, p0:p1] = prop_w
+        self.unmatched, self.is_prop = unmatched, is_prop
+        if self.cap:
+            cap = self.cap
+            rank = has.long().cumsum(dim=2) - 1
+            keep = has & (rank < cap)
+            pos = torch.where(keep, rank, cap)
+            for name, v, fill in (("ctgt", prop_tgt, -1),
+                                  ("cw", prop_w, 0.0),
+                                  ("cgid", self.my_gid, -1)):
+                dst = torch.full((L, pr, cap + 1), fill, dtype=v.dtype,
+                                 device=v.device)
+                dst.scatter_(2, pos, torch.where(keep, v, fill))
+                st[name][:, p0:p1] = dst[..., :cap].to(st[name].dtype)
+
+    def post(self, r: int) -> None:
+        L, P, nlm = self.L, self.P, self.nlm
+        st = self.state
+        if self.cap:
+            tg, w, gid = (st["ctgt"].long().reshape(L, -1),
+                          st["cw"].reshape(L, -1),
+                          st["cgid"].long().reshape(L, -1))
+        else:
+            tg, w, gid = (st["prop_tgt"].long().reshape(L, -1),
+                          st["prop_w"].reshape(L, -1),
+                          self.gid_all.reshape(L, -1))
+        has = tg >= 0
+        nseg = P * nlm + 1
+        seg = torch.where(has, owner_slots(tg, self.vtxdist, nlm), nseg - 1)
+        word = torch.where(has, grant_word(
+            w + hash_unit(gid, tg, r + 31), gid), _EMPTY)
+        best = torch.full((L, nseg), _EMPTY, dtype=torch.long,
+                          device=tg.device)
+        best = best.scatter_reduce(1, seg, word, "amax")
+        self.winner = torch.where(best == _EMPTY, 0x7FFFFFFF,
+                                  0x7FFFFFFF - (best & 0xFFFFFFFF)
+                                  )[:, :P * nlm]
+
+    def commit(self, r: int) -> None:
+        L, pr, nlm, p0, p1 = self.L, self.pr, self.nlm, self.p0, self.p1
+        st, winner = self.state, self.winner
+        win_mine = winner[:, p0 * nlm:p1 * nlm].reshape(L, pr, nlm)
+        can_accept = self.unmatched & ~self.is_prop
+        grant = torch.where(can_accept & (win_mine < 0x7FFFFFFF), win_mine,
+                            -1)
+        ptg = st["prop_tgt"][:, p0:p1].long()
+        win_t = winner.gather(1, owner_slots(ptg.reshape(L, -1),
+                                             self.vtxdist, nlm)
+                              ).reshape(L, pr, nlm)
+        got = (ptg >= 0) & (win_t == self.my_gid)
+        match = st["match"][:, p0:p1].long()
+        match = torch.where(got, ptg, match)
+        match = torch.where(grant >= 0, grant, match)
+        st["match"][:, p0:p1] = match.to(torch.int32)
+
+
 def dmatch_plain(nbr: torch.Tensor, ewgt: torch.Tensor,
                  ghost_gid: torch.Tensor, vtxdist: torch.Tensor,
                  n_loc: torch.Tensor, seeds: torch.Tensor, rounds: int,
@@ -358,75 +635,113 @@ def dmatch_plain(nbr: torch.Tensor, ewgt: torch.Tensor,
     as the reference's compact gather drops them.  ``tally``, if given,
     gets one ``(rows, scanned, proposals)`` per round: the rows, the real
     slots of the unmatched proposers (each scans its row) and the
-    proposals — the hashes a round's data needs.
+    proposals — the hashes a round's data needs.  ``_PlainMatch`` on the
+    whole part range, a round its three phases.
     """
-    L, P, nlm, d = nbr.shape
-    G = ghost_gid.shape[2]
-    dev = nbr.device
-    vd = vtxdist.long()
-    li = torch.arange(nlm, device=dev)
-    valid_loc = li.view(1, 1, nlm) < n_loc.long().unsqueeze(2)
-    lo = vd[:, :P].unsqueeze(2)
-    my_gid = torch.where(valid_loc, lo + li, -1)                 # (L,P,nlm)
-    ext_gid = torch.cat([my_gid, ghost_gid.long()], dim=2)      # (L,P,W)
-    valid_e = (nbr >= 0) & (nbr < nlm + G)
-    nb = torch.where(valid_e, nbr, 0).long()
-    ewf = ewgt.to(torch.float32)
-    seed = seeds.long().view(L, 1, 1)
-    gslot = owner_slots(ghost_gid.reshape(L, P * G), vtxdist, nlm)
-    gok = (ghost_gid >= 0).reshape(L, P * G)
-    nseg = P * nlm + 1
-
-    def ext_at(ext, idx):               # ext (L, P, W), idx (L, P, nlm, d)
-        return ext.gather(2, idx.reshape(L, P, nlm * d)).reshape(idx.shape)
-
-    match = torch.full((L, P, nlm), -1, dtype=torch.long, device=dev)
-    neg_inf = torch.tensor(float("-inf"), device=dev)
+    L, P, nlm = nbr.shape[:3]
+    state = _match_state(L, P, nlm, cap, nbr.device)
+    state["match"].fill_(-1)
+    plain = _PlainMatch(nbr, ewgt, ghost_gid, vtxdist, n_loc, seeds, state,
+                        cap=cap)
     for r in range(rounds):
-        unmatched = (match < 0) & valid_loc
-        unm_flat = unmatched.reshape(L, P * nlm)
-        unm_g = unm_flat.gather(1, gslot) & gok
-        ext_unm = torch.cat([unmatched, unm_g.reshape(L, P, G)], dim=2)
-        is_prop_ext = (hash_mix(ext_gid, r, seed) & 1) == 1
-        tgt = ext_at(ext_gid, nb)
-        cand = (valid_e & ext_at(ext_unm, nb) & ~ext_at(is_prop_ext, nb)
-                & (tgt >= 0))
-        tie = hash_unit(my_gid.unsqueeze(3), tgt, r + 17)
-        score = torch.where(cand, ewf + tie, neg_inf)
-        slot = score.argmax(dim=3, keepdim=True)
-        has = cand.any(dim=3) & unmatched & is_prop_ext[:, :, :nlm]
-        prop_tgt = torch.where(has, tgt.gather(3, slot)[..., 0], -1)
-        prop_w = torch.where(has, ewf.gather(3, slot)[..., 0], 0.0)
-        if tally is not None:
-            scans = unmatched & is_prop_ext[:, :, :nlm]
-            tally.append((L * P * nlm, int((valid_e & scans[..., None]).sum()),
-                          int(has.sum())))
-        if cap:
-            rank = has.long().cumsum(dim=2) - 1
-            has = has & (rank < cap)
-        # grant: each acceptor slot keeps the largest packed word
-        tg_flat = prop_tgt.reshape(L, P * nlm)
-        has_flat = has.reshape(L, P * nlm)
-        seg = torch.where(has_flat, owner_slots(tg_flat, vtxdist, nlm),
-                          nseg - 1)
-        gsc = prop_w.reshape(L, P * nlm) + hash_unit(
-            my_gid.reshape(L, P * nlm), tg_flat, r + 31)
-        word = torch.where(has_flat, grant_word(
-            gsc, my_gid.reshape(L, P * nlm)), _EMPTY)
-        best = torch.full((L, nseg), _EMPTY, dtype=torch.long, device=dev)
-        best = best.scatter_reduce(1, seg, word, "amax")
-        winner = torch.where(best == _EMPTY, 0x7FFFFFFF,
-                             0x7FFFFFFF - (best & 0xFFFFFFFF))[:, :P * nlm]
-        win_mine = winner.reshape(L, P, nlm)
-        can_accept = unmatched & ~is_prop_ext[:, :, :nlm]
-        grant = torch.where(can_accept & (win_mine < 0x7FFFFFFF),
-                            win_mine, -1)
-        win_t = winner.gather(1, owner_slots(tg_flat, vtxdist, nlm)
-                              ).reshape(L, P, nlm)
-        got = (prop_tgt >= 0) & (win_t == my_gid)
-        match = torch.where(got, prop_tgt, match)
-        match = torch.where(grant >= 0, grant, match)
-    return match.to(torch.int32)
+        plain.propose(r, tally)
+        plain.post(r)
+        plain.commit(r)
+    return state["match"]
+
+
+class DMatchParts:
+    """A group member's share of the matching: parts ``parts`` = [p0, p1)
+    of each lane.  nbr, ewgt (L, p1 - p0, nlm, d), ghost_gid (L, p1 - p0,
+    G) int32: the range's structure; vtxdist (L, P + 1), n_loc (L, P),
+    seeds (L,) int32.  ``state`` (``_match_state``) holds every part's rows
+    of the mates and proposals: the member writes its own, and its group
+    gathers the others' into them, ``gathered(phase)`` naming which.  A
+    round is ``propose(r)``, the gather of ``gathered("propose")`` (at the
+    cap's width with a cap), ``finish(r)`` (every part's proposals posted
+    to this member's winner table, its own rows committed), then, before
+    the next propose, the gather of ``gathered("commit")``, the mates.
+    CUDA tensors go to the kernels (``dmatch_parts_launch``: 1 launch to
+    start, 1 + [cap > 0] a propose, 2 a finish), CPU tensors to
+    ``_PlainMatch``."""
+
+    def __init__(self, nbr, ewgt, ghost_gid, vtxdist, n_loc, seeds,
+                 parts=None, cap: int = 0):
+        for name, t, dims in (("nbr", nbr, 4), ("ewgt", ewgt, 4),
+                              ("ghost_gid", ghost_gid, 3),
+                              ("vtxdist", vtxdist, 2), ("n_loc", n_loc, 2),
+                              ("seeds", seeds, 1)):
+            _int32(name, t, dims)
+        L, pr, nlm, d = nbr.shape
+        P = vtxdist.shape[1] - 1
+        self.parts = p0, p1 = part_range(P, parts)
+        if ewgt.shape != nbr.shape or pr != p1 - p0 or \
+                ghost_gid.shape[:2] != (L, pr) or vtxdist.shape[0] != L or \
+                n_loc.shape != (L, P) or seeds.shape != (L,):
+            raise ValueError(f"want nbr, ewgt (L, p1 - p0, nlm, d), "
+                             f"ghost_gid (L, p1 - p0, G), vtxdist (L, P+1), "
+                             f"n_loc (L, P), seeds (L,) for parts {parts}")
+        if not 0 <= cap <= nlm:
+            raise ValueError(f"cap must be in [0, {nlm}], got {cap}")
+        _same_device(nbr, ewgt, ghost_gid, vtxdist, n_loc, seeds)
+        self.cap = cap
+        self.cuda = nbr.device.type == "cuda"
+        self.state = _match_state(L, P, nlm, cap, nbr.device)
+        if not self.cuda:
+            self.state["match"].fill_(-1)
+            self._plain = _PlainMatch(nbr, ewgt, ghost_gid, vtxdist, n_loc,
+                                      seeds, self.state, parts, cap)
+            return
+        self._args = [t.contiguous() for t in (nbr, ewgt, ghost_gid,
+                                               vtxdist, n_loc, seeds)]
+        G = ghost_gid.shape[2]
+        dev = nbr.device
+        self._scratch = (
+            torch.empty((L, pr, G), dtype=torch.int64, device=dev),
+            torch.empty(2 * L * P * nlm, dtype=torch.int64, device=dev),
+            torch.empty((L, P, -(-nlm // 256)), dtype=torch.int32,
+                        device=dev))
+        self._dims = (L, P, nlm, d, G, cap, p0, p1)
+        self._phase(0, 0)
+
+    def _phase(self, phase: int, r: int) -> None:
+        global dmatch_launches
+        st, (gidx, tables, tiles) = self.state, self._scratch
+        ptrs = [t.data_ptr() for t in (
+            *self._args, st["match"], gidx, tables, st["prop_tgt"],
+            st["prop_w"], tiles, st["ctgt"], st["cw"], st["cgid"])]
+        own, _ = _enqueue("dmatch_parts_launch", "dmatch",
+                          (*ptrs, *self._dims, phase, r),
+                          _stream(self._args[0]))
+        dmatch_launches += own
+
+    def gathered(self, phase: str) -> List[torch.Tensor]:
+        """The state a group gathers after ``phase``: the proposals after
+        "propose" (compacted with a cap), the mates after "commit"."""
+        if phase == "commit":
+            return [self.state["match"]]
+        names = ("ctgt", "cw", "cgid") if self.cap else ("prop_tgt",
+                                                         "prop_w")
+        return [self.state[n] for n in names]
+
+    def propose(self, r: int) -> None:
+        if self.cuda:
+            self._phase(1, r)
+        else:
+            self._plain.propose(r)
+
+    def finish(self, r: int) -> None:
+        if self.cuda:
+            self._phase(2, r)
+        else:
+            self._plain.post(r)
+            self._plain.commit(r)
+
+    @property
+    def match(self) -> torch.Tensor:
+        """Every part's mates (L, P, nlm) int32: the member's own rows final
+        after the last ``finish``."""
+        return self.state["match"]
 
 
 def dmatch(nbr: torch.Tensor, ewgt: torch.Tensor, ghost_gid: torch.Tensor,

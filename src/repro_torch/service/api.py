@@ -194,7 +194,7 @@ class OrderingService:
                  warm_capacity: int = 256,
                  warm_opc_ratio_max: float = 1.03,
                  warm_record: Optional[bool] = None,
-                 device=None):
+                 device=None, group=None):
         self.default_cfg = cfg or NDConfig()
         self.cache = FingerprintCache(cache_capacity)
         self.policy = policy or SchedPolicy()
@@ -220,9 +220,12 @@ class OrderingService:
         self._queues: Dict[str, "OrderedDict[str, _Admission]"] = {
             cls: OrderedDict() for cls in CLASS_ORDER}
         self._inflight: Dict[str, _Inflight] = {}
-        # the router resolves the device: the card unless told otherwise
-        self._router = WaveRouter(device=device)
+        # the router resolves the device: the card unless told otherwise,
+        # or the group's first member; the group (``dgraph.PartsGroup``)
+        # holds the parts of every submit_distributed request's collectives
+        self._router = WaveRouter(device=device, group=group)
         self.device = self._router.device
+        self.group = self._router.group
         self._latencies: deque = deque(maxlen=latency_window)
         # queue-wait and execution components recorded separately: the
         # end-to-end latency of a pumped request is dominated by how
@@ -307,6 +310,8 @@ class OrderingService:
         tree (top sharded dissection plus its centralized endgame) is
         one suspendable unit on the shared router, so distributed
         orderings park and resume between waves exactly like host ones.
+        Its collectives run on the service's ``group`` where it has one
+        (the same permutation, so the cache serves both).
         """
         cfg = cfg or DNDConfig()
         t0 = time.perf_counter()

@@ -25,7 +25,10 @@ routing N trees through shared waves is bit-identical to driving them
 one at a time, or through the looped ``core.nd.nested_dissection``.
 
 The router runs its works on one device (``device``, the card unless the
-caller names ``"cpu"``).  Its recovery ladder (retry, FM kernel-path
+caller names ``"cpu"``), and the distributed kinds' collectives on the
+device group ``group`` where one is given (``RouterConfig.group``, the
+reference's ``mesh``: a ``dgraph.PartsGroup`` whose members hold the
+parts; ``device`` then defaults to its first member).  Its recovery ladder (retry, FM kernel-path
 degrade, isolate, excise) never moves work to another device: on the
 card the FM ladder is fused → hoisted, both CUDA kernels, and a group
 that fails at hoisted is isolated and then excised; on the CPU it keeps
@@ -33,10 +36,11 @@ the reference's third rung, the plain torch oracle.  The distributed
 kinds' ladder is retry and isolate, as in the reference: it has no
 plain rung.
 
-``RouterConfig`` leaves out the reference's ``mesh`` (read by nothing
-there), its ``jit_cache_capacity`` (which bounds a JAX jit-builder cache
-with no counterpart under PyTorch), and its ``frontier_waves``,
-``max_wave_works`` and ``pump_wave_budget``, which nothing reads.
+``RouterConfig`` carries the reference's ``mesh`` as ``group``; it leaves
+out the reference's ``jit_cache_capacity`` (which bounds a JAX
+jit-builder cache with no counterpart under PyTorch), and its
+``frontier_waves``, ``max_wave_works`` and ``pump_wave_budget``, which
+nothing reads.
 
 Tasks are generators yielding typed work descriptors (or ``_Spawn``
 lists of subtasks) and receiving results — the protocol
@@ -55,7 +59,8 @@ import numpy as np
 from repro_torch import obs
 from repro_torch.core.band import BFSWork, execute_bfs_works
 from repro_torch.core.coarsen import MatchWork, execute_match_works
-from repro_torch.core.dgraph import (dgraph_bucket, distributed_bfs_stacked,
+from repro_torch.core.dgraph import (PartsGroup, dgraph_bucket,
+                                     distributed_bfs_stacked,
                                      distributed_matching_stacked,
                                      halo_exchange_stacked)
 from repro_torch.core.dnd import DBFSWork, DHaloWork, DMatchWork, _Spawn
@@ -80,10 +85,15 @@ class RouterConfig:
     wave that builds or loads a kernel library dwarfs steady-state waves.
     A pump's wave budget is the admission policy's
     (``sched_policy.PolicyConfig.wave_budget``).
+
+    ``group``: the device group that serves the distributed kinds
+    (``dmatch``, ``dbfs``, ``dhalo``), a ``dgraph.PartsGroup`` built by
+    ``dgraph.make_parts_group``; None runs them on the router's device.
     """
     straggler_factor: float = dataclasses.field(
         default_factory=lambda: float(
             os.environ.get("REPRO_STRAGGLER_FACTOR", "4.0")))
+    group: Optional[PartsGroup] = None
 
 
 # ------------------------------------------------------------------ #
@@ -275,9 +285,11 @@ def _fm_ladder(rec: _Recovery, works: Sequence[FMWork], tags,
 def execute_wave(works: List, level: Optional[int] = None,
                  tags: Optional[Sequence] = None,
                  recovery: Optional[_Recovery] = None,
-                 device=None) -> Tuple[List, dict]:
+                 device=None,
+                 group: Optional[PartsGroup] = None) -> Tuple[List, dict]:
     """Execute one wave of mixed works on ``device``, bucketed +
-    lane-stacked.
+    lane-stacked; the distributed kinds' collectives on ``group`` where
+    one is given.
 
     ``FMWork`` (bare or in per-phase lists), ``BFSWork`` and
     ``MatchWork`` run through the bucketed executors, one dispatch per
@@ -457,14 +469,14 @@ def execute_wave(works: List, level: Optional[int] = None,
                 if kind == "dmatch":
                     return distributed_matching_stacked(
                         dgs, [works[i].seed for i in sub], key[2],
-                        tags=lane_tags, device=dev)
+                        tags=lane_tags, device=dev, group=group)
                 if kind == "dbfs":
                     return distributed_bfs_stacked(
                         dgs, [works[i].src for i in sub], key[2],
-                        tags=lane_tags, device=dev)
+                        tags=lane_tags, device=dev, group=group)
                 return halo_exchange_stacked(
                     dgs, [works[i].x for i in sub], tags=lane_tags,
-                    device=dev)
+                    device=dev, group=group)
 
             outs = guarded(kind, idxs,
                            lambda idxs=idxs: run_group(idxs),
@@ -586,8 +598,13 @@ class WaveRouter:
 
     def __init__(self, cfg: Optional[RouterConfig] = None,
                  recovery_cfg: Optional[_faults.RecoveryConfig] = None,
-                 device=None):
+                 device=None, group: Optional[PartsGroup] = None):
         self.cfg = cfg or RouterConfig()
+        #: the device group of the distributed kinds (``RouterConfig.group``
+        #: unless given here)
+        self.group = group if group is not None else self.cfg.group
+        if device is None and self.group is not None:
+            device = self.group.devices[0]
         self.device = resolve_device(device)
         self._roots: List[_Task] = []
         self._blocked: List[Tuple[_Task, object]] = []
@@ -636,7 +653,8 @@ class WaveRouter:
                     inj.check("wave", tags=tags)
                 results, summary = execute_wave(
                     [w for _, w in active], level=self._level, tags=tags,
-                    recovery=self.recovery, device=self.device)
+                    recovery=self.recovery, device=self.device,
+                    group=self.group)
             except BaseException as err:
                 # exception-safe unwind: active and parked entries go
                 # back on the frontier *before* anything propagates, so

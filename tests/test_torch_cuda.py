@@ -1188,3 +1188,55 @@ def test_halo_results_outlive_the_staging_buffer(card):
     D.halo_exchange_fn(dgs[1])(xs[1])
     assert np.array_equal(first, kept)
     assert np.array_equal(first, D.halo_reference(dgs[0], xs[0]))
+
+
+def _card_group(card, size, nparts):
+    """A group of ``size`` members: the host's first cards where it has as
+    many, else the one card repeated (the same code path, the rows crossing
+    inside the card)."""
+    from repro_torch.core import dgraph as D
+    if torch.cuda.device_count() >= size:
+        return D.make_parts_group(size, nparts)
+    return D.make_parts_group([card] * size, nparts)
+
+
+@pytest.mark.parametrize("size", [2, 3])
+@pytest.mark.parametrize("name", ["grid3d_16", "folded", "stack3",
+                                  "grid3d_40"])
+def test_group_collectives_equal_one_card(card, name, size):
+    """The halo, the BFS (width 3) and the matching (dense and at a cap
+    that drops proposals) with their parts on a group: the one-card
+    call's results exactly, each member's kernels launched as
+    ``planned_launches`` gives the group's records."""
+    from repro_torch.core import dgraph as D
+    from repro_torch.kernels import dgraph_ops as K
+    dgs = list(_dgraphs(name))
+    P, nlm = dgs[0].nbr_gst.shape[:2]
+    group = _card_group(card, size, P)
+    rng = np.random.default_rng(size)
+    xs = [rng.integers(0, 999, (P, nlm)).astype(np.int32) for _ in dgs]
+    srcs = [(rng.random((P, nlm)) < 0.05).astype(np.int32) for _ in dgs]
+    seeds = [5 + k for k in range(len(dgs))]
+    want = (D.halo_exchange_stacked(dgs, xs),
+            D.distributed_bfs_stacked(dgs, srcs, 3),
+            D.distributed_matching_stacked(dgs, seeds))
+    counts = ("halo_launches", "dbfs_launches", "relax_launches",
+              "dmatch_launches")
+    before = {c: getattr(K, c) for c in counts}
+    with D.instrument() as ins:
+        got = (D.halo_exchange_stacked(dgs, xs, group=group),
+               D.distributed_bfs_stacked(dgs, srcs, 3, group=group),
+               D.distributed_matching_stacked(dgs, seeds, group=group))
+    for a, b in zip(got, want):
+        assert all(np.array_equal(x, y) for x, y in zip(a, b))
+    planned = K.planned_launches(ins.launches)
+    assert {c: getattr(K, c) - before[c] for c in counts} == {
+        c: planned[c] for c in counts}
+    assert all(r["group"] == size and r["xbytes"] > 0 for r in ins.launches)
+    # the compacted gather at a cap that drops proposals
+    args = [torch.from_numpy(np.stack([np.asarray(getattr(d, f), np.int32)
+                                       for d in dgs]))
+            for f in ("nbr_gst", "ewgt_gst", "ghost_gid", "vtxdist", "n_loc")]
+    sd = torch.tensor(seeds, dtype=torch.int32)
+    got = D._dmatch_group(group, group.layout(P), dgs, seeds, 8, 3, [])
+    assert np.array_equal(got, K.dmatch_plain(*args, sd, 8, 3).numpy())

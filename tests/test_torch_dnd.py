@@ -12,7 +12,9 @@ drivers, keep every centralizing gather under the configuration's
 bound, assemble the same permutation sharded, and refine its bands with
 zero cross-shard conflicts and zero repairs.  At 2 parts the port's
 gather log equals the reference's, one-part subtrees above the bound
-included.  ``distributed_order_batch``
+included.  The same permutation comes out when the parts lie on a group
+of 3 or of 8 CPU devices (``dgraph.make_parts_group``; 8 is the
+reference's own layout, one part a device).  ``distributed_order_batch``
 of three requests equals each ordered alone, and the service's
 ``submit_distributed`` returns the same permutation, then a cache hit.
 """
@@ -82,22 +84,26 @@ def _dg():
     return D.distribute(G.grid2d(SIDE, SIDE), 8)
 
 
-def _ordered(frontier: bool):
+def _ordered(frontier: bool, groups: int = 1):
     """The port's ordering tree of grid2d(28, 28) at P 8 under one driver,
-    with its gathers, band stats and waves."""
-    key = ("dnd", frontier)
+    with its gathers, band stats and waves: on the CPU, or with its parts
+    on a group of ``groups`` > 1 CPU devices."""
+    key = ("dnd", frontier, groups)
     if key not in _CACHE:
         cfg = DNDConfig(frontier=frontier, **GATHER_FREE)
+        place = (dict(device=CPU) if groups == 1 else
+                 dict(group=D.make_parts_group([CPU] * groups, 8)))
         with D.instrument() as ins:
             dord = dnd.distributed_nested_dissection(
-                _dg(), seed=0, cfg=cfg, return_tree=True, device=CPU)
+                _dg(), seed=0, cfg=cfg, return_tree=True, **place)
         _CACHE[key] = (dord, ins, cfg)
     return _CACHE[key]
 
 
+@pytest.mark.parametrize("groups", [1, 3, 8])
 @pytest.mark.parametrize("frontier", [True, False])
-def test_distributed_nd_equals_reference(frontier):
-    dord, ins, _ = _ordered(frontier)
+def test_distributed_nd_equals_reference(frontier, groups):
+    dord, ins, _ = _ordered(frontier, groups)
     perm = dord.assemble()
     assert np.array_equal(np.sort(perm), np.arange(SIDE * SIDE))
     assert np.array_equal(perm, np.array(_ref()[str(frontier)]))
@@ -116,6 +122,10 @@ def test_distributed_nd_equals_reference(frontier):
                        for k in w["launches"])
         assert all(r["lanes"] == 1 for r in ins.launches
                    if r["kind"].startswith("d"))
+    # on a group, the root's collectives span all its members
+    sizes = {r.get("group", 1) for r in ins.launches
+             if r["kind"].startswith("d")}
+    assert max(sizes) == groups
 
 
 @pytest.mark.parametrize("frontier", [True, False])
