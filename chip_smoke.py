@@ -206,7 +206,27 @@ Phases, each of which must pass:
    and at a cap that drops proposals), with the call's CUDA-event time,
    the members' kernels' alone, the one-card call's, launches a call and
    the bytes copied between members;
-16. a ``{"kernels": [...]}`` line with each kernel's launches, error,
+16. training on a real process group (``launch.mesh.init_host_group``:
+   NCCL, a world of one rank on the card; ``make_host_mesh`` → (1, 1)):
+   (a) a line with the world size and whether the ranks are distinct
+   cards; (b) phase 13's model at full width and depth, 8 × 512, remat
+   "full", 3 steps at the trainer's settings on the mesh (parameters by
+   ``param_specs``, optimizer state by ``zero1_specs``, batches by
+   ``batch_specs``) and 3 ``NO_SHARD`` steps from the same parameters and
+   batches: losses, grad norms and every leaf bit-equal; each one's step
+   ms (CUDA events), kernels a step, busy ms and idle share
+   (``torch.profiler``); with ``--train-group`` (phase 16 alone) also
+   ``adamw.update`` over the DTensors, on each card's shards and through
+   DTensor dispatch (both results checked); (c) a checkpoint under the
+   mesh, ``restore(shardings)`` onto it, 2 steps replayed: losses and
+   leaves bit-equal; (d) ``python -m repro_torch.launch.train`` (5 steps,
+   one checkpoint at step 3, a failure at step 4) on the card: exit 0,
+   the mesh, its plain tensors on one rank and the restart printed, each
+   loss equal to (b)'s and (c)'s, its warm step ms; (e) only with two cards or more,
+   ``min(4, count)`` NCCL ranks on distinct cards on a (1, n) mesh,
+   reduced yi-6b and mamba2-130m in float32 within ``GROUP_LOSS_RTOL`` of
+   one card.  The group is destroyed before (d);
+17. a ``{"kernels": [...]}`` line with each kernel's launches, error,
    times, bound and library time (rows 0-2 also with their phase 7
    launches and phase 8 multi-lane times, rows 7-10 with their launches
    on phase 10's distributed main path, row 7 marked off that path when
@@ -232,6 +252,10 @@ parent and the change in one call, in the order parent, change, change,
 parent.  With ``--groups D`` the same run also times the halo, BFS and
 matching at those buckets and the ordering with their parts on a group
 of D (phase 15's layout), in a tree that has groups.
+
+    python3 chip_smoke.py --train-group
+
+runs phase 16 alone.
 """
 from __future__ import annotations
 
@@ -3731,6 +3755,374 @@ def phase_roofline(gpu: str) -> dict:
             "cells": cells}
 
 
+# ---------------------------------------------------------------- group
+#: phase 16: the trainer's own settings (``launch.train``'s defaults, lr
+#: 1e-3 with a warm-up of 20) on phase 13's model and batch; GROUP_STEPS
+#: steps on the mesh and without one, then the checkpoint's two
+GROUP_LR, GROUP_WARMUP, GROUP_STEPS = 1e-3, 20, 3
+#: (e): the sharded steps on distinct cards against one card's, relative
+#: (float32, reduced architectures: the tests' ``LOSS_RTOL_3``)
+GROUP_LOSS_RTOL = 1e-4
+GROUP_ARCHS = ("yi-6b", "mamba2-130m")
+
+
+def _steps(step, params, opt, batches) -> tuple:
+    """``step`` over ``batches``: (params, opt, losses, grad norms, each
+    step's CUDA-event ms)."""
+    import torch
+    ev = [torch.cuda.Event(enable_timing=True)
+          for _ in range(2 * len(batches))]
+    out = []
+    for i, b in enumerate(batches):
+        ev[2 * i].record()
+        params, opt, m = step(params, opt, b)
+        ev[2 * i + 1].record()
+        out.append(m)
+    torch.cuda.synchronize()
+    ms = [ev[2 * i].elapsed_time(ev[2 * i + 1]) for i in range(len(batches))]
+    return (params, opt, [float(m["loss"]) for m in out],
+            [float(m["grad_norm"]) for m in out], ms)
+
+
+def _whole(t) -> list:
+    from torch.distributed.tensor import DTensor
+    from repro_torch import tree
+    return [x.full_tensor() if isinstance(x, DTensor) else x
+            for x in tree.leaves(t)]
+
+
+def _differing(a, b, names=None) -> list:
+    """(name or index, largest difference) of each leaf pair that is not
+    equal."""
+    import torch
+    return [(n, float((x.double() - y.double()).abs().max()))
+            for n, x, y in zip(names or range(len(a)), a, b)
+            if not torch.equal(x, y)]
+
+
+def _update_through_dtensor(grads, state, params, cfg):
+    """``adamw.update`` as written before this slice (each op on the
+    DTensors themselves, so each dispatches through DTensor), for the
+    timing beside the port's update on each card's shards."""
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch import tree
+    from repro_torch.optim import adamw
+    with implicit_replication():
+        total = None
+        for x in tree.leaves(grads):
+            s_ = torch.sum(torch.square(x.float()))
+            total = s_ if total is None else total + s_
+        gnorm = torch.sqrt(total).full_tensor()
+        dev = gnorm.device
+        one = adamw._f32(1.0, dev)
+        scale = torch.minimum(one, adamw._f32(cfg.clip_norm, dev) /
+                              (gnorm + 1e-9))
+        count = state.count + 1
+        lr = adamw._schedule(cfg, count.full_tensor())
+        cf = count.full_tensor().float()
+        b1c = one - torch.pow(adamw._f32(cfg.b1, dev), cf)
+        b2c = one - torch.pow(adamw._f32(cfg.b2, dev), cf)
+        gs = tree.map(lambda g: g.float() * scale, grads)
+        m = tree.map(lambda m_, g: cfg.b1 * m_ + (1 - cfg.b1) * g,
+                     state.m, gs)
+        v = tree.map(lambda v_, g: cfg.b2 * v_ + (1 - cfg.b2) * g * g,
+                     state.v, gs)
+        master = tree.map(
+            lambda p, m_, v_: p - lr * ((m_ / b1c) / (torch.sqrt(v_ / b2c)
+                                                      + cfg.eps)
+                                        + cfg.weight_decay * p),
+            state.master, m, v)
+        new = tree.map(lambda mp, old: mp.to(old.dtype), master, params)
+    return new, adamw.OptState(master, m, v, count), gnorm
+
+
+def _update_times(cfg, shard, placed, batch, ocfg) -> dict:
+    """The AdamW update over the mesh's DTensors, the port's (each card's
+    shards, one reduction for the norm) and the DTensor-dispatched one,
+    CUDA-event ms on the same gradients; their results bit-equal."""
+    import torch
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import place_batch, value_and_grad
+    params, opt = placed
+    _, grads = value_and_grad(params, cfg, place_batch(batch, shard), shard)
+    with torch.no_grad():
+        mine = adamw.update(grads, opt, params, ocfg)
+        theirs = _update_through_dtensor(grads, opt, params, ocfg)
+        differ = _differing(_whole(mine[:2]), _whole(theirs[:2]))
+        out = {"port_ms": cuda_ms(
+            lambda: adamw.update(grads, opt, params, ocfg), 5),
+            "dtensor_ms": cuda_ms(
+            lambda: _update_through_dtensor(grads, opt, params, ocfg), 5),
+            "results_bit_equal": not differ and
+            float(mine[2]) == float(theirs[2])}
+    del grads, mine, theirs
+    return out
+
+
+def _group_restart(cfg, step, state, named, batches, k: int) -> dict:
+    """(c): save the mesh's (params, opt) after step ``k``, run steps k
+    and k + 1; ``restore(shardings)`` onto the mesh into a fresh tree and
+    replay them: the losses and every leaf bit-equal."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.train import checkpoint as ckpt
+    path = ROOT / "build" / "group_ckpt"
+    shutil.rmtree(path, ignore_errors=True)
+    t0 = time.perf_counter()
+    ckpt.save(str(path), k, state, extra={"arch": TRAIN_ARCH})
+    save_s = time.perf_counter() - t0
+    pa, oa, la, _, _ = _steps(step, *state, batches[k:k + 2])
+    fresh = lm.init_params(lm.generator(1), cfg)
+    t0 = time.perf_counter()
+    st, restored = ckpt.restore(str(path), (fresh, adamw.init(fresh)),
+                                shardings=named)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    del fresh
+    placed = all(tuple(x.placements) == tuple(n.placements)
+                 for x, n in zip(tree.leaves(restored),
+                                 ckpt.sharding_leaves(restored, named)))
+    pb, ob, lb, _, _ = _steps(step, *restored, batches[k:k + 2])
+    shutil.rmtree(path, ignore_errors=True)
+    differ = _differing(_whole((pa, oa)), _whole((pb, ob)))
+    if st != k or la != lb or differ or not placed:
+        raise AssertionError(f"phase 16 (c): restore(shardings) not "
+                             f"bit-exact: step {st} (want {k}), losses {la} "
+                             f"then {lb}, leaves {differ[:5]}, placements "
+                             f"kept {placed}")
+    return {"at_step": k, "losses": la, "save_s": save_s,
+            "restore_s": restore_s, "state": (pa, oa)}
+
+
+def _group_trainer(want: list) -> dict:
+    """(d): ``python -m repro_torch.launch.train`` on the card, 5 steps of
+    phase 16's model and batch, one checkpoint (at step 3) and a failure
+    at step 4: exit 0, the mesh (a world of one: plain tensors) and the
+    restart printed, each step's loss equal to (b)'s and (c)'s steps
+    (``want``, steps 0-4); the trainer's own step ms (host clock)."""
+    path = ROOT / "build" / "group_trainer"
+    shutil.rmtree(path, ignore_errors=True)
+    path.mkdir(parents=True)
+    out = path / "run.json"
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           TRAIN_ARCH, "--steps", "5", "--batch", str(TRAIN_BATCH), "--seq",
+           str(TRAIN_SEQ), "--ckpt", str(path / "ck"), "--ckpt-every", "3",
+           "--fail-at", "4", "--log-every", "1", "--out", str(out)]
+    environ = {k: v for k, v in os.environ.items()
+               if k not in ("WORLD_SIZE", "RANK", "MASTER_ADDR", "LOCAL_RANK")}
+    environ["PYTHONPATH"] = str(SRC)
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          env=environ, cwd=str(ROOT))
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 16 (d): the trainer exited "
+                             f"{proc.returncode}: {proc.stderr[-3000:]}")
+    text = proc.stdout
+    run = json.loads(out.read_text())
+    shutil.rmtree(path, ignore_errors=True)
+    # steps 0-4 in the order run (step 3 again after the restart)
+    expect = [want[i] for i in (0, 1, 2, 3, 3, 4)]
+    bad = [i for i, (g, w) in enumerate(zip(run["losses"], expect))
+           if g != w]
+    if "mesh={'data': 1, 'model': 1}" not in text or \
+            "(one rank: plain tensors)" not in text or \
+            "[fault] simulated host failure at step 4" not in text or \
+            run["step_ids"] != [0, 1, 2, 3, 3, 4] or bad:
+        raise AssertionError(f"phase 16 (d): trainer {run}, steps {bad} "
+                             f"differ from {want}; stdout {text[-2000:]}")
+    return {"wall_s": wall, "step_ids": run["step_ids"],
+            "losses": run["losses"], "step_ms": run["step_ms"],
+            "warm_step_ms": sum(run["step_ms"][1:]) /
+            (len(run["step_ms"]) - 1), "mesh": run["mesh"],
+            "stdout_head": text.splitlines()[0]}
+
+
+def _multi_card_rank(rank: int, n: int, store: str, device: str,
+                     out: str) -> None:
+    """(e), one rank: reduced ``GROUP_ARCHS`` in float32, 3 steps on the
+    (1, n) mesh of the group's cards; rank 0 also without a mesh, and
+    writes both."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig, _batch_at
+    from repro_torch import tree
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import train as T
+    from repro_torch.models import lm
+    from repro_torch.models import sharding as shd
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kw = {"timeout": datetime.timedelta(seconds=120)}
+    if device == "cuda":
+        torch.cuda.set_device(rank)
+        kw["device_id"] = torch.device("cuda", rank)
+    dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                            store=dist.FileStore(store, n), rank=rank,
+                            world_size=n, **kw)
+    try:
+        dev = torch.device("cuda", rank) if device == "cuda" else \
+            torch.device("cpu")
+        mesh = M.make_host_mesh(device)
+        shard = shd.ShardCfg(mesh=mesh, dp=M.dp_axes(mesh))
+        res = {"distinct": M.distinct_cards(mesh),
+               "mesh": list(mesh.shape)}
+        for arch in GROUP_ARCHS:
+            cfg = get_config(arch).reduced()
+            params = tree.map(lambda t: t.float(), lm.init_params(
+                lm.generator(0, dev), cfg))
+            d = DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=4)
+            bs = [{k: torch.from_numpy(v).to(dev)
+                   for k, v in _batch_at(d, i).items()} for i in range(3)]
+            ocfg = adamw.AdamWConfig(lr=1e-3, warmup=2)
+            got = []
+            p, o = T.place((params, adamw.init(params)),
+                           T.shardings(params, shard))
+            step = make_train_step(cfg, ocfg, shard)
+            for b in bs:
+                p, o, m = step(p, o, b)
+                got.append([float(m["loss"]), float(m["grad_norm"])])
+            want = []
+            if rank == 0:
+                p, o = params, adamw.init(params)
+                step = make_train_step(cfg, ocfg)
+                for b in bs:
+                    p, o, m = step(p, o, b)
+                    want.append([float(m["loss"]), float(m["grad_norm"])])
+            res[arch] = {"mesh": got, "one_card": want}
+        if rank == 0:
+            Path(out).write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def _multi_card(n: int, device: str = "cuda") -> dict:
+    """(e): ``_multi_card_rank`` on ``n`` spawned ranks, each on its own
+    card (``device`` "cpu": gloo ranks, to try the code without cards);
+    each step's loss and grad norm within ``GROUP_LOSS_RTOL``."""
+    import tempfile
+    import torch.multiprocessing as mp
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        out = Path(tmp) / "multi.json"
+        mp.start_processes(_multi_card_rank,
+                           args=(n, str(Path(tmp) / "store"), device,
+                                 str(out)),
+                           nprocs=n, join=True, start_method="spawn")
+        res = json.loads(out.read_text())
+    for arch in GROUP_ARCHS:
+        for got, want in zip(res[arch]["mesh"], res[arch]["one_card"]):
+            for g, w in zip(got, want):
+                if abs(g - w) > GROUP_LOSS_RTOL * abs(w):
+                    raise AssertionError(f"phase 16 (e) {arch}: {res[arch]}")
+    return res
+
+
+def phase_train_group(gpu: str, adamw_times: bool = False) -> dict:
+    """Phase 16: training on a real process group (``adamw_times``: also
+    the AdamW update's two designs timed)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import tree
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import train as T
+    from repro_torch.models import lm
+    from repro_torch.models import sharding as shd
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step
+    t_start = time.perf_counter()
+    torch.cuda.empty_cache()
+    mesh = M.make_host_mesh("cuda")
+    try:
+        world, distinct = dist.get_world_size(), M.distinct_cards(mesh)
+        log(f"phase 16 (a) process group: world size {world} "
+            f"({dist.get_backend()}), mesh "
+            f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}, "
+            + ("one rank on one card" if world == 1 else
+               f"ranks on distinct cards: {distinct}")
+            + f" (torch.cuda.device_count() {torch.cuda.device_count()})")
+        cfg = get_config(TRAIN_ARCH)
+        shard = shd.ShardCfg(mesh=mesh, dp=M.dp_axes(mesh))
+        params = lm.init_params(lm.generator(0), cfg)
+        opt = adamw.init(params)
+        named = T.shardings(params, shard)
+        placed = T.place((params, opt), named)
+        batches = _pipeline_batches(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                                    GROUP_STEPS + 2)
+        ocfg = adamw.AdamWConfig(lr=GROUP_LR, warmup=GROUP_WARMUP)
+        plain = make_train_step(cfg, ocfg)
+        sharded = make_train_step(cfg, ocfg, shard)
+        n = GROUP_STEPS
+        pa, oa, la, ga, msa = _steps(plain, params, opt, batches[:n])
+        pb, ob, lb, gb, msb = _steps(sharded, *placed, batches[:n])
+        del params, opt
+        names = [p for p, _ in tree.leaves_with_paths((pa, oa))]
+        differ = _differing(_whole((pb, ob)), tree.leaves((pa, oa)), names)
+        if la != lb or ga != gb or differ:
+            raise AssertionError(f"phase 16 (b): the (1, 1) mesh's steps "
+                                 f"differ from NO_SHARD's: losses {lb} vs "
+                                 f"{la}, grad norms {gb} vs {ga}, leaves "
+                                 f"{differ[:8]} ({len(differ)} differ)")
+        busy = {"no_shard": _device_busy(
+            lambda: plain(pa, oa, batches[n])),
+            "mesh": _device_busy(lambda: sharded(pb, ob, batches[n]))}
+        warm = {k: sum(v[1:]) / (n - 1) for k, v in
+                (("no_shard", msa), ("mesh", msb))}
+        steps = {k: {"step_ms": ms, "warm_step_ms": warm[k],
+                     "kernels_per_step": busy[k]["kernels"],
+                     "device_busy_ms": busy[k]["busy_ms"],
+                     "idle_share": 1 - busy[k]["busy_ms"] / warm[k]}
+                 for k, ms in (("no_shard", msa), ("mesh", msb))}
+        res = {"arch": TRAIN_ARCH, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+               "remat": lm.REMAT_POLICY, "losses": lb, "grad_norms": gb,
+               "bit_equal": True, "steps": steps,
+               "mesh_over_no_shard": warm["mesh"] / warm["no_shard"],
+               "gpu": gpu}
+        log(f"phase 16 (b) {TRAIN_ARCH} at full width and depth "
+            f"({TRAIN_BATCH} x {TRAIN_SEQ}, remat {lm.REMAT_POLICY}), "
+            f"{n} steps on the (1, 1) mesh == NO_SHARD bit for bit: "
+            f"{json.dumps(res)}")
+        if adamw_times:
+            res["adamw"] = _update_times(cfg, shard, (pb, ob), batches[0],
+                                         ocfg)
+            log(f"phase 16 (b) adamw.update over the mesh's DTensors, on "
+                f"each card's shards (the port) vs through DTensor "
+                f"dispatch: {json.dumps(res['adamw'])} ({gpu})")
+        del pa, oa
+        restart = _group_restart(cfg, sharded, (pb, ob), named, batches, n)
+        del pb, ob, restart["state"]
+        res["restart"] = restart
+        log(f"phase 16 (c) save under the mesh, restore(shardings) onto "
+            f"it, 2 steps replayed bit for bit: {json.dumps(restart)}")
+    finally:
+        M.release()
+    torch.cuda.empty_cache()
+    res["trainer"] = _group_trainer(lb + restart["losses"])
+    log(f"phase 16 (d) python -m repro_torch.launch.train on the card: "
+        f"{json.dumps(res['trainer'])}")
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        res["multi_card"] = _multi_card(min(4, cards))
+        log(f"phase 16 (e) {min(4, cards)} NCCL ranks on distinct cards, "
+            f"(1, n) mesh == one card within {GROUP_LOSS_RTOL}: "
+            f"{json.dumps(res['multi_card'])}")
+    else:
+        log("phase 16 (e) one card on this machine: no run on distinct "
+            "cards (the multi-rank checks run over gloo in "
+            "tests/test_torch_dist_train.py)")
+    res["seconds"] = time.perf_counter() - t_start
+    log(f"phase 16 took {res['seconds']:.1f} s ({gpu})")
+    return res
+
+
 def gpu_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3761,6 +4153,13 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(src_root))
+    if sys.argv[1:] == ["--train-group"]:
+        # phase 16 alone
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        phase_train_group(gpu_line(), adamw_times=True)
+        print(gpu_line(), flush=True)
+        return 0
     if rows_only:
         rows = dist_rows_bench(groups)
         print(json.dumps({"dist_rows": rows, "src": str(src_root)}))
@@ -3786,6 +4185,7 @@ def main() -> int:
     phase_train(gpu)
     phase_roofline(gpu)
     grouped = phase_groups(dist)
+    phase_train_group(gpu)
     src = "src/repro_torch/kernels/csrc"
     big = ell["cases"][-1]                      # grid3d(100, 100, 100)
 

@@ -462,5 +462,6 @@ def moe_apply(p, x, cfg: ArchConfig):
     frac_probs = probs.mean(0)
     aux = E * torch.sum(frac_tokens * frac_probs) / K
     if mesh is not None:                 # alike on every card
-        aux = shd.from_local(aux, mesh, shd.replicated(mesh))
+        aux = shd.from_local(shd.counted_once(aux, mesh, pl), mesh,
+                             shd.replicated(mesh))
     return y, aux

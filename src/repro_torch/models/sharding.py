@@ -253,6 +253,30 @@ def summed_grad(pl: tuple, work: tuple) -> tuple:
                  and isinstance(w, Shard) else p for p, w in zip(pl, work))
 
 
+class _GradScale(torch.autograd.Function):
+    """Identity whose backward multiplies the gradient by ``w`` (a Python
+    number; 1 passes it through untouched)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.w = w
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.w == 1 else g * ctx.w), None
+
+
+def counted_once(t: torch.Tensor, mesh, work: tuple) -> torch.Tensor:
+    """``t``, a local value every card computes alike from inputs whose
+    gradients are summed over the mesh dims that split ``work``
+    (``summed_grad``): its gradient kept on the card at coordinate 0 of
+    each such dim and zero on the others, so the sum counts it once."""
+    lead = all(mesh.get_local_rank(i) == 0
+               for i, w in enumerate(work) if isinstance(w, Shard))
+    return _GradScale.apply(t, 1 if lead else 0)
+
+
 def replicated(mesh) -> tuple:
     """Placements replicated on every mesh dim."""
     return (Replicate(),) * mesh.ndim

@@ -3,14 +3,24 @@
 The port of the reference's ``train.step``: cross-entropy by a float32
 ``logsumexp`` over the labels ``>= 0``, the MoE's aux loss and a z-loss;
 gradients by ``torch.autograd.grad`` over the parameter tree's leaves,
-then the AdamW update without grad.  On one card the batch is not
-sharded, so there is no cross-replica reduction.
+then the AdamW update without grad.
+
+Over a mesh (a ``ShardCfg`` with one) the parameters and the optimizer
+state are DTensors; the step places a plain batch by
+``sharding.batch_specs`` (``place_batch``: each card takes its rows of
+the global batch, which every card holds, or wraps the rows it was
+given), runs the model with the plain tensors it makes
+(RoPE tables, masks) taken as replicated, and returns each metric as
+the replicated value, a plain 0-d tensor equal on every card.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+import contextlib
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Shard, distribute_tensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch import tree
 from repro_torch.configs.base import ArchConfig
@@ -82,7 +92,9 @@ def value_and_grad(params, cfg: ArchConfig, batch: Dict[str, Any],
     respect to every leaf of ``params`` (a tree of ``params``' structure
     and dtypes), all detached."""
     leaves = [x.detach().requires_grad_() for x in tree.leaves(params)]
-    with torch.enable_grad():
+    over = implicit_replication() if shard.mesh is not None else \
+        contextlib.nullcontext()
+    with torch.enable_grad(), over:
         loss, metrics = loss_fn(tree.unflatten(params, leaves), cfg, batch,
                                 shard)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -92,17 +104,75 @@ def value_and_grad(params, cfg: ArchConfig, batch: Dict[str, Any],
             tree.unflatten(params, grads))
 
 
+def _batch_placements(shape, shard: ShardCfg) -> tuple:
+    """The placements of a batch leaf of global ``shape`` over
+    ``shard.mesh`` (``sharding.batch_specs``, split only where even)."""
+    spec = shd.batch_specs(torch.empty(shape, device="meta"), shard)
+    return shd.even(shd.placements(spec, shard.mesh), shape, shard.mesh)
+
+
+def batch_rows(rows: int, shard: ShardCfg) -> Tuple[int, int]:
+    """(blocks, block): the row blocks that ``batch_specs`` cuts a global
+    batch of ``rows`` rows into (the data axes' size where it divides
+    ``rows``, else 1) and the one this rank holds, its data coordinate
+    (0 where the batch stays whole).  Ranks on one data coordinate hold
+    the same rows; without a mesh, (1, 0)."""
+    if shard.mesh is None or not any(
+            isinstance(p, Shard) for p in _batch_placements((rows,), shard)):
+        return 1, 0
+    mesh, block = shard.mesh, 0
+    for a in shard.dp:
+        i = mesh.mesh_dim_names.index(a)
+        block = block * mesh.shape[i] + mesh.get_local_rank(i)
+    return shard.dp_size, block
+
+
+def place_batch(batch: Dict[str, Any], shard: ShardCfg,
+                rows: Optional[int] = None) -> Dict[str, Any]:
+    """``batch`` placed by ``sharding.batch_specs`` over ``shard.mesh``,
+    with no communication; a DTensor leaf is kept, and without a mesh the
+    batch is returned as it is.  Each plain leaf is the global batch,
+    alike on every card, of which each card keeps its rows; or, given the
+    global batch's ``rows``, this rank's block of them already (the
+    ``batch_rows`` block), which becomes its shard."""
+    if shard.mesh is None:
+        return batch
+    mesh = shard.mesh
+
+    def one(x):
+        if isinstance(x, DTensor):
+            return x
+        x = torch.as_tensor(x).to(mesh.device_type)
+        if rows is None:
+            return distribute_tensor(x, mesh, _batch_placements(x.shape,
+                                                                 shard),
+                                     src_data_rank=None)
+        return shd.from_local(x, mesh, _batch_placements(
+            (rows, *x.shape[1:]), shard))
+    return tree.map(one, batch)
+
+
+def replicated_value(x) -> torch.Tensor:
+    """A metric as a plain tensor: a DTensor's whole value (its pending
+    sums reduced, a collective every card takes part in)."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
 def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
                     shard: ShardCfg = NO_SHARD):
     """Returns train_step(params, opt_state, batch) -> (params, opt,
     metrics), the metrics (``loss``, ``xent``, ``aux``, ``zloss``,
-    ``grad_norm``) 0-d tensors on the parameters' device."""
+    ``grad_norm``) 0-d tensors on the parameters' device (over a mesh,
+    plain and equal on every card)."""
     def train_step(params, opt_state, batch):
+        batch = place_batch(batch, shard)
         (loss, metrics), grads = value_and_grad(params, cfg, batch, shard)
         with torch.no_grad():
             new_params, new_opt, gnorm = adamw.update(grads, opt_state,
                                                       params, opt_cfg)
-        metrics = dict(metrics, loss=loss, grad_norm=gnorm)
+        metrics = {k: replicated_value(v)
+                   for k, v in dict(metrics, loss=loss,
+                                    grad_norm=gnorm).items()}
         return new_params, new_opt, metrics
 
     return train_step

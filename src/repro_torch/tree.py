@@ -24,6 +24,12 @@ def _is_sequence(t) -> bool:
     return type(t) in (list, tuple) or _is_namedtuple(t)
 
 
+def is_node(t) -> bool:
+    """Whether ``t`` is a node of a tree (a dict, a list, a tuple or a
+    ``NamedTuple``), not a leaf."""
+    return isinstance(t, dict) or _is_sequence(t)
+
+
 def leaves(tree: PyTree) -> List[Any]:
     """The leaves of ``tree`` in the reference's order."""
     if isinstance(tree, dict):

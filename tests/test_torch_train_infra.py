@@ -18,6 +18,8 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
+from torch.distributed.tensor import (DTensor, Replicate,  # noqa: E402
+                                      Shard)
 
 from repro.configs.base import get_config as jax_config  # noqa: E402
 from repro.data import pipeline as JP  # noqa: E402
@@ -32,8 +34,10 @@ from repro_torch.convert import (lm_params_from_arrays,  # noqa: E402
 from repro_torch.data.pipeline import (DataConfig, Pipeline,  # noqa: E402
                                        _batch_at, host_slice)
 from repro_torch.examples import train_lm  # noqa: E402
+from repro_torch.launch import mesh as M  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.models import sharding as shd  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.optim import compress as C  # noqa: E402
 from repro_torch.train import checkpoint as ckpt  # noqa: E402
@@ -185,8 +189,23 @@ def test_checkpoint_latest_and_atomicity(tmp_path):
     st, t2 = ckpt.restore(str(tmp_path), t, device="cpu")
     assert st == 7
     assert np.array_equal(t2["a"].numpy(), np.arange(5))
-    with pytest.raises(NotImplementedError):
-        ckpt.restore(str(tmp_path), t, device="cpu", shardings=t)
+    # ``shardings`` places the leaves on a mesh (here the one-process
+    # host mesh over gloo): DTensors of the asked placements, the same
+    # values; a tree of another structure is refused
+    mesh = M.make_host_mesh("cpu")
+    try:
+        named = {"a": shd.NamedSharding(mesh, (Replicate(), Shard(0))),
+                 "b": {"c": (Shard(1), Replicate())}}
+        st, t3 = ckpt.restore(str(tmp_path), t, shardings=named, mesh=mesh)
+        assert st == 7
+        assert t3["a"].placements == (Replicate(), Shard(0))
+        assert t3["b"]["c"].placements == (Shard(1), Replicate())
+        for a, b in zip(tree.leaves(t3), tree.leaves(t)):
+            assert isinstance(a, DTensor) and torch.equal(a.full_tensor(), b)
+        with pytest.raises(ValueError):
+            ckpt.restore(str(tmp_path), t, shardings={"a": named["a"]})
+    finally:
+        M.release()
     with pytest.raises(ValueError):
         ckpt.restore(str(tmp_path), {"a": torch.arange(4), "b": t["b"]},
                      device="cpu")
