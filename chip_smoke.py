@@ -226,7 +226,27 @@ Phases, each of which must pass:
    ``min(4, count)`` NCCL ranks on distinct cards on a (1, n) mesh,
    reduced yi-6b and mamba2-130m in float32 within ``GROUP_LOSS_RTOL`` of
    one card.  The group is destroyed before (d);
-17. a ``{"kernels": [...]}`` line with each kernel's launches, error,
+17. serving on a real process group (NCCL, a world of one rank on the
+   card; ``make_host_mesh`` → (1, 1)): (a) a line with the world size and
+   whether the ranks are distinct cards; (b) phase 11's model, parameters
+   and prompts at full width and depth (yi-6b in bfloat16, 4 × 128
+   tokens padded to 160), ``SERVE_STEPS`` decode steps on the mesh
+   (parameters by ``param_specs``, prompts and tokens by
+   ``batch_specs``, the caches as ``prefill`` places them, by
+   ``cache_specs``) and ``NO_SHARD``, the mesh fed ``NO_SHARD``'s greedy
+   tokens: the prefill logits, every step's and every cache leaf after
+   the last step bit-equal; each one's prefill ms and decode ms a step
+   (CUDA events), kernels a step, busy ms and idle share
+   (``torch.profiler``, one step); (c) the ten ``reduced()``
+   architectures (bfloat16) the same way, prefill and 3 decode steps,
+   with the caches' placements (deepseek-v2-lite's latent caches split
+   on the sequence, so ``sharding.write_at`` writes through its DTensor
+   branch); (d) only with two cards or more, ``min(4, count)`` NCCL
+   ranks on distinct cards on a (1, n) mesh, reduced deepseek-v2-lite,
+   granite-34b and yi-6b in float32, every logit within
+   ``SERVE_GROUP_TOL`` of the largest of one card's.  The group is
+   destroyed at the end of the phase;
+18. a ``{"kernels": [...]}`` line with each kernel's launches, error,
    times, bound and library time (rows 0-2 also with their phase 7
    launches and phase 8 multi-lane times, rows 7-10 with their launches
    on phase 10's distributed main path, row 7 marked off that path when
@@ -255,7 +275,7 @@ of D (phase 15's layout), in a tree that has groups.
 
     python3 chip_smoke.py --train-group
 
-runs phase 16 alone.
+runs phase 16 alone, and ``--serve-group`` phase 17 alone.
 """
 from __future__ import annotations
 
@@ -4123,6 +4143,347 @@ def phase_train_group(gpu: str, adamw_times: bool = False) -> dict:
     return res
 
 
+# ---------------------------------------------------------------- serving
+#: phase 17 (b): phase 11's model, prompts and padding, SERVE_STEPS decode
+#: steps on the (1, 1) mesh and without one, after SERVE_WARM
+SERVE_STEPS, SERVE_WARM = 8, 2
+#: (c), (d): the reduced architectures' prompts, their length, the caches'
+#: length and the decode steps (as ``tests/test_torch_dist_serve.py``)
+SERVE_B, SERVE_PROMPT, SERVE_PAD, SERVE_RED_STEPS = 4, 16, 32, 3
+#: (d): on distinct cards in float32, every logit within this share of
+#: the largest of one card's (the CPU test's ``TOL``)
+SERVE_GROUP_TOL = 1e-5
+SERVE_GROUP_ARCHS = ("deepseek-v2-lite-16b", "granite-34b", "yi-6b")
+
+
+def _serve_on(params, cfg, shard, batch, pad_to, steps, tokens=None,
+              timed=False, device="cuda") -> dict:
+    """``serve.engine`` on ``shard``: ``prefill`` of ``batch`` (padded to
+    ``pad_to``) and ``steps`` decode steps, fed ``tokens`` (B, steps) or,
+    without them, greedy.  The prefill and decode logits and the cache
+    leaves, gathered; the tokens fed; the caches themselves and the last
+    token; with ``timed`` the prefill's and each step's CUDA-event ms."""
+    import torch
+    from repro_torch.serve import engine
+    from repro_torch.train.step import place_batch
+    S0 = batch["tokens"].shape[1]
+    ev = [torch.cuda.Event(enable_timing=True)
+          for _ in range(2 * steps + 2)] if timed else None
+    placed = place_batch(batch, shard)
+    fed = None if tokens is None else [
+        place_batch({"tokens": tokens[:, t:t + 1]}, shard)["tokens"]
+        for t in range(steps)]
+    if timed:
+        ev[0].record()
+    logits, caches = engine.prefill(params, cfg, placed, shard,
+                                    pad_to=pad_to, device=device)
+    if timed:
+        ev[1].record()
+    step = engine.make_decode_step(cfg, shard, device)
+    tok = logits[:, -1:].argmax(-1)
+    dec, toks = [], []
+    for t in range(steps):
+        if fed is not None:
+            tok = fed[t]
+        toks.append(tok)
+        if timed:
+            ev[2 * t + 2].record()
+        lg, caches = step(params, tok, caches, S0 + t)
+        if timed:
+            ev[2 * t + 3].record()
+        dec.append(lg)
+        tok = lg[:, -1:].argmax(-1)
+    if timed:
+        torch.cuda.synchronize()
+    out = {"prefill": _whole([logits])[0],
+           "decode": torch.cat(_whole(dec), 1),
+           "leaves": _whole(caches), "caches": caches,
+           "tokens": torch.cat(_whole(toks), 1), "next": tok}
+    if timed:
+        out["prefill_ms"] = ev[0].elapsed_time(ev[1])
+        out["step_ms"] = [ev[2 * t + 2].elapsed_time(ev[2 * t + 3])
+                          for t in range(steps)]
+    return out
+
+
+def _serve_differences(a: dict, b: dict, names) -> list:
+    """(what, largest difference) of each of the two runs' outputs that
+    is not bit-equal: the prefill logits, each decode step's, each cache
+    leaf."""
+    out = _differing([a["prefill"]], [b["prefill"]], ["prefill"])
+    out += _differing(list(a["decode"].unbind(1)),
+                      list(b["decode"].unbind(1)),
+                      [f"decode step {t}" for t in range(a["decode"].shape[1])])
+    return out + _differing(a["leaves"], b["leaves"], names)
+
+
+#: the caches a decode step writes at the token's position, by name: their
+#: sequence dim counted from the end
+SEQ_DIM = {"k": -3, "v": -3, "c": -2, "kr": -2}
+
+
+def _cache_placements(caches) -> dict:
+    from repro_torch import tree
+    return {path: str(tuple(x.placements))
+            for path, x in tree.leaves_with_paths(caches)
+            if path.rsplit("/", 1)[-1] in SEQ_DIM}
+
+
+def _seq_placed(caches, cards: int = 1) -> list:
+    """The paths of the caches whose sequence dim is split over a mesh
+    dim of at least ``cards`` cards (the writes ``sharding.write_at``
+    makes on a local shard)."""
+    from torch.distributed.tensor import Shard
+    from repro_torch import tree
+    out = []
+    for path, x in tree.leaves_with_paths(caches):
+        seq = SEQ_DIM.get(path.rsplit("/", 1)[-1])
+        if seq is not None and any(
+                isinstance(p, Shard) and p.dim == x.ndim + seq
+                and x.device_mesh.shape[i] >= cards
+                for i, p in enumerate(x.placements)):
+            out.append(path)
+    return out
+
+
+def _serve_full_width(gpu: str, shard) -> dict:
+    """(b): phase 11's yi-6b at full width and depth, the same
+    parameters and prompts, on the mesh and ``NO_SHARD``: bit-equal, and
+    each one's times."""
+    import numpy as np
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import train as T
+    from repro_torch.models import lm
+    from repro_torch.models.sharding import NO_SHARD
+    cfg = get_config(LM_ARCH)
+    params = lm.init_params(lm.generator(0), cfg)
+    placed = T.place(params, T.param_shardings(params, shard))
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab, (LM_BATCH, LM_PROMPT)), device="cuda")}
+    runs = {"no_shard": (params, NO_SHARD), "mesh": (placed, shard)}
+    for p, s in runs.values():                          # warm-up
+        _serve_on(p, cfg, s, batch, LM_PAD, SERVE_WARM)
+    got = {"no_shard": _serve_on(params, cfg, NO_SHARD, batch, LM_PAD,
+                                 SERVE_STEPS, timed=True)}
+    got["mesh"] = _serve_on(placed, cfg, shard, batch, LM_PAD, SERVE_STEPS,
+                            tokens=got["no_shard"]["tokens"], timed=True)
+    names = [p for p, _ in tree.leaves_with_paths(got["mesh"]["caches"])]
+    differ = _serve_differences(got["mesh"], got["no_shard"], names)
+    if differ:
+        raise AssertionError(f"phase 17 (b): the (1, 1) mesh's serving "
+                             f"differs from NO_SHARD's: {differ[:8]} "
+                             f"({len(differ)} differ)")
+    out = {}
+    for k, (p, s) in runs.items():
+        r = got[k]
+        steps = r["step_ms"][1:]
+        busy = _device_busy(lambda: _decode_once(p, cfg, s, r))
+        mean = sum(steps) / len(steps)
+        out[k] = {"prefill_ms": r["prefill_ms"], "step_ms": r["step_ms"],
+                  "decode_ms_per_step": mean,
+                  "decode_ms_min_max": [min(steps), max(steps)],
+                  "kernels_per_step": busy["kernels"],
+                  "device_busy_ms": busy["busy_ms"],
+                  "idle_share": 1 - busy["busy_ms"] / mean}
+    res = {"arch": LM_ARCH, "batch": LM_BATCH, "prompt": LM_PROMPT,
+           "pad_to": LM_PAD, "decode_steps": SERVE_STEPS, "bit_equal": True,
+           "cache_placements": sorted(set(_cache_placements(
+               got["mesh"]["caches"]).values())),
+           **out, "mesh_over_no_shard": {
+               "prefill": out["mesh"]["prefill_ms"] /
+               out["no_shard"]["prefill_ms"],
+               "decode": out["mesh"]["decode_ms_per_step"] /
+               out["no_shard"]["decode_ms_per_step"]},
+           "gpu": gpu}
+    del params, placed, got
+    torch.cuda.empty_cache()
+    return res
+
+
+def _decode_once(params, cfg, shard, run):
+    """One more decode step of ``run`` (its next token, at the next
+    position), for the profiler."""
+    from repro_torch.serve import engine
+    pos = LM_PROMPT + run["tokens"].shape[1]
+    return engine.make_decode_step(cfg, shard)(params, run["next"],
+                                               run["caches"], pos)
+
+
+def _reduced_batch(cfg, seed: int, device="cuda") -> tuple:
+    """Seeded prompts (SERVE_B, SERVE_PROMPT) with the frontend's inputs,
+    and the teacher-forced tokens (SERVE_B, SERVE_RED_STEPS)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import lm
+    rng = np.random.default_rng(seed)
+    toks = torch.as_tensor(rng.integers(
+        0, cfg.vocab, (SERVE_B, SERVE_PROMPT + SERVE_RED_STEPS)),
+        device=device)
+    gen, batch = lm.generator(seed + 1, device), {
+        "tokens": toks[:, :SERVE_PROMPT]}
+    if cfg.enc_dec:
+        batch["frames"] = torch.randn((SERVE_B, cfg.enc_len, cfg.d_model),
+                                      generator=gen, device=device)
+    if cfg.frontend == "patches":
+        batch["patches"] = torch.randn((SERVE_B, cfg.n_patches, cfg.d_model),
+                                       generator=gen, device=device)
+    return batch, toks[:, SERVE_PROMPT:]
+
+
+def _serve_reduced(shard) -> dict:
+    """(c): the ten reduced architectures (bfloat16) on the mesh,
+    bit-equal to ``NO_SHARD``: prefill and SERVE_RED_STEPS decode steps,
+    with the caches' placements on the mesh."""
+    from repro_torch import tree
+    from repro_torch.configs.base import ARCH_IDS, get_config
+    from repro_torch.launch import train as T
+    from repro_torch.models import lm
+    from repro_torch.models.sharding import NO_SHARD
+    out = {}
+    for arch in ARCH_IDS:
+        cfg = get_config(arch).reduced()
+        params = lm.init_params(lm.generator(1), cfg)
+        placed = T.place(params, T.param_shardings(params, shard))
+        batch, toks = _reduced_batch(cfg, 1)
+        want = _serve_on(params, cfg, NO_SHARD, batch, SERVE_PAD,
+                         SERVE_RED_STEPS, tokens=toks)
+        got = _serve_on(placed, cfg, shard, batch, SERVE_PAD,
+                        SERVE_RED_STEPS, tokens=toks)
+        names = [p for p, _ in tree.leaves_with_paths(got["caches"])]
+        differ = _serve_differences(got, want, names)
+        if differ:
+            raise AssertionError(f"phase 17 (c) {arch}: the (1, 1) mesh "
+                                 f"differs from NO_SHARD: {differ[:8]}")
+        if cfg.mla and not _seq_placed(got["caches"]):
+            raise AssertionError(f"phase 17 (c) {arch}: no latent cache "
+                                 f"on the sequence")
+        out[arch] = {"bit_equal": True,
+                     "cache_placements": sorted(set(_cache_placements(
+                         got["caches"]).values())),
+                     "seq_split": _seq_placed(got["caches"])}
+    return out
+
+
+def _serve_card_rank(rank: int, n: int, store: str, device: str,
+                     out: str) -> None:
+    """(d), one rank: reduced ``SERVE_GROUP_ARCHS`` in float32 served on
+    the (1, n) mesh of the group's cards, the logits gathered; rank 0
+    also without a mesh, and writes the largest differences."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from repro_torch import tree
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import train as T
+    from repro_torch.models import lm
+    from repro_torch.models import sharding as shd
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kw = {"timeout": datetime.timedelta(seconds=120)}
+    if device == "cuda":
+        torch.cuda.set_device(rank)
+        kw["device_id"] = torch.device("cuda", rank)
+    dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                            store=dist.FileStore(store, n), rank=rank,
+                            world_size=n, **kw)
+    try:
+        dev = torch.device("cuda", rank) if device == "cuda" else \
+            torch.device("cpu")
+        mesh = M.make_host_mesh(device)
+        shard = shd.ShardCfg(mesh=mesh, dp=M.dp_axes(mesh))
+        res = {"distinct": M.distinct_cards(mesh), "mesh": list(mesh.shape)}
+        for arch in SERVE_GROUP_ARCHS:
+            cfg = get_config(arch).reduced()
+            params = tree.map(torch.Tensor.float, lm.init_params(
+                lm.generator(0, dev), cfg))
+            batch, toks = _reduced_batch(cfg, 0, dev)
+            placed = T.place(params, T.param_shardings(params, shard))
+            got = _serve_on(placed, cfg, shard, batch, SERVE_PAD,
+                            SERVE_RED_STEPS, tokens=toks, device=device)
+            if rank == 0:
+                want = _serve_on(params, cfg, shd.NO_SHARD, batch,
+                                 SERVE_PAD, SERVE_RED_STEPS, tokens=toks,
+                                 device=device)
+                g = torch.cat([got["prefill"], got["decode"]], 1)
+                w = torch.cat([want["prefill"], want["decode"]], 1)
+                res[arch] = {"max_abs_err": float((g - w).abs().max()),
+                             "max_logit": float(w.abs().max()),
+                             "seq_split": _seq_placed(got["caches"], 2)}
+        if rank == 0:
+            Path(out).write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def _serve_cards(n: int, device: str = "cuda") -> dict:
+    """(d): ``_serve_card_rank`` on ``n`` spawned ranks, each on its own
+    card (``device`` "cpu": gloo ranks, to try the code without cards);
+    every logit within ``SERVE_GROUP_TOL`` of the largest."""
+    import tempfile
+    import torch.multiprocessing as mp
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        out = Path(tmp) / "serve.json"
+        mp.start_processes(_serve_card_rank,
+                           args=(n, str(Path(tmp) / "store"), device,
+                                 str(out)),
+                           nprocs=n, join=True, start_method="spawn")
+        res = json.loads(out.read_text())
+    for arch in SERVE_GROUP_ARCHS:
+        r = res[arch]
+        if not r["max_abs_err"] <= SERVE_GROUP_TOL * r["max_logit"]:
+            raise AssertionError(f"phase 17 (d) {arch}: {r}")
+    return res
+
+
+def phase_serve_group(gpu: str) -> dict:
+    """Phase 17: serving on a real process group."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import sharding as shd
+    t_start = time.perf_counter()
+    torch.cuda.empty_cache()
+    mesh = M.make_host_mesh("cuda")
+    try:
+        world, distinct = dist.get_world_size(), M.distinct_cards(mesh)
+        log(f"phase 17 (a) process group: world size {world} "
+            f"({dist.get_backend()}), mesh "
+            f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}, "
+            + ("one rank on one card" if world == 1 else
+               f"ranks on distinct cards: {distinct}")
+            + f" (torch.cuda.device_count() {torch.cuda.device_count()})")
+        shard = shd.ShardCfg(mesh=mesh, dp=M.dp_axes(mesh))
+        res = {"full_width": _serve_full_width(gpu, shard)}
+        log(f"phase 17 (b) {LM_ARCH} at full width and depth "
+            f"({LM_BATCH} x {LM_PROMPT}, pad {LM_PAD}, {SERVE_STEPS} decode "
+            f"steps) on the (1, 1) mesh == NO_SHARD bit for bit: "
+            f"{json.dumps(res['full_width'])}")
+        res["reduced"] = _serve_reduced(shard)
+        log(f"phase 17 (c) the reduced architectures on the (1, 1) mesh == "
+            f"NO_SHARD bit for bit (prefill, {SERVE_RED_STEPS} decode steps, "
+            f"every cache leaf): {json.dumps(res['reduced'])}")
+    finally:
+        M.release()
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        res["cards"] = _serve_cards(min(4, cards))
+        log(f"phase 17 (d) {min(4, cards)} NCCL ranks on distinct cards, "
+            f"(1, n) mesh == one card within {SERVE_GROUP_TOL} of the "
+            f"largest logit: {json.dumps(res['cards'])}")
+    else:
+        log("phase 17 (d) one card on this machine: no run on distinct "
+            "cards (the multi-rank checks run over gloo in "
+            "tests/test_torch_dist_serve.py)")
+    res["seconds"] = time.perf_counter() - t_start
+    log(f"phase 17 took {res['seconds']:.1f} s ({gpu})")
+    return res
+
+
 def gpu_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4153,11 +4514,14 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(src_root))
-    if sys.argv[1:] == ["--train-group"]:
-        # phase 16 alone
+    if sys.argv[1:] in (["--train-group"], ["--serve-group"]):
+        # phase 16 or phase 17 alone
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        phase_train_group(gpu_line(), adamw_times=True)
+        if sys.argv[1] == "--train-group":
+            phase_train_group(gpu_line(), adamw_times=True)
+        else:
+            phase_serve_group(gpu_line())
         print(gpu_line(), flush=True)
         return 0
     if rows_only:
@@ -4186,6 +4550,7 @@ def main() -> int:
     phase_roofline(gpu)
     grouped = phase_groups(dist)
     phase_train_group(gpu)
+    phase_serve_group(gpu)
     src = "src/repro_torch/kernels/csrc"
     big = ell["cases"][-1]                      # grid3d(100, 100, 100)
 

@@ -354,6 +354,18 @@ def _run_depth_first(task, device):
         return stop.value
 
 
+def compute_separator(g: Graph, seed: int, nproc: int, cfg: NDConfig,
+                      device=None) -> Optional[np.ndarray]:
+    """Multilevel + band-FM vertex separator of g.  Returns part or None.
+
+    Drives ``separator_task`` one work at a time (``execute_work``) on
+    ``device`` (default: the card); the ordering service drives the same
+    generator with bucketed batch execution instead.
+    """
+    return _run_depth_first(separator_task(g, seed, nproc, cfg),
+                            resolve_device(device))
+
+
 def nested_dissection(g: Graph, seed: int = 0, nproc: int = 1,
                       cfg: Optional[NDConfig] = None, device=None
                       ) -> np.ndarray:

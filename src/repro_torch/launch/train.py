@@ -68,6 +68,19 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
+def _named(specs, like, shard: shd.ShardCfg):
+    return tree.map(lambda sp, x: shd.NamedSharding(
+        shard.mesh, shd.even(shd.placements(sp, shard.mesh), x.shape,
+                             shard.mesh)), specs, like)
+
+
+def param_shardings(params, shard: shd.ShardCfg):
+    """The ``NamedSharding``s of ``params`` over ``shard.mesh`` by
+    ``param_specs`` (each dim its axes do not split evenly whole): the
+    placement of the trainer's parameters and of the served model's."""
+    return _named(shd.param_specs(params, shard), params, shard)
+
+
 def shardings(params, shard: shd.ShardCfg):
     """The ``NamedSharding``s of (params, optimizer state) over
     ``shard.mesh``: the parameters by ``param_specs``, the master weights
@@ -77,13 +90,9 @@ def shardings(params, shard: shd.ShardCfg):
     ospecs = shd.zero1_specs(adamw.init(params),
                              adamw.OptState(pspecs, pspecs, pspecs, shd.P()),
                              shard)
-
-    def named(specs, like):
-        return tree.map(lambda sp, x: shd.NamedSharding(
-            shard.mesh, shd.even(shd.placements(sp, shard.mesh), x.shape,
-                                 shard.mesh)), specs, like)
     opt_like = adamw.OptState(params, params, params, torch.zeros(()))
-    return named(pspecs, params), named(ospecs, opt_like)
+    return (param_shardings(params, shard),
+            _named(ospecs, opt_like, shard))
 
 
 def place(tree_, named):

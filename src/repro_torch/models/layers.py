@@ -239,8 +239,8 @@ def attn_decode(p, x, cache_k, cache_v, pos: int, cfg: ArchConfig):
     v = _heads(x @ p["wv"], B, 1, Hkv, hd)
     cos, sin = rope_tables(_positions(pos, 1, x.device), hd, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
-    cache_k[:, pos] = apply_rope(k, cos, sin)[:, 0]
-    cache_v[:, pos] = v[:, 0]
+    shd.write_at(cache_k, 1, pos, apply_rope(k, cos, sin)[:, 0])
+    shd.write_at(cache_v, 1, pos, v[:, 0])
     o = _attend(q, cache_k, cache_v, causal=False, kv_len=pos + 1)
     y = _merge(o, B, 1, H * hd) @ p["wo"]
     return y, cache_k, cache_v
@@ -303,9 +303,9 @@ def mla_decode(p, x, cache_c, cache_kr, pos: int, cfg: ArchConfig):
     q_nope, q_rope = q[..., :hd], q[..., hd:]
     cos, sin = rope_tables(_positions(pos, 1, x.device), r, cfg.rope_theta)
     q_rope = apply_rope(q_rope, cos, sin)
-    cache_c[:, pos] = (x @ p["wdkv"])[:, 0]           # (B,c)
+    shd.write_at(cache_c, 1, pos, (x @ p["wdkv"])[:, 0])      # (B,c)
     kr_t = (x @ p["wkr"]).reshape(B, 1, 1, r)
-    cache_kr[:, pos] = apply_rope(kr_t, cos, sin)[:, 0, 0]
+    shd.write_at(cache_kr, 1, pos, apply_rope(kr_t, cos, sin)[:, 0, 0])
     wuk = _heads(p["wuk"], c, H, hd)
     wuv = _heads(p["wuv"], c, H, hd)
     o = _mla_absorbed(q_nope, q_rope, cache_c, cache_kr, wuk, wuv, pos)

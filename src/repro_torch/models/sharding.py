@@ -20,12 +20,14 @@ DTensor placements over the mesh; ``constrain`` and the activation hooks
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch import tree
 
@@ -301,6 +303,35 @@ def local_slices(shape, mesh, pl: tuple) -> tuple:
     return tuple(slice(a, a + n) for a, n in zip(start, size))
 
 
+def write_at(cache, dim: int, pos: int, value) -> None:
+    """``cache[:, pos] = value`` along tensor dim ``dim`` (1: the caches'
+    sequence), in place.  A plain tensor takes that very assignment.  On
+    a DTensor, ``value`` is first redistributed to the cache's placements
+    on the other dims (``dim`` itself whole), then each card whose block
+    along ``dim`` holds ``pos`` writes it into its local shard at ``pos``
+    minus the block's start; no other card writes.  (DTensor's own
+    ``__setitem__`` drops the write on a dim split over several cards.)
+    Blocks follow DTensor's split: mesh dims major to minor, each a
+    ``ceil`` chunk, the last ones short or empty."""
+    at = (slice(None),) * dim
+    if not isinstance(cache, DTensor):
+        cache[at + (pos,)] = value
+        return
+    mesh, pl = cache.device_mesh, tuple(cache.placements)
+    vpl = tuple(p if not isinstance(p, Shard) else
+                Replicate() if p.dim == dim else Shard(p.dim - (p.dim > dim))
+                for p in pl)
+    local = to_local(value, mesh, vpl)
+    start, size = 0, cache.shape[dim]
+    for i, p in enumerate(pl):
+        if isinstance(p, Shard) and p.dim == dim:
+            block = -(-size // mesh.shape[i])
+            skip = mesh.get_local_rank(i) * block
+            start, size = start + skip, max(0, min(block, size - skip))
+    if start <= pos < start + size:
+        cache.to_local()[at + (pos - start,)] = local
+
+
 def pending_sum(pl: tuple) -> tuple:
     """``Partial`` on each mesh dim that ``pl`` shards, else
     ``Replicate``: the placements of a sum each card made over its own
@@ -414,6 +445,14 @@ class ShardCfg:
 
 
 NO_SHARD = ShardCfg(mesh=None)
+
+
+def replicating(shard: ShardCfg):
+    """A context in which, under ``shard``'s mesh, a plain tensor that
+    meets a DTensor (a RoPE table, a mask, a position) is taken as
+    replicated; with no mesh, a context that does nothing."""
+    return implicit_replication() if shard.mesh is not None else \
+        contextlib.nullcontext()
 
 
 # ------------------------------------------------------------------ #

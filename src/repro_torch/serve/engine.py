@@ -7,18 +7,28 @@ positions, with the groups' structure (a repeated group's stacked on its
 which writes each new token's entries in place.  Each entry point runs
 on the card unless the caller passes ``device="cpu"``, and the
 parameters must already live there.
+
+Under a ``ShardCfg`` with a mesh (the reference jits these entry points
+with ``in_shardings`` / ``out_shardings``; the port places explicitly):
+the parameters are placed by ``sharding.param_specs``, the batch and
+the decode token by ``sharding.batch_specs`` (``train.step.place_batch``),
+and ``prefill`` returns its caches placed by ``sharding.cache_specs``
+(``place_caches``), on which each decode step writes in place.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
 
+from repro_torch import tree
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models.lm import (_embed, _encode, _ffn, _layers, _stack,
                                    decode_step, group_descs, layer_descs)
+from repro_torch.models import sharding as shd
 from repro_torch.models.sharding import NO_SHARD, ShardCfg
 from repro_torch.util import resolve_device
 
@@ -37,12 +47,33 @@ def _on(params, device) -> torch.device:
 
 
 def _pad_seq(a: torch.Tensor, pad_to) -> torch.Tensor:
-    """``a`` (B, S, ...) zero-padded to (B, pad_to, ...)."""
+    """``a`` (B, S, ...) zero-padded to (B, pad_to, ...).  Over DTensors
+    ``new_zeros`` is replicated and ``a`` whole on the sequence (prefill's
+    k / v / latents come from the gathered activations), so the slice
+    write lands; ``place_caches`` splits the result afterwards."""
     if pad_to is None or a.shape[1] == pad_to:
         return a
     out = a.new_zeros((a.shape[0], pad_to) + tuple(a.shape[2:]))
     out[:, :a.shape[1]] = a
     return out
+
+
+def place_caches(caches: PyTree, shard: ShardCfg) -> PyTree:
+    """``caches`` placed by ``sharding.cache_specs`` over ``shard.mesh``
+    (each dim that its axes do not split evenly whole): a DTensor leaf
+    redistributed, a plain one (alike on every card) distributed with
+    each card keeping its own shard.  Without a mesh they are returned
+    as they are."""
+    if shard.mesh is None:
+        return caches
+    mesh = shard.mesh
+
+    def one(x, spec):
+        pl = shd.even(shd.placements(spec, mesh), x.shape, mesh)
+        if not isinstance(x, DTensor):
+            return distribute_tensor(x, mesh, pl, src_data_rank=None)
+        return x if tuple(x.placements) == pl else x.redistribute(mesh, pl)
+    return tree.map(one, caches, shd.cache_specs(caches, shard))
 
 
 def _prefill_block(p, x, desc, cfg, shard, enc_out, pad_to):
@@ -83,8 +114,14 @@ def _prefill_block(p, x, desc, cfg, shard, enc_out, pad_to):
 def prefill(params, cfg: ArchConfig, batch: Dict[str, Any],
             shard: ShardCfg = NO_SHARD, pad_to: int | None = None,
             device=None) -> Tuple[torch.Tensor, PyTree]:
-    """Full-sequence prefill.  Returns (logits, caches)."""
+    """Full-sequence prefill.  Returns (logits, caches), the caches
+    placed by ``cache_specs`` under a mesh."""
     _on(params, device)
+    with shd.replicating(shard):
+        return _prefill(params, cfg, batch, shard, pad_to)
+
+
+def _prefill(params, cfg, batch, shard, pad_to):
     x = shard.act_residual(_embed(params, cfg, batch))
     enc_out = _encode(params, cfg, batch, shard) if cfg.enc_dec else None
     caches = []
@@ -100,7 +137,7 @@ def prefill(params, cfg: ArchConfig, batch: Dict[str, Any],
         caches.append(per_layer[0] if count == 1 else _stack(per_layer))
     x = shard.act_gathered(L.rmsnorm(params["final_norm"], x, cfg.norm_eps))
     logits = x @ params["unembed"]
-    return shard.act_logits(logits), caches
+    return shard.act_logits(logits), place_caches(caches, shard)
 
 
 def make_decode_step(cfg: ArchConfig, shard: ShardCfg = NO_SHARD,
@@ -111,7 +148,8 @@ def make_decode_step(cfg: ArchConfig, shard: ShardCfg = NO_SHARD,
 
     def step(params, token, caches, pos):
         _on(params, dev)
-        return decode_step(params, cfg, token, caches, pos, shard)
+        with shd.replicating(shard):
+            return decode_step(params, cfg, token, caches, pos, shard)
     return step
 
 

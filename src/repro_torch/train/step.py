@@ -15,12 +15,10 @@ the replicated value, a plain 0-d tensor equal on every card.
 """
 from __future__ import annotations
 
-import contextlib
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch.distributed.tensor import DTensor, Shard, distribute_tensor
-from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch import tree
 from repro_torch.configs.base import ArchConfig
@@ -92,9 +90,7 @@ def value_and_grad(params, cfg: ArchConfig, batch: Dict[str, Any],
     respect to every leaf of ``params`` (a tree of ``params``' structure
     and dtypes), all detached."""
     leaves = [x.detach().requires_grad_() for x in tree.leaves(params)]
-    over = implicit_replication() if shard.mesh is not None else \
-        contextlib.nullcontext()
-    with torch.enable_grad(), over:
+    with torch.enable_grad(), shd.replicating(shard):
         loss, metrics = loss_fn(tree.unflatten(params, leaves), cfg, batch,
                                 shard)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)

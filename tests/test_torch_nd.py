@@ -77,6 +77,55 @@ def test_initial_separator_equals_reference():
     assert np.array_equal(part, want) and sep_w == want_w
 
 
+#: the reference's ``test_band_width3_quality_close_to_unconstrained``
+#: graph, seed and process count (``tests/test_ordering_core.py``)
+SEP_GRAPH, SEP_SEED, SEP_NPROC = (8, 8, 8), 3, 4
+
+
+@pytest.fixture(scope="module")
+def separators():
+    """``compute_separator`` of both packages on the reference test's
+    graph, with and without the band."""
+    from repro.core.nd import NDConfig as JNDConfig
+    from repro.core.nd import compute_separator as jax_compute_separator
+    jg = jgen.grid3d(*SEP_GRAPH)
+    g = graph_from_arrays(jg.xadj, jg.adjncy, jg.vwgt, jg.adjwgt)
+    out = {}
+    for use_band in (True, False):
+        got = nd.compute_separator(g, SEP_SEED, SEP_NPROC,
+                                   nd.NDConfig(use_band=use_band),
+                                   device="cpu")
+        want = jax_compute_separator(jg, SEP_SEED, SEP_NPROC,
+                                     JNDConfig(use_band=use_band))
+        out[use_band] = (g, got, want)
+    return out
+
+
+@pytest.mark.parametrize("use_band", [True, False])
+def test_compute_separator_equals_reference(separators, use_band):
+    g, got, want = separators[use_band]
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+    assert set(np.unique(got)) == {0, 1, 2}
+
+
+def test_compute_separator_runs_on_the_card_unless_asked():
+    assert nd.compute_separator(gen.grid2d(1, 3), 0, 1, nd.NDConfig(),
+                                device="cpu") is None      # n < 4
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):       # the default is the card
+            nd.compute_separator(gen.grid2d(12, 12), 0, 1, nd.NDConfig())
+
+
+def test_band_width3_quality_close_to_unconstrained(separators):
+    """The paper's §3.3, as the reference test holds it: band FM of width
+    3 gives a separator at most 1.35 times the unconstrained FM's."""
+    g, p_band, _ = separators[True]
+    _, p_full, _ = separators[False]
+    w_band = g.vwgt[p_band == 2].sum()
+    w_full = g.vwgt[p_full == 2].sum()
+    assert w_band <= w_full * 1.35
+
+
 def test_resolve_device():
     assert resolve_device("cpu").type == "cpu"
     with pytest.raises(ValueError):
@@ -144,3 +193,20 @@ def test_import_pulls_in_neither_jax_nor_reference():
                           text=True, timeout=120,
                           env={**os.environ, "PYTHONPATH": src})
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_chip_smoke_imports_neither_jax_nor_reference():
+    """``chip_smoke.py`` imports inside its phases; none of its imports,
+    at any depth, names ``jax`` or the reference package."""
+    import ast
+    path = os.path.join(os.path.dirname(__file__), os.pardir, "chip_smoke.py")
+    with open(path) as f:
+        mods = []
+        for node in ast.walk(ast.parse(f.read())):
+            if isinstance(node, ast.Import):
+                mods += [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                mods.append(node.module)
+    assert any(m.startswith("repro_torch") for m in mods)
+    bad = [m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, bad
