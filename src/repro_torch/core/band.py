@@ -66,6 +66,7 @@ def bfs_parts(buf, L: int, n_pad: int, d_pad: int):
     return buf[:N].reshape(L, n_pad, d_pad), buf[N:].reshape(L, n_pad)
 
 
+@obs.traced("bfs:pack")
 def pack_bfs_bucket(works: Sequence[BFSWork], n_pad: int, d_pad: int,
                     device: torch.device) -> torch.Tensor:
     """One bucket's lanes padded to (L, n_pad, d_pad), with their source
@@ -156,6 +157,7 @@ def band_graph_with_anchors(sub: Graph, band_part: np.ndarray,
     return band, band_part_full, locked
 
 
+@obs.traced("band:extract")
 def extract_band(g: Graph, part: np.ndarray, width: int = 3,
                  dist: Optional[np.ndarray] = None, device=None
                  ) -> Tuple[Graph, np.ndarray, np.ndarray, np.ndarray]:
@@ -190,6 +192,7 @@ def extract_band(g: Graph, part: np.ndarray, width: int = 3,
     return band, band_part_full, locked, old_full
 
 
+@obs.traced("band:project")
 def project_band(part: np.ndarray, band_part: np.ndarray,
                  old_ids: np.ndarray) -> np.ndarray:
     """Write the refined band partition back into the full part vector."""

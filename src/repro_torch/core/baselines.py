@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core.graph import Graph
 from repro_torch.core.nd import NDConfig, nested_dissection
 from repro_torch.sparse.mindeg import min_degree
@@ -47,6 +48,7 @@ def natural(g: Graph) -> np.ndarray:
     return np.arange(g.n, dtype=np.int64)
 
 
+@obs.traced("nd:leaf")
 def rcm(g: Graph) -> np.ndarray:
     """Reverse Cuthill–McKee (BFS from a pseudo-peripheral vertex)."""
     n = g.n

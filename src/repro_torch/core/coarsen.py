@@ -77,6 +77,7 @@ class MatchWork:
         return (pow2(n), pow2(max(d, 1), 8), self.rounds)
 
 
+@obs.traced("coarsen:work")
 def match_work_for(g: Graph, seed: int, rounds: int = 8) -> MatchWork:
     """Build the MatchWork for one graph (same ELL form as match_graph)."""
     dmax = int(g.degrees().max()) if g.n else 1
@@ -95,6 +96,7 @@ def match_parts(buf, L: int, n_pad: int, d_pad: int):
             buf[2 * N:].view(wide).reshape(L, 2))
 
 
+@obs.traced("match:pack")
 def pack_match_bucket(works: Sequence[MatchWork], n_pad: int, d_pad: int,
                       device: torch.device) -> torch.Tensor:
     """One bucket's lanes padded to (L, n_pad, d_pad), with their keys, in
@@ -135,9 +137,12 @@ def execute_match_works(works: Sequence[MatchWork],
 
         def dispatch(host=host, L=L, n_pad=n_pad, d_pad=d_pad,
                      rounds=rounds):
-            buf = upload(host, dev)
-            return download(heavy_edge_matching_multi(
-                *match_parts(buf, L, n_pad, d_pad), rounds=rounds))
+            with obs.span("match:upload"):
+                buf = upload(host, dev)
+            m = heavy_edge_matching_multi(
+                *match_parts(buf, L, n_pad, d_pad), rounds=rounds)
+            with obs.span("match:download"):
+                return download(m)
 
         m = obs.timed_dispatch(
             "match", "match", ("match", dev.type), dispatch, since=t0,
@@ -151,6 +156,7 @@ def execute_match_works(works: Sequence[MatchWork],
     return results                                           # type: ignore
 
 
+@obs.traced("coarsen:build")
 def coarsen_once(g: Graph, match: np.ndarray):
     """Build the coarse graph from a matching.
 

@@ -565,6 +565,7 @@ def dgraph_arcs(dg: DGraph) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     return src, dst, w
 
 
+@obs.traced("dnd:gather")
 def to_host(dg: DGraph) -> Graph:
     """Gather the distributed structure back into one centralized Graph.
 
@@ -582,6 +583,7 @@ def to_host(dg: DGraph) -> Graph:
                             vwgt=vwgt, ewgt=w[keep])
 
 
+@obs.traced("dnd:induced")
 def dgraph_induced(dg: DGraph, keep_sh: np.ndarray,
                    nparts: Optional[int] = None,
                    payloads: Sequence[np.ndarray] = (),
@@ -635,6 +637,7 @@ def dgraph_induced(dg: DGraph, keep_sh: np.ndarray,
     return sub, mapped
 
 
+@obs.traced("dnd:fold")
 def dgraph_fold(dg: DGraph, bucket: bool = True) -> DGraph:
     """Fold the structure onto ⌈P/2⌉ shards (paper §3.2).
 
@@ -650,6 +653,7 @@ def dgraph_fold(dg: DGraph, bucket: bool = True) -> DGraph:
     return _build_dgraph(new_vtxdist, src, dst, w, vwgt, bucket=bucket)
 
 
+@obs.traced("dnd:coarsen")
 def dgraph_coarsen(dg: DGraph, match_sh: np.ndarray,
                    bucket: bool = True) -> Tuple[DGraph, np.ndarray]:
     """Distributed coarse-graph build from a sharded matching (§3.2).

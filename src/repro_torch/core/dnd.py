@@ -217,6 +217,7 @@ class DistOrdering:
                     np.asarray(piece, np.int64)))
 
     # -------------------------------------------------------------- #
+    @obs.traced("dnd:assemble")
     def assemble(self) -> np.ndarray:
         """Concatenate all fragments into the flat inverse permutation.
 
@@ -367,32 +368,34 @@ def _centralize_band_task(dg: DGraph, part_sh: np.ndarray,
     ``band.extract_band`` would (shared ``band_graph_with_anchors``), so
     this path is bit-identical to the centralized pipeline.
     """
-    width = cfg.band_width
-    v = valid_mask(dg)
-    keep = v & (dist_sh <= width)
-    band_dg, (bpart_sh, bdist_sh, bgid_sh) = dgraph_induced(
-        dg, keep, payloads=(part_sh, dist_sh, shard_gids(dg)),
-        fills=(3, 0, -1))
-    g_band = to_host(band_dg)
-    bpart = unshard_vector(band_dg, bpart_sh).astype(np.int8)
-    bdist = unshard_vector(band_dg, bdist_sh)
-    bgid = unshard_vector(band_dg, bgid_sh)
+    with obs.span("band:extract"):
+        width = cfg.band_width
+        v = valid_mask(dg)
+        keep = v & (dist_sh <= width)
+        band_dg, (bpart_sh, bdist_sh, bgid_sh) = dgraph_induced(
+            dg, keep, payloads=(part_sh, dist_sh, shard_gids(dg)),
+            fills=(3, 0, -1))
+        g_band = to_host(band_dg)
+        bpart = unshard_vector(band_dg, bpart_sh).astype(np.int8)
+        bdist = unshard_vector(band_dg, bdist_sh)
+        bgid = unshard_vector(band_dg, bgid_sh)
 
-    out = v & ~keep
-    w_out0 = int(dg.vwgt[out & (part_sh == 0)].sum())
-    w_out1 = int(dg.vwgt[out & (part_sh == 1)].sum())
-    band, bpart_full, locked = band_graph_with_anchors(
-        g_band, bpart, bdist, width, w_out0, w_out1)
-    nbr_b, _ = band.to_ell()
+        out = v & ~keep
+        w_out0 = int(dg.vwgt[out & (part_sh == 0)].sum())
+        w_out1 = int(dg.vwgt[out & (part_sh == 1)].sum())
+        band, bpart_full, locked = band_graph_with_anchors(
+            g_band, bpart, bdist, width, w_out0, w_out1)
+        nbr_b, _ = band.to_ell()
     bref, _, _ = yield FMWork(
         nbr=nbr_b, vwgt=band.vwgt, part=bpart_full, locked=locked,
         seed=mix_seeds(seed, 7), k_inst=k_fm, eps_frac=cfg.eps_frac,
         passes=cfg.fm_passes, n_pert=8)
     assert separator_is_valid(nbr_b, bref)
+    with obs.span("band:project"):
+        return scatter_by_gid(dg, part_sh, bgid, bref[:g_band.n])
 
-    return scatter_by_gid(dg, part_sh, bgid, bref[:g_band.n])
 
-
+@obs.traced("dnd:band")
 def _sharded_band_task(dg: DGraph, part_sh: np.ndarray, keep_sh: np.ndarray,
                        dist_sh: np.ndarray, seed: int, cfg: DNDConfig):
     """Shard-local band FM with alternating-color boundary moves (§3.3).
@@ -634,6 +637,7 @@ def _sharded_band_task(dg: DGraph, part_sh: np.ndarray, keep_sh: np.ndarray,
     return scatter_by_gid(dg, part_sh, np.asarray(bgid_sh)[vb], bpart[vb])
 
 
+@obs.traced("dnd:band")
 def _band_refine_task(dg: DGraph, part_sh: np.ndarray, seed: int,
                       p_cur: int, cfg: DNDConfig):
     """§3.3 at one distributed level: sharded BFS + FM refinement.
@@ -701,6 +705,7 @@ def _coarsest_task(g: Graph, seed: int, cfg: DNDConfig):
     return part
 
 
+@obs.traced("dnd:scatter")
 def _centralized_part(dg: DGraph, part: Optional[np.ndarray]
                       ) -> Optional[np.ndarray]:
     """Shard a host-computed part vector back onto dg's layout."""
@@ -745,14 +750,15 @@ def _dsep_task(dg: DGraph, seed: int, cfg: DNDConfig, inst_budget: int):
         halves = yield _Spawn([
             _dsep_task(dgf, s_half, cfg, inst_budget // 2)
             for s_half in (mix_seeds(seed, 11), mix_seeds(seed, 12))])
-        cand = [ph for ph in halves if ph is not None]
-        if not cand:
-            return None
-        best = min(cand,
-                   key=lambda q: _eval_part_sh(dgf, q, cfg.eps_frac)[0])
-        # the rejoined group refines the winning duplicate's separator at
-        # the fold level with its full complement of FM lanes (§3.3)
-        part_sh = reshard_vector(dgf, dg, best, fill=3)
+        with obs.span("dnd:rejoin"):
+            cand = [ph for ph in halves if ph is not None]
+            if not cand:
+                return None
+            best = min(cand,
+                       key=lambda q: _eval_part_sh(dgf, q, cfg.eps_frac)[0])
+            # the rejoined group refines the winning duplicate's separator at
+            # the fold level with its full complement of FM lanes (§3.3)
+            part_sh = reshard_vector(dgf, dg, best, fill=3)
         return (yield from _band_refine_task(dg, part_sh,
                                              mix_seeds(seed, 13), p, cfg))
 
@@ -772,7 +778,8 @@ def _dsep_task(dg: DGraph, seed: int, cfg: DNDConfig, inst_budget: int):
     # separator projection: fine vertex reads its coarse vertex's part
     # from the coarse owner (coarse vertices stayed on their
     # representative's owner, so most reads are shard-local)
-    part_sh = pull_by_gid(cdg, part_c, cmap_sh, fill=3).astype(np.int8)
+    with obs.span("dnd:project"):
+        part_sh = pull_by_gid(cdg, part_c, cmap_sh, fill=3).astype(np.int8)
     return (yield from _band_refine_task(dg, part_sh, seed, p, cfg))
 
 
@@ -847,6 +854,7 @@ class _Deferred:
     shard: int
 
 
+@obs.traced("dnd:defer")
 def _defer(dg: DGraph, gids_sh: np.ndarray, seed: int, nproc: int,
            node_id: int, dord: DistOrdering,
            deferred: List[_Deferred]) -> None:
@@ -877,39 +885,40 @@ def _dnd_task(dg: DGraph, gids_sh: np.ndarray, seed: int, cfg: DNDConfig,
     if part_sh is None:
         _defer(dg, gids_sh, seed, 1, node_id, dord, deferred)
         return
-    v = valid_mask(dg)
-    n0 = int(((part_sh == 0) & v).sum())
-    n1 = int(((part_sh == 1) & v).sum())
-    ns = n - n0 - n1
-    p0, p1 = child_nprocs(p)
-    s0, s1 = child_seeds(seed)
-    # distributed induced subgraphs, each redistributed onto its child
-    # process group (§3.1: part 0 onto ⌈p/2⌉ processes, part 1 onto ⌊p/2⌋)
-    dg0, (g0ids,) = dgraph_induced(dg, (part_sh == 0) & v, nparts=p0,
-                                   payloads=(gids_sh,), fills=(-1,))
-    dg1, (g1ids,) = dgraph_induced(dg, (part_sh == 1) & v, nparts=p1,
-                                   payloads=(gids_sh,), fills=(-1,))
-    c0 = dord.add_node(node_id, start, n0)
-    c1 = dord.add_node(node_id, start + n0, n1)
+    with obs.span("dnd:split"):
+        v = valid_mask(dg)
+        n0 = int(((part_sh == 0) & v).sum())
+        n1 = int(((part_sh == 1) & v).sum())
+        ns = n - n0 - n1
+        p0, p1 = child_nprocs(p)
+        s0, s1 = child_seeds(seed)
+        # distributed induced subgraphs, each redistributed onto its child
+        # process group (§3.1: part 0 onto ⌈p/2⌉ processes, part 1 onto ⌊p/2⌋)
+        dg0, (g0ids,) = dgraph_induced(dg, (part_sh == 0) & v, nparts=p0,
+                                       payloads=(gids_sh,), fills=(-1,))
+        dg1, (g1ids,) = dgraph_induced(dg, (part_sh == 1) & v, nparts=p1,
+                                       payloads=(gids_sh,), fills=(-1,))
+        c0 = dord.add_node(node_id, start, n0)
+        c1 = dord.add_node(node_id, start + n0, n1)
 
-    # separator ordered last (highest indices of the column block)
-    if ns:
-        snode = dord.add_node(node_id, start + n0 + n1, ns, "sep")
-        if ns <= max(cfg.centralize_threshold, cfg.leaf_size):
-            dgs, (sgids_sh,) = dgraph_induced(dg, (part_sh == 2) & v,
-                                              nparts=1,
-                                              payloads=(gids_sh,),
-                                              fills=(-1,))
-            gs = to_host(dgs)
-            sgids = unshard_vector(dgs, sgids_sh)
-            dord.add_fragment(snode, sgids[separator_perm(gs, seed)],
-                              node_id % dord.nparts)
-        else:
-            # huge separator: each shard keeps its local fragment,
-            # ordered by local id; offsets by the §2.2 prefix-sum exchange
-            pieces = [gids_sh[q][v[q] & (part_sh[q] == 2)]
-                      for q in range(p)]
-            dord.add_sharded_fragments(snode, pieces)
+        # separator ordered last (highest indices of the column block)
+        if ns:
+            snode = dord.add_node(node_id, start + n0 + n1, ns, "sep")
+            if ns <= max(cfg.centralize_threshold, cfg.leaf_size):
+                dgs, (sgids_sh,) = dgraph_induced(dg, (part_sh == 2) & v,
+                                                  nparts=1,
+                                                  payloads=(gids_sh,),
+                                                  fills=(-1,))
+                gs = to_host(dgs)
+                sgids = unshard_vector(dgs, sgids_sh)
+                dord.add_fragment(snode, sgids[separator_perm(gs, seed)],
+                                  node_id % dord.nparts)
+            else:
+                # huge separator: each shard keeps its local fragment,
+                # ordered by local id; offsets by the §2.2 prefix-sum exchange
+                pieces = [gids_sh[q][v[q] & (part_sh[q] == 2)]
+                          for q in range(p)]
+                dord.add_sharded_fragments(snode, pieces)
 
     # the two sides are independent subtrees (paper §3.1): spawned as
     # sibling tasks so the frontier driver advances them concurrently

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs, prng
-from repro_torch.kernels import ops
+from repro_torch.kernels import fm_fused, ops
 from repro_torch.kernels.band_batch import RowExtents, check_spans, \
     row_extents, sep_gain_multi
 from repro_torch.kernels.fm_fused import fm_move_loop
@@ -73,6 +73,7 @@ def gain_mode_default(device=None) -> str:
     return mode
 
 
+@obs.traced("fm:launch")
 def fm_refine_multi(nbr, lane_work, vwgt, parts, locked, keys, eps_frac,
                     max_moves, n_pert, passes: int = 3,
                     pos_only: bool = False, gain_mode: str | None = None,
@@ -187,14 +188,16 @@ def _prepare_lanes(w: FMWork) -> _Lanes:
             np.arange(k_inst) % len(w.parts_init)]
     parts0 = np.full((k_inst, n_pad), 3, np.int8)
     parts0[:, :n] = parts_init
+    with obs.span("fm:keys"):
+        keys = prng.split(prng.PRNGKey(w.seed), k_inst)
     return _Lanes(
-        nbr=nbr_p, vwgt=vw_p, locked=lock_p, parts0=parts0,
-        keys=prng.split(prng.PRNGKey(w.seed), k_inst),
+        nbr=nbr_p, vwgt=vw_p, locked=lock_p, parts0=parts0, keys=keys,
         eps=np.full(k_inst, w.eps_frac, np.float32),
         max_moves=np.full(k_inst, w.effective_max_moves(), np.int32),
         n_pert=np.full(k_inst, w.n_pert, np.int32))
 
 
+@obs.traced("fm:select")
 def _select_best(w: FMWork, parts: np.ndarray, sep_w: np.ndarray,
                  imb: np.ndarray) -> Tuple[np.ndarray, float, float]:
     """Paper's selection: min separator weight among balance-feasible."""
@@ -205,6 +208,7 @@ def _select_best(w: FMWork, parts: np.ndarray, sep_w: np.ndarray,
     return parts[best], float(sep_w[best]), float(imb[best])
 
 
+@obs.traced("fm:pack")
 def pack_fm_bucket(works: Sequence[FMWork]) -> Tuple[dict, List[int]]:
     """Host tensors of one bucket's ``fm_refine_batch`` call; lanes per work.
 
@@ -215,7 +219,8 @@ def pack_fm_bucket(works: Sequence[FMWork]) -> Tuple[dict, List[int]]:
     and ``lane_work`` and the extents are checked here on the host, so the
     kernels' wrappers need not read them back from the card.
     """
-    lanes = [_prepare_lanes(w) for w in works]
+    with obs.span("fm:lanes"):
+        lanes = [_prepare_lanes(w) for w in works]
     counts = [ln.parts0.shape[0] for ln in lanes]
     L_real = sum(counts)
     pad = -(-L_real // 8) * 8 - L_real
@@ -234,8 +239,10 @@ def pack_fm_bucket(works: Sequence[FMWork]) -> Tuple[dict, List[int]]:
                         [np.zeros(pad, np.int32)])          # dummies: 0 moves
     nbr = torch.from_numpy(np.stack([ln.nbr for ln in lanes]))
     lane_work = torch.from_numpy(lane_work.astype(np.int32))
-    extents = row_extents(nbr)
-    check_spans(nbr, lane_work, extents.row_len)
+    with obs.span("fm:extents"):
+        extents = row_extents(nbr)
+    with obs.span("fm:check_spans"):
+        check_spans(nbr, lane_work, extents.row_len)
     return dict(
         nbr=nbr, lane_work=lane_work, extents=extents,
         vwgt=per_work(lambda ln: ln.vwgt),
@@ -283,11 +290,20 @@ def execute_fm_works(works: Sequence[FMWork], device=None, *,
         t0 = time.perf_counter()
         host, counts = pack_fm_bucket([works[i] for i in idxs])
         L_real, L_pad = sum(counts), host["parts"].shape[0]
+        # traced: the fused kernel's tally comes down with the results
+        tally: Optional[list] = [] if obs.enabled() else None
 
-        def dispatch(host=host, passes=passes, pos_only=pos_only):
-            return download(*ops.fm_refine_batch(
-                **host, passes=passes, pos_only=pos_only, mode=mode,
-                gain_mode=gain_mode, device=dev))
+        def dispatch(host=host, passes=passes, pos_only=pos_only,
+                     tally=tally):
+            with fm_fused.keep_tally(tally):
+                out = ops.fm_refine_batch(
+                    **host, passes=passes, pos_only=pos_only, mode=mode,
+                    gain_mode=gain_mode, device=dev)
+            with obs.span("fm:download"):
+                got = download(*out, *(tally or ()))
+            if tally:
+                tally[:] = got[3:]
+            return got[:3]
 
         # the first dispatch of a mode on a device loads (or builds) its
         # CUDA library: the load key bills it as the compile
@@ -295,7 +311,15 @@ def execute_fm_works(works: Sequence[FMWork], device=None, *,
             "fm", "fm", ("fm", mode, gain_mode, dev.type), dispatch,
             since=t0, lanes=L_real, lanes_pad=L_pad, mode=mode,
             max_moves=int(host["max_moves"].max()), bucket=bucket)
-        _note_launch("fm", 0, L_real, L_pad, bucket, passes, 0)
+        counted = {}
+        if tally:   # steps and operations of the real lanes, and the
+            # longest lane's steps: the lanes run side by side, one block
+            # each, so that lane is the launch's critical path
+            lane_steps = tally[-1][:L_real, 0]
+            counted = dict(steps=int(lane_steps.sum()),
+                           ops=int(tally[-1][:L_real, 1].sum()),
+                           steps_max=int(lane_steps.max()))
+        _note_launch("fm", 0, L_real, L_pad, bucket, passes, 0, **counted)
         off = 0
         for i, k in zip(idxs, counts):
             n = works[i].nbr.shape[0]
@@ -328,6 +352,7 @@ def refine_parts(nbr: np.ndarray, vwgt: np.ndarray, part: np.ndarray,
     return execute_fm_works([work], device)[0]
 
 
+@obs.traced("nd:check")
 def separator_is_valid(nbr: np.ndarray, part: np.ndarray) -> bool:
     """No edge joins part 0 and part 1."""
     valid = nbr >= 0

@@ -12,6 +12,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from repro_torch import obs
+
 
 @dataclasses.dataclass
 class Graph:
@@ -111,6 +113,7 @@ class Graph:
         assert np.array_equal(self.adjwgt[of], self.adjwgt[ob]), "asymmetric weights"
 
     # ------------------------------------------------------------------ #
+    @obs.traced("nd:split")
     def induced_subgraph(self, keep: np.ndarray) -> Tuple["Graph", np.ndarray]:
         """Subgraph induced by boolean mask ``keep``.
 
@@ -137,6 +140,7 @@ class Graph:
                 old_ids)
 
     # ------------------------------------------------------------------ #
+    @obs.traced("nd:ell")
     def to_ell(self, dmax: Optional[int] = None
                ) -> Tuple[np.ndarray, np.ndarray]:
         """Padded ELL arrays ``(nbr, wgt)`` of shape (n, dmax); -1/0 fill."""
@@ -154,6 +158,7 @@ class Graph:
         return nbr, wgt
 
     # ------------------------------------------------------------------ #
+    @obs.traced("nd:components")
     def components(self) -> np.ndarray:
         """Connected component id per vertex (BFS, vectorized frontier)."""
         comp = -np.ones(self.n, dtype=np.int64)

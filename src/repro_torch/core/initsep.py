@@ -13,6 +13,7 @@ from typing import Tuple
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core.graph import Graph
 from repro_torch.core.fm import refine_parts, separator_is_valid
 from repro_torch.util import mix_seeds
@@ -47,6 +48,7 @@ def grow_part(g: Graph, seed: int) -> np.ndarray:
     return part
 
 
+@obs.traced("nd:initial")
 def initial_parts(g: Graph, seed: int, k_tries: int = 8) -> np.ndarray:
     """Stacked greedy-growing tries (K, n) — the host half of the stage.
 

@@ -27,6 +27,7 @@ from typing import Generator, List, Optional, Tuple, Union
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core.band import BFSWork, execute_bfs_works, extract_band, \
     project_band
 from repro_torch.core.coarsen import MatchWork, coarsen_multilevel_task, \
@@ -60,6 +61,7 @@ class NDConfig:
     freeze_interface: bool = False  # vertices with remote neighbors frozen
 
 
+@obs.traced("nd:project")
 def _project(part_coarse: np.ndarray, cmap: np.ndarray) -> np.ndarray:
     """Separator projection: coarse separator vertex -> both fine children."""
     return part_coarse[cmap].astype(np.int8)

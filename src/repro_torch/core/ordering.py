@@ -19,6 +19,8 @@ from typing import List, Optional
 
 import numpy as np
 
+from repro_torch import obs
+
 
 @dataclasses.dataclass
 class OrderNode:
@@ -70,6 +72,7 @@ class Ordering:
         parent.children.append(node)
         return node
 
+    @obs.traced("nd:assemble")
     def assemble(self) -> np.ndarray:
         """Concatenate fragments by ascending start index -> perm.
 

@@ -36,11 +36,13 @@ kernel, and its plain version ``fm_move_loop_plain`` is the body of
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import contextlib
+import contextvars
+from typing import List, Optional, Tuple
 
 import torch
 
-from repro_torch import prng
+from repro_torch import obs, prng
 from repro_torch.kernels import build
 from repro_torch.kernels.band_batch import RowExtents, check_spans, \
     check_tensors, require_card, sep_gain_multi_plain
@@ -404,6 +406,25 @@ def fm_move_loop(nbr, lane_work, vwgt_f, part, locked, pulled0, pulled1,
     return fm_move_loop_plain(*args, pos_only=pos_only)
 
 
+#: where ``fm_fused_multi`` puts each card launch's tally (``keep_tally``)
+_TALLY: contextvars.ContextVar[Optional[List[torch.Tensor]]] = \
+    contextvars.ContextVar("repro_fm_tally", default=None)
+
+
+@contextlib.contextmanager
+def keep_tally(into: Optional[List[torch.Tensor]]):
+    """Within the block, each ``fm_fused_multi`` call on the card appends
+    its kernel's tally to ``into``: int64 (L, 3) on the card, per lane
+    the move-loop steps, operations and noise draws (``fm_fused_kernel``'s
+    fourth output); None keeps none.  The caller downloads it."""
+    token = _TALLY.set(into)
+    try:
+        yield
+    finally:
+        _TALLY.reset(token)
+
+
+@obs.traced("fm:launch")
 def fm_fused_multi(nbr, lane_work, vwgt, parts, locked, keys, eps_frac,
                    max_moves, n_pert, passes: int = 3,
                    pos_only: bool = False,
@@ -424,8 +445,12 @@ def fm_fused_multi(nbr, lane_work, vwgt, parts, locked, keys, eps_frac,
     args = (nbr, lane_work, vwgt_f, parts, locked, keys, eps_abs,
             max_moves, n_pert)
     if nbr.device.type == "cuda":
-        return fm_fused_kernel(*args, passes=passes, pos_only=pos_only,
-                               extents=extents)[:3]
+        out = fm_fused_kernel(*args, passes=passes, pos_only=pos_only,
+                              extents=extents)
+        tally = _TALLY.get()
+        if tally is not None:
+            tally.append(out[3])
+        return out[:3]
     _check(*args, passes, extents)
     check_spans(nbr, lane_work, None if extents is None else extents.row_len)
     return fm_fused_plain(*args, passes=passes, pos_only=pos_only)

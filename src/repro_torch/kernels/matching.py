@@ -25,7 +25,7 @@ from typing import List, Optional
 
 import torch
 
-from repro_torch import prng
+from repro_torch import obs, prng
 from repro_torch.kernels import build
 from repro_torch.kernels.band_batch import check_tensors, lane_plan
 
@@ -148,6 +148,7 @@ def heavy_edge_matching_multi_kernel(nbr: torch.Tensor, wgt: torch.Tensor,
     return match
 
 
+@obs.traced("match:launch")
 def heavy_edge_matching_multi(nbr: torch.Tensor, wgt: torch.Tensor,
                               keys: torch.Tensor,
                               rounds: int = 8) -> torch.Tensor:

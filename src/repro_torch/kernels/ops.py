@@ -23,6 +23,7 @@ import os
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels.band_batch import RowExtents
 from repro_torch.kernels.dgraph_ops import ell_relax
 from repro_torch.kernels.diffusion import diffusion_step
@@ -83,11 +84,12 @@ def fm_refine_batch(nbr, lane_work, vwgt, parts, locked, keys, eps_frac,
     if extents is None and mode != "oracle":
         raise ValueError(f"REPRO_FM_MODE={mode} reads the tiles' row "
                          "extents: pass extents=row_extents(nbr)")
-    args = _on(device, nbr, lane_work, vwgt, parts, locked, keys, eps_frac,
-               max_moves, n_pert)
-    if mode != "oracle":
-        (row_len,) = _on(device, extents.row_len)
-        extents = RowExtents(row_len, extents.group)
+    with obs.span("fm:upload"):
+        args = _on(device, nbr, lane_work, vwgt, parts, locked, keys,
+                   eps_frac, max_moves, n_pert)
+        if mode != "oracle":
+            (row_len,) = _on(device, extents.row_len)
+            extents = RowExtents(row_len, extents.group)
     if mode == "fused":
         return fm_fused_multi(*args, passes=passes, pos_only=pos_only,
                               extents=extents)

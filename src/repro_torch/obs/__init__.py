@@ -10,7 +10,7 @@ from repro_torch.obs.metrics import REGISTRY, MetricsCollector, Registry
 from repro_torch.obs.tracer import (Span, Tracer, current, emit, enabled,
                                     first_use, forget_use, load_chrome,
                                     register_collector, set_fault_hook,
-                                    span, timed_dispatch, tracing,
+                                    span, timed_dispatch, traced, tracing,
                                     unregister_collector)
 
 # the default registry listens to every event for the life of the process
@@ -21,5 +21,5 @@ __all__ = [
     "REGISTRY", "MetricsCollector", "Registry", "Span", "Tracer",
     "current", "emit", "enabled", "first_use", "forget_use",
     "load_chrome", "register_collector", "set_fault_hook", "span",
-    "timed_dispatch", "tracing", "unregister_collector",
+    "timed_dispatch", "traced", "tracing", "unregister_collector",
 ]

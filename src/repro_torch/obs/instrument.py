@@ -48,13 +48,13 @@ class Instrumentation:                # with equal contents must not alias
       ``endgame``); ``endgame`` times a whole deferred-subtree batch and
       so contains the ``fm`` / ``bfs`` / ``match`` shares its executors
       bill.
-    ``stage_detail`` — per stage, the compile/dispatch split:
-      ``{stage: {"compile_s", "dispatch_s"}}``; a dispatch whose load key
-      is seen for the first time (``obs.first_use``) bills its wall to
-      ``compile_s``.
     ``waves``     — one summary dict per router wave: outstanding works /
       shape buckets / launches / wall-clock (``t_s``) / per-stage seconds
       (``stage_s``) by kind.
+    ``span_s`` / ``span_self_s`` — while a tracer is installed
+      (``obs.tracing``), seconds per span name of the spans that closed
+      in the block: their whole durations, and their self time (each
+      less its child spans).  Empty when nothing traces.
     """
     gathers: List[Tuple[str, int]] = dataclasses.field(default_factory=list)
     halos: List[int] = dataclasses.field(default_factory=list)
@@ -62,8 +62,8 @@ class Instrumentation:                # with equal contents must not alias
     band_stats: List[dict] = dataclasses.field(default_factory=list)
     stage_s: Dict[str, float] = dataclasses.field(default_factory=dict)
     waves: List[dict] = dataclasses.field(default_factory=list)
-    stage_detail: Dict[str, Dict[str, float]] = \
-        dataclasses.field(default_factory=dict)
+    span_s: Dict[str, float] = dataclasses.field(default_factory=dict)
+    span_self_s: Dict[str, float] = dataclasses.field(default_factory=dict)
 
     def on_event(self, kind: str, payload: dict) -> None:
         """Event-bus entry point (called with the bus lock held, so the
@@ -80,11 +80,14 @@ class Instrumentation:                # with equal contents must not alias
         elif kind == "stage":
             name, sec = payload["name"], float(payload["seconds"])
             self.stage_s[name] = self.stage_s.get(name, 0.0) + sec
-            d = self.stage_detail.setdefault(
-                name, {"compile_s": 0.0, "dispatch_s": 0.0})
-            d["compile_s" if payload.get("compile") else "dispatch_s"] += sec
         elif kind == "wave":
             self.waves.append(payload)
+        elif kind == "span":
+            name = payload["name"]
+            self.span_s[name] = self.span_s.get(name, 0.0) + \
+                payload["seconds"]
+            self.span_self_s[name] = self.span_self_s.get(name, 0.0) + \
+                payload["self_s"]
 
 
 @contextlib.contextmanager

@@ -117,8 +117,10 @@ REGISTRY = Registry()
 class MetricsCollector:
     """Event-bus collector mapping instrumentation events onto the
     default registry.  Registered once at ``repro_torch.obs`` import.
-    The reference's gather and halo events come from the distributed
-    plane, which the port has not yet; so do launch ``words``."""
+    It counts launches by kind and stage seconds by stage and phase
+    (compile or dispatch); the distributed plane's gather and halo
+    events, the launches' ``words`` and the tracer's ``span`` events are
+    read by ``obs.instrument()`` blocks alone."""
 
     def __init__(self, registry: Optional[Registry] = None):
         self.registry = registry or REGISTRY

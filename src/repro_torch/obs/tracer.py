@@ -16,10 +16,22 @@ this module:
   installs a global ``Tracer``; ``span(name, **attrs)`` opens a timed
   span parented on the innermost open span of the *current thread /
   context* (a ``contextvars`` stack, so worker threads and async tasks
-  nest correctly and never corrupt each other's ancestry).  When no
-  tracer is installed, ``span`` returns a shared null context — the
-  disabled path is one module-global read and no allocation, which is
-  what keeps the tracer off the hot path when no one traces.
+  nest correctly and never corrupt each other's ancestry).  Each span
+  that closes emits a ``span`` event (name, seconds, self seconds: its
+  duration less its children's whole cost, their own bookkeeping
+  included, which the tracer keeps as ``cost_s``), which
+  ``obs.instrument()`` sums by name.  When no tracer is installed,
+  ``span`` returns a shared null
+  context — the disabled path is one module-global read and no
+  allocation, and emits nothing, which is what keeps the tracer off the
+  hot path when no one traces.
+
+* **One clock with the device trace** — spans are stamped on
+  ``time.perf_counter``; a ``Tracer`` records, when made, its offset to
+  the Unix-epoch nanoseconds on which ``torch.profiler`` stamps its
+  events (``Tracer.profiler_ns``), and ``export_chrome`` writes its
+  ``ts`` on that clock, relative to Kineto's ``baseTimeNanoseconds``, so
+  a program trace and a profiler trace of one run open together.
 
 Compile vs dispatch attribution rides on ``first_use(key)``: the bucketed
 executors pass the key of what their first dispatch loads (a stage's
@@ -32,6 +44,8 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
+import functools
+import inspect
 import itertools
 import json
 import threading
@@ -111,12 +125,17 @@ class Span:
     t1: Optional[float] = None
     tid: int = 0
     attrs: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    child_s: float = 0.0        # seconds of its closed child spans
 
 
-# Per-thread / per-context stack of open span ids.  A tuple (immutable)
-# so concurrent readers never see a half-mutated stack.
-_SPAN_STACK: contextvars.ContextVar[Tuple[int, ...]] = \
+# Per-thread / per-context stack of open spans.  A tuple (immutable) so
+# concurrent readers never see a half-mutated stack.
+_SPAN_STACK: contextvars.ContextVar[Tuple[Span, ...]] = \
     contextvars.ContextVar("repro_obs_span_stack", default=())
+
+#: Kineto's trace base: "now" rounded down to a multiple of this many
+#: seconds (``baseTimeNanoseconds`` of a ``torch.profiler`` trace)
+KINETO_BASE_S = 7889238
 
 
 class Tracer:
@@ -127,6 +146,10 @@ class Tracer:
         self._lock = threading.Lock()
         self._ids = itertools.count(1)
         self._tids: Dict[int, int] = {}
+        # seconds of span bookkeeping inside open parents (see ``span``)
+        self.cost_s = 0.0
+        # perf_counter -> the profiler's clock (Unix-epoch nanoseconds)
+        self.clock_offset_ns = time.time_ns() - time.perf_counter_ns()
         # ``annotate_device`` also opens each span as a
         # ``torch.profiler.record_function`` range, so a profiler trace
         # of the card shows the spans beside the kernels
@@ -144,25 +167,41 @@ class Tracer:
     @contextlib.contextmanager
     def span(self, name: str, **attrs):
         """Open a span parented on the current context's innermost open
-        span; yields the ``Span`` so callers may add attrs."""
+        span; yields the ``Span`` so callers may add attrs.  On close it
+        emits a ``span`` event: ``{"name", "seconds", "self_s"}``, and
+        bills its whole cost, from entry to the end of that emit, to the
+        parent's ``child_s``: a parent's self seconds hold only its own
+        work, and the spans' own bookkeeping inside it goes to
+        ``cost_s``."""
+        enter = time.perf_counter()
         sid = next(self._ids)
         stack = _SPAN_STACK.get()
-        sp = Span(sid, stack[-1] if stack else None, name,
-                  time.perf_counter(), tid=self._tid(), attrs=dict(attrs))
-        token = _SPAN_STACK.set(stack + (sid,))
+        parent = stack[-1] if stack else None
+        sp = Span(sid, None if parent is None else parent.span_id, name,
+                  enter, tid=self._tid(), attrs=dict(attrs))
+        token = _SPAN_STACK.set(stack + (sp,))
         ann = (self._annotation_cls(name)
                if self._annotation_cls is not None else None)
         if ann is not None:
             ann.__enter__()
+        sp.t0 = time.perf_counter()
         try:
             yield sp
         finally:
+            sp.t1 = time.perf_counter()
             if ann is not None:
                 ann.__exit__(None, None, None)
             _SPAN_STACK.reset(token)
-            sp.t1 = time.perf_counter()
+            seconds = sp.t1 - sp.t0
             with self._lock:
                 self.spans.append(sp)
+            emit("span", {"name": name, "seconds": seconds,
+                          "self_s": seconds - sp.child_s})
+            if parent is not None:
+                whole = time.perf_counter() - enter
+                with self._lock:
+                    parent.child_s += whole
+                    self.cost_s += whole - seconds
 
     def add_span(self, name: str, t0: float, t1: float,
                  attrs: Optional[dict] = None,
@@ -175,32 +214,44 @@ class Tracer:
             self.spans.append(sp)
         return sp
 
+    def profiler_ns(self, t: float) -> int:
+        """A ``time.perf_counter()`` reading on ``torch.profiler``'s clock
+        (the Unix-epoch nanoseconds of its events' ``start_ns``)."""
+        return round(t * 1e9) + self.clock_offset_ns
+
     # -------------------------------------------------------------- #
     def export_chrome(self, path: str) -> None:
         """Write Chrome/Perfetto ``trace_event`` JSON (``ph: "X"``
         complete events; ``args`` carry span/parent ids and attrs so the
-        tree round-trips through ``load_chrome``)."""
+        tree round-trips through ``load_chrome``).
+
+        ``ts`` is in microseconds on the profiler's clock after the
+        ``baseTimeNanoseconds`` that Kineto writes: the time rounded down
+        to a multiple of ``KINETO_BASE_S``, here the first span's.
+        """
         with self._lock:
             spans = list(self.spans)
-        base = min((s.t0 for s in spans), default=0.0)
+        first = min((s.t0 for s in spans), default=time.perf_counter())
+        base_ns = (self.profiler_ns(first) // 10 ** 9 // KINETO_BASE_S
+                   * KINETO_BASE_S * 10 ** 9)
         events = []
         for s in spans:
             t1 = s.t1 if s.t1 is not None else s.t0
             events.append({
                 "name": s.name, "ph": "X", "pid": 1, "tid": s.tid,
-                "ts": round((s.t0 - base) * 1e6, 3),
+                "ts": round((self.profiler_ns(s.t0) - base_ns) / 1e3, 3),
                 "dur": round((t1 - s.t0) * 1e6, 3),
                 "args": {"span_id": s.span_id, "parent_id": s.parent_id,
                          **s.attrs},
             })
         with open(path, "w") as f:
-            json.dump({"traceEvents": events, "displayTimeUnit": "ms"},
-                      f, default=str)
+            json.dump({"traceEvents": events, "displayTimeUnit": "ms",
+                       "baseTimeNanoseconds": base_ns}, f, default=str)
 
 
 def load_chrome(path: str) -> List[Span]:
-    """Rebuild spans from an ``export_chrome`` file (seconds, relative
-    to the trace origin)."""
+    """Rebuild spans from an ``export_chrome`` file (seconds after the
+    file's ``baseTimeNanoseconds``)."""
     with open(path) as f:
         doc = json.load(f)
     spans = []
@@ -255,6 +306,50 @@ def span(name: str, **attrs):
     if t is None:
         return _NULL_CM
     return t.span(name, **attrs)
+
+
+def traced(name: str):
+    """Decorator: the function's whole body runs under ``span(name)``.
+
+    The span belongs to the function itself, so a caller that looks the
+    function up by name, or wraps it, finds the span inside.  On a
+    generator function the span is opened around each resumption (the
+    host work between two yields), in the context of whoever resumes
+    it.  With no tracer installed a call costs one global read more
+    than the bare function.
+    """
+    def wrap(fn):
+        if inspect.isgeneratorfunction(fn):
+            @functools.wraps(fn)
+            def gen(*args, **kwargs):
+                it = fn(*args, **kwargs)
+                value, exc = None, None
+                while True:
+                    t = _TRACER
+                    with _NULL_CM if t is None else t.span(name):
+                        try:
+                            out = (it.send(value) if exc is None
+                                   else it.throw(exc))
+                        except StopIteration as stop:
+                            return stop.value
+                    try:
+                        value, exc = (yield out), None
+                    except GeneratorExit:
+                        it.close()
+                        raise
+                    except BaseException as e:      # forwarded by throw
+                        value, exc = None, e
+            return gen
+
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            t = _TRACER
+            if t is None:
+                return fn(*args, **kwargs)
+            with t.span(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
 
 
 # ------------------------------------------------------------------ #

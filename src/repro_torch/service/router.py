@@ -620,7 +620,8 @@ class WaveRouter:
         idx = len(self._roots)
         task = _Task(gen, None, 0, tag=idx if tag is None else tag)
         self._roots.append(task)
-        _advance(task, None, self._blocked)
+        with obs.span("router:advance"):
+            _advance(task, None, self._blocked)
         return idx
 
     # -------------------------------------------------------------- #
@@ -679,21 +680,22 @@ class WaveRouter:
             for tag in tags:
                 self.exec_s_by_tag[tag] += share
             dead: set = set()
-            for (t, _), r in zip(active, results):
-                root = _root_of(t)
-                if id(root) in dead:
-                    continue            # tree already excised this wave
-                err = _failure_of(r)
-                if err is None:
-                    try:
-                        _advance(t, r, self._blocked)
-                        continue
-                    except Exception as adv_err:
-                        # a generator choking on its (possibly faulted)
-                        # result fails only its own tree
-                        err = adv_err
-                dead.add(id(root))
-                self._excise(root, err)
+            with obs.span("router:advance"):
+                for (t, _), r in zip(active, results):
+                    root = _root_of(t)
+                    if id(root) in dead:
+                        continue        # tree already excised this wave
+                    err = _failure_of(r)
+                    if err is None:
+                        try:
+                            _advance(t, r, self._blocked)
+                            continue
+                        except Exception as adv_err:
+                            # a generator choking on its (possibly
+                            # faulted) result fails only its own tree
+                            err = adv_err
+                    dead.add(id(root))
+                    self._excise(root, err)
             self._blocked.extend(parked)
             self._waves += 1
             self._level += 1

@@ -13,9 +13,11 @@ from typing import Optional
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core.graph import Graph
 
 
+@obs.traced("nd:leaf")
 def min_degree(g: Graph, tie_seed: int = 0) -> np.ndarray:
     """Return perm (perm[k] = vertex eliminated k-th)."""
     n = g.n
