@@ -14,7 +14,12 @@ Entries:
   configuration's graph, a fresh ordering seed each time;
 * ``distributed_nested_dissection``: one client,
   ``core.dnd.distributed_nested_dissection`` of the graph distributed
-  once in set-up over ``nparts`` parts, on one card;
+  once in set-up over ``nparts`` parts, on one card; with the optional
+  key ``cards`` (an int of at least 2) the parts lie on a group of that
+  many distinct cards (``dgraph.make_parts_group(cards, nparts)``, the
+  first ``cards`` of the host; on the CPU, tests only, as many CPU
+  members), handed to the warm-up and to every call of the window as
+  ``group=``; the centralized works run on the group's first member;
 * ``service``: ``clients`` closed-loop clients through
   ``OrderingService.submit`` / ``pump``, each request a pattern of the
   configuration's mix (``gen.pattern_stream``); the window's requests are
@@ -49,6 +54,13 @@ class Ordering:
         self.cfg, self.traffic, self.seed = cfg, traffic, seed
         self.device = device
         self.dist = traffic["entry"] == "distributed_nested_dissection"
+        self.cards = traffic.get("cards")
+        if self.cards is not None and not (
+                self.dist and isinstance(self.cards, int)
+                and self.cards >= 2):
+            raise ValueError(f"traffic key cards={self.cards!r}: an int of "
+                             f"at least 2, with the distributed entry only")
+        self.group = None
         self.graph = gen.config_graph(cfg["graph"])
         self.results: List[dict] = []
 
@@ -58,13 +70,27 @@ class Ordering:
         if self.dist:
             self.nd_cfg = dnd.DNDConfig(**self.cfg.get("nd_config", {}))
             self.dg = dgraph.distribute(self.prog_graph, self.cfg["nparts"])
+            if self.cards is not None:
+                self.group = self._parts_group(dgraph)
             self._call = lambda s: dnd.distributed_nested_dissection(
-                self.dg, seed=s, cfg=self.nd_cfg, device=self.device)
+                self.dg, seed=s, cfg=self.nd_cfg, device=self.device,
+                group=self.group)
         else:
             self.nd_cfg = nd.NDConfig(**self.cfg.get("nd_config", {}))
             self._call = lambda s: nd.nested_dissection(
                 self.prog_graph, seed=s, nproc=self.cfg["nproc"],
                 cfg=self.nd_cfg, device=self.device)
+
+    def _parts_group(self, dgraph):
+        """The group of ``cards`` members that holds the parts: distinct
+        cards, never one card repeated."""
+        nparts = self.cfg["nparts"]
+        if self.device == "cpu":
+            return dgraph.make_parts_group(["cpu"] * self.cards, nparts)
+        group = dgraph.make_parts_group(self.cards, nparts)
+        if not group.distinct:
+            raise RuntimeError(f"{group} repeats a card")
+        return group
 
     def warm_up(self) -> float:
         t0 = time.perf_counter()
@@ -110,7 +136,7 @@ class Ordering:
         return [("start_bad", int(not np.array_equal(got, want)), 0)]
 
     def release(self) -> None:
-        self.dg = self.prog_graph = self._call = None
+        self.dg = self.prog_graph = self._call = self.group = None
 
 
 class Stream:

@@ -9,9 +9,11 @@ answer altered where it is produced (one matching's mate, one
 permutation entry), an FM call packed wrong (an edge dropped or moved in
 a tile, two lanes' keys swapped), and a kernel reached by another way
 than the one recorded.  Each is planted around the window alone, after a
-sound set-up.  None of the cells spans cards, so none can lose an
-exchange between them.  The distributed cell's are in
-``test_orderbench_faults_dist.py``.
+sound set-up.  The distributed cell's are in
+``test_orderbench_faults_dist.py``, with the one fault that only parts
+on a group of devices can have: an exchange between its members lost
+(no cell spans cards yet; the test puts the distributed cell's parts on
+CPU members).
 """
 from __future__ import annotations
 

@@ -5,7 +5,9 @@ a size a test can hold: the mesh cells on a small grid, the pattern mix
 at 100-400 vertices with 4 clients, and every kernel call sampled.  The
 distributed cell centralizes no level above 64 vertices, so that its
 small grid takes the sharded refinement (halo exchanges, shard
-fragments) that the full-size cell takes.
+fragments) that the full-size cell takes.  A run whose traffic names
+``cards`` (a cell's file, or ``traffic``) puts its parts on that many
+CPU members (``drive.Ordering``), under the schedule the cards take.
 """
 from __future__ import annotations
 
