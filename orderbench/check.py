@@ -12,6 +12,14 @@ above it.  Every comparison is exact, so every limit is 0.
   calls whose outputs differ from the plain reference's
   (``reference.kernels``), worked out from the call's own inputs with
   the configuration's matching rounds and band width;
+* ``band_bad``, ``band_proj_bad`` (with the band graph on): sampled band
+  graphs, anchors, starts, locks and ids that differ from
+  ``reference.band``'s, worked out from the level's own graph and part
+  with the configuration's band width, and sampled projections of the
+  refined band back onto the level that differ from its;
+* ``dband_bad`` (distributed, with the band graph on): sampled band
+  refinements of a distributed level that differ from its band
+  (``_judge_dband``);
 * ``fmpack_bad``: sampled FM calls whose inputs are not the benchmark's
   own packing (``reference.pack``) of the works the FM executor was
   handed, whose works are no sound graph, or whose works were not seen;
@@ -31,23 +39,37 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
+from orderbench.reference import band as bref
 from orderbench.reference import dist as dref
 from orderbench.reference import kernels as ref
 from orderbench.reference import pack
 
 Check = Tuple[str, float, float]
-KINDS = ("match", "bfs", "fm", "dmatch", "dbfs", "dhalo")
+KINDS = ("match", "bfs", "fm", "dmatch", "dbfs", "dhalo", "band",
+         "band_proj", "dband")
 #: kinds only the band graph's refinement calls
-BAND_KINDS = ("bfs", "dbfs")
+BAND_KINDS = ("bfs", "dbfs", "band", "band_proj", "dband")
+#: the band graph's own steps, one of each a band BFS work of their path:
+#: sampled as that BFS is where the traffic names no number
+BAND_GRAPH = {"band": "bfs", "band_proj": "bfs", "dband": "dbfs"}
+
+
+def sampled(traffic: dict) -> Dict[str, Tuple[float, float]]:
+    """The (small, big) calls of each kind a run keeps for the check: the
+    traffic's ``check_calls``, and the band graph's as its BFS's."""
+    want = {k: tuple(v) for k, v in traffic["check_calls"].items()}
+    for k, like in BAND_GRAPH.items():
+        if like in want:
+            want.setdefault(k, want[like])
+    return want
 
 
 def required(cfg: dict, traffic: dict) -> List[str]:
-    """The kinds of call a cell's path has to make: those its traffic
-    samples (``check_calls``), less the band's where the configuration
-    refines without the band graph."""
+    """The kinds of call a cell's path has to make: those it samples
+    (``sampled``), less the band's where the configuration refines
+    without the band graph."""
     band = cfg.get("nd_config", {}).get("use_band", True)
-    return [k for k in traffic["check_calls"]
-            if band or k not in BAND_KINDS]
+    return [k for k in sampled(traffic) if band or k not in BAND_KINDS]
 
 
 def _lanes_bad(got: List[np.ndarray], want: List[np.ndarray]) -> int:
@@ -75,8 +97,39 @@ def _judge_dist(s: dict, cfg: dict) -> Tuple[int, int]:
     return bad, len(s["dgs"])
 
 
+def _judge_dband(s: dict, cfg: dict) -> int:
+    """1 if a distributed level's band refinement differs from the band
+    of ``reference.band``: centralized, its band FM work, and the level's
+    part with FM's answer written back; sharded, its distributed band
+    graph, and the level's part outside the band, which it may not move."""
+    dg = s["dgs"][0]
+    xadj, adjncy, vwgt = bref.level(dg)
+    part = bref.gathered(dg.vtxdist, s["part"])
+    want = bref.extract(xadj, adjncy, vwgt, part, int(cfg["band_width"]))
+    out = bref.gathered(dg.vtxdist, s["out"])
+    if s["path"] == "central":
+        nbr, w, p, locked = s["work"]
+        got = dict(arcs=bref.ell_arcs(nbr), vwgt=w, part=p, locked=locked)
+        same = all(np.array_equal(got[k], want[k]) for k in got)
+        return int(not (same and np.array_equal(
+            out, bref.project(part, s["reply"], want["ids"]))))
+    ids = want["ids"][want["ids"] >= 0]
+    inner = want["arcs"][(want["arcs"] < len(ids)).all(axis=1)]
+    bd = s["dgs"][1]
+    outside = np.ones(len(part), dtype=bool)
+    outside[ids] = False
+    return int(not (
+        np.array_equal(dref.to_edges(bd.vtxdist, bd.nbr_gst, bd.ghost_gid,
+                                     bd.n_loc), inner)
+        and np.array_equal(bref.gathered(bd.vtxdist, bd.vwgt),
+                           want["vwgt"][:len(ids)])
+        and np.array_equal(out[outside], part[outside])))
+
+
 def judge_call(s: dict, cfg: dict) -> Tuple[int, int]:
     """(lanes that differ, lanes) of one sampled call ``s``."""
+    if s["kind"] == "dband":
+        return _judge_dband(s, cfg), 1
     if "dgs" in s:
         return _judge_dist(s, cfg)
     a = s["args"]
@@ -84,6 +137,15 @@ def judge_call(s: dict, cfg: dict) -> Tuple[int, int]:
         want = [ref.match(a[0], a[1], a[2], int(cfg["match_rounds"]))]
     elif s["kind"] == "bfs":
         want = [ref.bfs(a[0], a[1], int(cfg["band_width"]))]
+    elif s["kind"] == "band":
+        want = bref.extract(*a, int(cfg["band_width"]))
+        o = s["out"]
+        got = dict(arcs=bref.arcs(o[0], o[1]), vwgt=o[2], part=o[3],
+                   locked=o[4], ids=o[5])
+        return int(any(not np.array_equal(got[k], want[k])
+                       for k in want)), 1
+    elif s["kind"] == "band_proj":
+        return int(not np.array_equal(s["out"][0], bref.project(*a))), 1
     else:
         want = list(ref.fm(*a, passes=int(s["passes"]),
                            pos_only=bool(s["pos_only"])))

@@ -88,6 +88,7 @@ class Window:
         self.opc: List[float] = []
         self.profile: Optional[Dict] = None
         self.fm_launches: List[dict] = []
+        self.bfs_launches: List[dict] = []
         self.devices: List[int] = []
 
 
@@ -144,7 +145,7 @@ def run(workload: str, seed: int, seconds: float, traced: bool, *,
     rec.counts.clear()
     scale = max(seconds, warm_s) / max(warm_s, 1e-3)
     rec.set_strides({k: v * scale for k, v in counts.items()},
-                    {k: tuple(v) for k, v in traffic["check_calls"].items()})
+                    check.sampled(traffic))
     rec.keep, rec.shapes = True, traced
     w = Window()
     w.devices = list(range(int(cell["chips"])))
@@ -167,6 +168,7 @@ def run(workload: str, seed: int, seconds: float, traced: bool, *,
         w.profile = devtrace.summarize(prof, w.devices if device == "cuda"
                                       else [])
         w.fm_launches = rec.fm_launch_shapes()
+        w.bfs_launches = rec.bfs_launch_shapes()
         del prof
         log(f"trace: {w.profile['events']} events, "
             f"{w.profile['device_events']} on the devices, "

@@ -7,11 +7,15 @@ the metric out of the line).
 from __future__ import annotations
 
 import math
+import re
 from typing import List, Optional, Sequence
 
 from orderbench import roofline, stages
 
 FM_KERNEL = "fm_fused_kernel"
+#: the band BFS's kernels (``csrc/bfs_multi.cu``), matched by their whole
+#: name: ``dgraph.cu``'s ``dbfs_lanes`` and ``dbfs_init`` contain these
+BFS_KERNEL = re.compile(r"\bbfs_(lanes|init|relax)\b")
 
 
 def ok_orderings(w) -> int:
@@ -54,6 +58,19 @@ def fm_roofline_pct(w) -> Optional[float]:
     if kernel <= 0 or not w.fm_launches:
         return None
     return 100.0 * roofline.fm_bound_s(w.fm_launches) / kernel
+
+
+def bfs_roofline_pct(w) -> Optional[float]:
+    """The band BFS calls' least time by bytes over the device time of
+    the ``BFS_KERNEL`` kernels in the trace; None for a run without band
+    BFS calls."""
+    if w.profile is None or not w.bfs_launches:
+        return None
+    kernel = sum(s for name, s in w.profile["kernel_s"].items()
+                 if BFS_KERNEL.search(name))
+    if kernel <= 0:
+        return None
+    return 100.0 * roofline.bfs_bound_s(w.bfs_launches) / kernel
 
 
 def idle_pct(w) -> Optional[float]:

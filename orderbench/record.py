@@ -16,9 +16,20 @@ group).  For each call it:
 * keeps, with a sampled FM call, the works that the FM executor packed
   into it (``core.fm.pack_fm_bucket``'s argument), so that the check
   packs them itself and holds the call's inputs to its own packing;
+* wraps the band graph's extraction and projection where the sequential
+  ordering looks them up (``core.nd.extract_band``, ``project_band``),
+  and keeps copies of the sampled calls' host inputs and outputs;
+* wraps the distributed levels' band refinement, centralized and
+  sharded (``core.dnd._centralize_band_task``, ``_sharded_band_task``;
+  counted only with the band graph on, which the task's last argument,
+  its configuration, says), and keeps of a sampled task its level and
+  starting part, what it returns, and: centralized, the band FM work it
+  yields and the part FM hands back; sharded, the distributed band
+  graph it first exchanges over;
 * when ``shapes`` is on (traced runs), keeps each FM launch's shape and
-  the device sum of its row extents, from which ``roofline`` counts the
-  bytes the launch needs.
+  the device sum of its row extents, and each band BFS call's shape and
+  the device count of its ids (the rows are packed, pads last), from
+  which ``roofline`` counts the bytes the launch needs.
 
 Copies are made on the device, in the window, and brought to the host
 after it.  A call is "big" when its lanes hold 4096 vertices or more:
@@ -63,6 +74,26 @@ def _work(w) -> dict:
     return out
 
 
+def _copies(*xs) -> list:
+    return [np.array(x, copy=True) for x in xs]
+
+
+def _watched(task, kept: dict):
+    """Step ``task`` as its driver would, keeping the first work it
+    yields (``first``), the first reply it gets (``reply``) and what it
+    returns (``out``)."""
+    try:
+        work = next(task)
+        kept["first"] = work
+        reply = yield work
+        kept["reply"] = reply
+        while True:
+            reply = yield task.send(reply)
+    except StopIteration as stop:
+        kept["out"] = stop.value
+        return stop.value
+
+
 class Recorder:
     def __init__(self, seed: int):
         self.rng = np.random.default_rng([int(seed) & 0xFFFFFFFFFFFF, 0xC4EC])
@@ -72,6 +103,7 @@ class Recorder:
         self.samples: List[dict] = []
         self.shapes = False
         self.fm_launches: List[dict] = []
+        self.bfs_launches: List[dict] = []
         self.keep = False
         self.packed = None          # the works of the FM call to come
 
@@ -105,7 +137,7 @@ class Recorder:
     @contextlib.contextmanager
     def installed(self):
         """Wrap the program's calls while the block runs."""
-        from repro_torch.core import band, coarsen, fm as core_fm
+        from repro_torch.core import band, coarsen, dnd, fm as core_fm, nd
         from repro_torch.kernels import ops
         from repro_torch.service import router
         rec = self
@@ -129,8 +161,58 @@ class Recorder:
                         kind="bfs", width=width,
                         args=[_clone(t) for t in (nbr, src)],
                         out=[_clone(out)]))
+                if rec.shapes:
+                    rec.bfs_launches.append(dict(
+                        shape=tuple(nbr.shape), slots=(nbr >= 0).sum()))
                 return out
             return bfs
+
+        def wrap_band(fn):
+            def extract(g, part, width=3, dist=None, device=None):
+                out = fn(g, part, width=width, dist=dist, device=device)
+                if rec._take("band", g.n):
+                    band_g, bpart, locked, ids = out
+                    rec.samples.append(dict(
+                        kind="band",
+                        args=_copies(g.xadj, g.adjncy, g.vwgt, part),
+                        out=_copies(band_g.xadj, band_g.adjncy, band_g.vwgt,
+                                    bpart, locked, ids)))
+                return out
+            return extract
+
+        def wrap_project(fn):
+            def project(part, band_part, old_ids):
+                out = fn(part, band_part, old_ids)
+                if rec._take("band_proj", len(part)):
+                    rec.samples.append(dict(
+                        kind="band_proj",
+                        args=_copies(part, band_part, old_ids),
+                        out=_copies(out)))
+                return out
+            return project
+
+        def wrap_dband(path, fn):
+            def task(dg, part_sh, *args):
+                # without the band, the sharded task refines the whole
+                # level: no band to judge, and no call of this kind
+                if not args[-1].use_band or \
+                        not rec._take("dband", int(dg.n_global)):
+                    return (yield from fn(dg, part_sh, *args))
+                part0, kept = np.array(part_sh, copy=True), {}
+                out = yield from _watched(fn(dg, part_sh, *args), kept)
+                s = dict(kind="dband", path=path, part=part0,
+                         out=np.array(out, copy=True))
+                first = kept["first"]
+                if path == "central":
+                    s.update(dgs=[dg], reply=np.array(kept["reply"][0],
+                                                      copy=True),
+                             work=_copies(first.nbr, first.vwgt, first.part,
+                                          first.locked))
+                else:
+                    s["dgs"] = [dg, first.dg]
+                rec.samples.append(s)
+                return out
+            return task
 
         def wrap_fm(fn):
             def fm(nbr, lane_work, vwgt, parts, locked, keys, eps_frac,
@@ -181,12 +263,16 @@ class Recorder:
                  (router, "distributed_matching_stacked"),
                  (router, "distributed_bfs_stacked"),
                  (router, "halo_exchange_stacked"),
-                 (core_fm, "pack_fm_bucket")]
+                 (core_fm, "pack_fm_bucket"), (nd, "extract_band"),
+                 (nd, "project_band"), (dnd, "_centralize_band_task"),
+                 (dnd, "_sharded_band_task")]
         originals = [getattr(m, a) for m, a in saved]
         wraps = (wrap_match, wrap_bfs, wrap_fm,
                  lambda fn: wrap_dist("dmatch", fn),
                  lambda fn: wrap_dist("dbfs", fn),
-                 lambda fn: wrap_dist("dhalo", fn), wrap_pack)
+                 lambda fn: wrap_dist("dhalo", fn), wrap_pack, wrap_band,
+                 wrap_project, lambda fn: wrap_dband("central", fn),
+                 lambda fn: wrap_dband("sharded", fn))
         for (m, a), fn, wrap in zip(saved, originals, wraps):
             setattr(m, a, wrap(fn))
         try:
@@ -212,3 +298,6 @@ class Recorder:
 
     def fm_launch_shapes(self) -> List[dict]:
         return [dict(d, slots=int(d["slots"])) for d in self.fm_launches]
+
+    def bfs_launch_shapes(self) -> List[dict]:
+        return [dict(d, slots=int(d["slots"])) for d in self.bfs_launches]

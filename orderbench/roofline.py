@@ -35,3 +35,22 @@ def fm_bound_s(launches) -> float:
     return sum(fm_launch_bytes(d["shape"], d["lanes"], d["slots"],
                                d["row_len_numel"])
                for d in launches) / HBM_BYTES_PER_S
+
+
+def bfs_launch_bytes(shape, slots: int) -> int:
+    """Bytes of one call of the band BFS (``csrc/bfs_multi.cu``, either
+    design) over tiles ``shape`` = (L, n, d) with ``slots`` ids up to the
+    rows' ends.
+
+    Reads: the tiles' ids (int32, ``slots``) and the source masks (int32,
+    L × n).  Writes: the distances (int32, L × n).  The ping-pong buffer
+    ``scratch`` is the kernel's own and not counted.
+    """
+    L, n, _ = shape
+    return int(4 * slots + 4 * L * n + 4 * L * n)
+
+
+def bfs_bound_s(launches) -> float:
+    """Least seconds of a list of band BFS calls (``Recorder`` shapes)."""
+    return sum(bfs_launch_bytes(d["shape"], d["slots"])
+               for d in launches) / HBM_BYTES_PER_S

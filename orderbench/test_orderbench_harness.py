@@ -100,20 +100,104 @@ def test_mix_is_a_function_of_the_seed():
                for k in ("xadj", "adjncy", "adjwgt"))
 
 
-@pytest.mark.parametrize("cell", [w["name"] for w in BENCH["workloads"]])
-def test_each_cell_requires_the_kinds_its_path_calls(cell):
-    """A cell has to make every sampled kind of call but the band's when
-    its configuration refines without the band graph."""
-    _, cfg, traffic = harness.find(BENCH, cell)
+def band_contract(cfg: dict, traffic: dict) -> list:
+    """The rules a configuration and its cell's traffic keep about the
+    band graph, whichever way the configuration sets it; returns the
+    rules broken.  ``use_band`` is off exactly where ``reduced`` names it
+    (the published strategy refines on the band graph), the stated
+    guarantee and the file's own ``use_band`` are the one run, and the
+    cell has to make the band's kinds of call (the band BFS, its graph
+    and its projection, and on the distributed entry the distributed BFS
+    and levels' band) exactly where the band is on."""
+    band = cfg["nd_config"].get("use_band", True)
+    dist = traffic["entry"] == "distributed_nested_dissection"
+    must = set(check.required(cfg, traffic))
+    want = {"bfs", "band", "band_proj"} | ({"dbfs", "dband"} if dist
+                                             else set())
+    broken = []
+    if band == ("use_band" in cfg["reduced"]):
+        broken.append("use_band is off where reduced names it")
+    if cfg["guarantees"].get("use_band") != band or \
+            cfg.get("use_band", band) != band:
+        broken.append("guarantees.use_band is nd_config.use_band")
+    if must & set(check.BAND_KINDS) != (want if band else set()):
+        broken.append(f"the band's kinds required: {sorted(want)}")
+    return broken
+
+
+def requires_the_kinds_its_path_calls(cfg: dict, traffic: dict) -> None:
+    """A cell has to make every sampled kind of call, the band's only
+    where its configuration refines on the band graph."""
     must = check.required(cfg, traffic)
     assert {"match", "fm"} <= set(must)
     assert ("dmatch" in must) == (traffic["entry"] ==
                                   "distributed_nested_dissection")
-    band = dict(cfg, nd_config=dict(cfg["nd_config"], use_band=True))
-    assert set(must) == set(check.required(band, traffic)) - \
-        set(check.BAND_KINDS)
-    assert cfg["nd_config"]["use_band"] is False
-    assert "use_band" in cfg["reduced"]
+    noband = dict(cfg, nd_config=dict(cfg["nd_config"], use_band=False))
+    assert set(must) - set(check.BAND_KINDS) == \
+        set(check.required(noband, traffic))
+    assert band_contract(cfg, traffic) == []
+
+
+@pytest.mark.parametrize("cell", [w["name"] for w in BENCH["workloads"]])
+def test_each_cell_requires_the_kinds_its_path_calls(cell):
+    _, cfg, traffic = harness.find(BENCH, cell)
+    requires_the_kinds_its_path_calls(cfg, traffic)
+
+
+def band_labelled(cfg: dict) -> dict:
+    """A configuration with the band graph on, labelled as such."""
+    return dict(cfg, nd_config=dict(cfg["nd_config"], use_band=True),
+                guarantees=dict(cfg["guarantees"], use_band=True),
+                use_band=True,
+                reduced=[k for k in cfg["reduced"] if k != "use_band"])
+
+
+@pytest.mark.parametrize("traffic", ["single", "dist8"])
+def test_a_band_cell_requires_the_band_kinds(traffic):
+    """A band configuration's cells on the existing traffic files keep the
+    same rule as the no-band cells do."""
+    cfg = json.loads((ROOT / "orderbench/configs/m3d-30-noband.json")
+                     .read_text())
+    traffic = json.loads((ROOT / f"orderbench/traffic/{traffic}.json")
+                         .read_text())
+    requires_the_kinds_its_path_calls(band_labelled(cfg), traffic)
+    with pytest.raises(AssertionError):
+        requires_the_kinds_its_path_calls(
+            dict(band_labelled(cfg), reduced=cfg["reduced"]), traffic)
+
+
+def _labelled(band: bool, reduced: list, guarantee=None) -> dict:
+    return {"nd_config": {"band_width": 3, "use_band": band},
+            "reduced": reduced,
+            "guarantees": {"use_band": band if guarantee is None
+                           else guarantee}}
+
+
+SINGLE_CALLS = {"entry": "nested_dissection",
+                "check_calls": {"match": [6, 1], "bfs": [6, 1],
+                                "fm": [5, 1]}}
+DIST_CALLS = {"entry": "distributed_nested_dissection",
+              "check_calls": {k: [4, 1] for k in check.KINDS}}
+CONTRACT = [
+    ("band", _labelled(True, []), SINGLE_CALLS, True),
+    ("band-dist", _labelled(True, ["nparts"]), DIST_CALLS, True),
+    ("noband", _labelled(False, ["use_band"]), SINGLE_CALLS, True),
+    ("noband-dist", _labelled(False, ["use_band"]), DIST_CALLS, True),
+    ("noband-not-reduced", _labelled(False, []), SINGLE_CALLS, False),
+    ("band-reduced", _labelled(True, ["use_band"]), SINGLE_CALLS, False),
+    ("band-guarantee-off", _labelled(True, [], False), SINGLE_CALLS, False),
+    ("band-bfs-unsampled", _labelled(True, []),
+     dict(SINGLE_CALLS, check_calls={"match": [6, 1], "fm": [5, 1]}), False),
+    ("band-dist-dbfs-unsampled", _labelled(True, []),
+     dict(DIST_CALLS, check_calls={k: [4, 1] for k in check.KINDS
+                                   if k != "dbfs"}), False),
+]
+
+
+@pytest.mark.parametrize("cfg,traffic,keeps", [c[1:] for c in CONTRACT],
+                         ids=[c[0] for c in CONTRACT])
+def test_band_contract_on_plain_configurations(cfg, traffic, keeps):
+    assert (band_contract(cfg, traffic) == []) is keeps
 
 
 def test_a_required_kind_never_called_is_unchecked():

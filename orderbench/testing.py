@@ -8,6 +8,9 @@ small grid takes the sharded refinement (halo exchanges, shard
 fragments) that the full-size cell takes.  A run whose traffic names
 ``cards`` (a cell's file, or ``traffic``) puts its parts on that many
 CPU members (``drive.Ordering``), under the schedule the cards take.
+``nd``'s keys are merged into the configuration's ``nd_config`` (on the
+distributed entry after ``SHARDED_BELOW``): ``nd={"use_band": True}``
+runs a no-band cell's path with the band graph.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ SMALL_MIX = {"n_min": 100, "n_max": 400, "sizes": 4, "bins": 2}
 
 def cpu_run(workload: str, seed: int = 2 ** 31 + 5, seconds: float = 0.2,
             traced: bool = False, mesh: dict = None, window_hook=None,
-            traffic: dict = None):
+            traffic: dict = None, nd: dict = None):
     from orderbench import harness
     bench = harness.bench_file()
     cell, base_cfg, base = harness.find(bench, workload)
@@ -38,6 +41,9 @@ def cpu_run(workload: str, seed: int = 2 ** 31 + 5, seconds: float = 0.2,
                                            else SMALL_MESH)), {}
         if dist:
             cfg["nd_config"] = dict(base_cfg["nd_config"], **SHARDED_BELOW)
+    if nd:
+        cfg["nd_config"] = dict(cfg.get("nd_config", base_cfg["nd_config"]),
+                                **nd)
     every_call = {k: [10 ** 6, 10 ** 6] for k in base["check_calls"]}
     traffic = dict(small_traffic, **(traffic or {}), check_calls=every_call)
     kw = {} if window_hook is None else {"window_hook": window_hook}
