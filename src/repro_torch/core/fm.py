@@ -164,7 +164,6 @@ class _Lanes:
     vwgt: np.ndarray                    # (n_pad,)
     locked: np.ndarray                  # (n_pad,)
     parts0: np.ndarray                  # (k, n_pad)
-    keys: torch.Tensor                  # (k, 2)
     eps: np.ndarray                     # (k,)
     max_moves: np.ndarray               # (k,)
     n_pert: np.ndarray                  # (k,)
@@ -188,10 +187,8 @@ def _prepare_lanes(w: FMWork) -> _Lanes:
             np.arange(k_inst) % len(w.parts_init)]
     parts0 = np.full((k_inst, n_pad), 3, np.int8)
     parts0[:, :n] = parts_init
-    with obs.span("fm:keys"):
-        keys = prng.split(prng.PRNGKey(w.seed), k_inst)
     return _Lanes(
-        nbr=nbr_p, vwgt=vw_p, locked=lock_p, parts0=parts0, keys=keys,
+        nbr=nbr_p, vwgt=vw_p, locked=lock_p, parts0=parts0,
         eps=np.full(k_inst, w.eps_frac, np.float32),
         max_moves=np.full(k_inst, w.effective_max_moves(), np.int32),
         n_pert=np.full(k_inst, w.n_pert, np.int32))
@@ -217,12 +214,15 @@ def pack_fm_bucket(works: Sequence[FMWork]) -> Tuple[dict, List[int]]:
     first lane that get no moves, as the reference pads them.  The tiles'
     ``extents`` (``band_batch.row_extents``) are made here, once a bucket,
     and ``lane_work`` and the extents are checked here on the host, so the
-    kernels' wrappers need not read them back from the card.
+    kernels' wrappers need not read them back from the card.  The lanes'
+    keys are ``prng.split_host`` of the works' seeds, one pass a bucket.
     """
     with obs.span("fm:lanes"):
         lanes = [_prepare_lanes(w) for w in works]
     counts = [ln.parts0.shape[0] for ln in lanes]
     L_real = sum(counts)
+    with obs.span("fm:keys", lanes=L_real):
+        keys = prng.split_host([w.seed for w in works], counts)
     pad = -(-L_real // 8) * 8 - L_real
     lane_work = np.concatenate([np.repeat(np.arange(len(lanes)), counts),
                                 np.zeros(pad, np.int64)])
@@ -248,7 +248,7 @@ def pack_fm_bucket(works: Sequence[FMWork]) -> Tuple[dict, List[int]]:
         vwgt=per_work(lambda ln: ln.vwgt),
         parts=per_lane(lambda ln: ln.parts0, np.int8),
         locked=per_work(lambda ln: ln.locked),
-        keys=torch.cat([ln.keys for ln in lanes])[torch.from_numpy(first)],
+        keys=torch.from_numpy(keys[first]),
         eps_frac=per_lane(lambda ln: ln.eps, np.float32),
         max_moves=torch.from_numpy(mm),
         n_pert=per_lane(lambda ln: ln.n_pert, np.int32)), counts

@@ -17,12 +17,20 @@ Keys are int64 tensors whose last axis holds the two 32-bit words; all
 arithmetic is int64 masked to 32 bits, so it runs on any device.  A
 leading batch shape on a key batches every function over keys.  There is
 no global generator: keys are passed explicitly.
+
+``split_host(seeds, counts)`` is the FM lanes' key split on the host: for
+each seed ``s`` with count ``c`` the rows of ``split(PRNGKey(s), c)``, bit
+for bit, for a whole bucket of works in one NumPy uint32 pass.  The torch
+functions cost one dispatcher call per operation on tensors of a few
+elements, ~180 calls a work; the packing of an FM bucket needs every
+work's lane keys on the host, so it takes them from here.
 """
 from __future__ import annotations
 
 import math
 from typing import Sequence, Union
 
+import numpy as np
 import torch
 
 _M32 = 0xFFFFFFFF
@@ -70,6 +78,35 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``num`` new keys per key: (..., 2) → (..., num, 2)."""
     b0, b1 = _hash_iota(key, num)
     return torch.stack([b0, b1], dim=-1)
+
+
+def split_host(seeds: Sequence[int], counts: Sequence[int]) -> np.ndarray:
+    """``split(PRNGKey(s), c)`` for every ``(s, c)``, stacked: (Σc, 2) int64.
+
+    One threefry pass over a flat lane axis in uint32 arithmetic, which
+    wraps by itself; the rotations and sums run in place.
+    """
+    counts = np.asarray(counts, np.int64)
+    k1 = np.repeat(np.array([int(s) & _M32 for s in seeds], np.uint32),
+                   counts)
+    ends = np.cumsum(counts)
+    x1 = np.arange(len(k1), dtype=np.uint32)            # counter (0, i)
+    x1 -= np.repeat((ends - counts).astype(np.uint32), counts)
+    ks = (np.uint32(0), k1, k1 ^ np.uint32(0x1BD11BDA))
+    x0 = np.zeros_like(x1)
+    x1 += k1
+    t = np.empty_like(x1)
+    for step in range(5):
+        for r in _ROT[step % 2]:
+            x0 += x1
+            np.left_shift(x1, np.uint32(r), out=t)
+            x1 >>= np.uint32(32 - r)
+            x1 |= t
+            x1 ^= x0
+        x0 += ks[(step + 1) % 3]
+        x1 += ks[(step + 2) % 3]
+        x1 += np.uint32(step + 1)
+    return np.stack([x0, x1], axis=1).astype(np.int64)
 
 
 def random_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:

@@ -8,7 +8,10 @@ float sum is over integer-valued float32 weights and the noise is drawn
 by the same threefry sequence, so any reduction order gives the same
 bits.
 """
+import dataclasses
 import os
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -23,9 +26,16 @@ from repro.core import fm as jfm  # noqa: E402
 from repro.kernels.fm_fused import fm_fused_multi as jax_fm_fused  # noqa: E402
 from repro.kernels.fm_fused import fm_noise as jax_fm_noise  # noqa: E402
 from repro.kernels.ref import fm_fused_ref  # noqa: E402
+from repro_torch import prng  # noqa: E402
 from repro_torch.convert import key_from_array  # noqa: E402
 from repro_torch.core import fm  # noqa: E402
 from repro_torch.kernels import band_batch, fm_fused  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
+from orderbench import record  # noqa: E402
+from orderbench.reference import pack as ref_pack  # noqa: E402
 
 N, D = 32, 4
 
@@ -269,6 +279,39 @@ def test_pack_pads_lanes_with_zero_budget_copies():
     assert host["lane_work"].tolist() == [0, 0, 0, 0, 1, 1, 0, 0]
     assert host["max_moves"][6:].tolist() == [0, 0]
     assert np.array_equal(host["keys"][6].numpy(), host["keys"][0].numpy())
+
+
+def test_mixed_bucket_packs_the_keys_and_the_benchmarks_packing():
+    """Works of ``k_inst`` 2, 5 (8 lanes) and 16 in one bucket, 26 real
+    lanes: each work's keys are its own ``split(PRNGKey(seed), k)`` rows,
+    the 6 padding lanes copies of lane 0, and the whole call equals the
+    benchmark's independent packing of the same works."""
+    works = [dataclasses.replace(_work(fm, seed=i, k_inst=k), seed=s)
+             for i, (s, k) in enumerate([(2 ** 32 + 11, 2), (-4, 5),
+                                         (2 ** 40 + 3, 16)])]
+    host, counts = fm.pack_fm_bucket(works)
+    assert counts == [2, 8, 16]
+    want = torch.cat([prng.split(prng.PRNGKey(w.seed), k)
+                      for w, k in zip(works, counts)])
+    keys = host["keys"]
+    assert keys.dtype == torch.int64 and keys.shape == (32, 2)
+    assert torch.equal(keys[:26], want)
+    assert torch.equal(keys[26:], keys[:1].expand(6, 2))
+    ref = ref_pack.pack([record._work(w) for w in works])
+    for f in ref_pack.FIELDS:
+        got = host[f].numpy()
+        assert got.shape == ref[f].shape, f
+        if f == "eps_frac":
+            assert np.array_equal(got, ref[f]), f
+        else:
+            assert np.array_equal(got.astype(np.int64),
+                                  ref[f].astype(np.int64)), f
+    w = dataclasses.replace(_work(fm, seed=6, n=40), seed=2 ** 33 + 5)
+    args = {k: getattr(w, k) for k in ("nbr", "vwgt", "part", "locked",
+                                        "seed")}
+    got = fm.refine_parts(**args, k_inst=5, device="cpu")
+    _same_results([got], [jfm.refine_parts(**args, k_inst=5)],
+                  "refine_parts vs reference")
 
 
 def test_bucket_key_budget_and_lane_count_helpers():

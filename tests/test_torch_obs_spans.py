@@ -142,6 +142,22 @@ def test_self_seconds_sum_to_the_roots(runs):
         assert -1e-9 <= self_s <= ins.span_s[name] + 1e-9, name
 
 
+def test_one_key_span_a_bucket(runs):
+    """The FM lanes' keys are split once a bucket: one ``fm:keys`` a
+    ``fm:pack``, its child, counting the bucket's real lanes."""
+    _, ins, _, tracer = runs["traced"]
+    by_id = {s.span_id: s for s in tracer.spans}
+    packs = [s for s in tracer.spans if s.name == "fm:pack"]
+    keys = sorted((s for s in tracer.spans if s.name == "fm:keys"),
+                  key=lambda s: s.t0)
+    assert packs and len(keys) == len(packs)
+    assert sorted(s.parent_id for s in keys) == \
+        sorted(s.span_id for s in packs)
+    assert all(by_id[s.parent_id].name == "fm:pack" for s in keys)
+    lanes = [d["lanes"] for d in ins.launches if d["kind"] == "fm"]
+    assert [s.attrs["lanes"] for s in keys] == lanes
+
+
 def test_no_span_event_without_a_tracer(runs):
     _, ins, events, _ = runs["plain"]
     kinds = {k for k, _ in events}

@@ -37,6 +37,27 @@ def test_prngkey_and_split(seed):
         assert np.array_equal(prng.split(key, num).numpy(), want)
 
 
+HOST_SEEDS = [0, 1, 2 ** 31 - 1, 2 ** 31, 2 ** 32 - 1, 2 ** 32 + 7, -3] + [
+    int(s) for s in np.random.default_rng(63).integers(0, 2 ** 63 - 1, 64)]
+
+
+@pytest.mark.parametrize("counts", [1, 2, 3, 4, 8, 16, "mixed"])
+def test_split_host_equals_split(counts):
+    """The host split of a bucket's seeds is each seed's ``split`` rows,
+    bit for bit, in one call: negative and 63-bit seeds masked as
+    ``PRNGKey`` masks them, and counts that differ from work to work."""
+    if counts == "mixed":
+        counts = [int(c) for c in np.random.default_rng(5).choice(
+            [1, 2, 3, 4, 8, 16], len(HOST_SEEDS))]
+    else:
+        counts = [counts] * len(HOST_SEEDS)
+    got = prng.split_host(HOST_SEEDS, counts)
+    want = torch.cat([prng.split(prng.PRNGKey(s), c)
+                      for s, c in zip(HOST_SEEDS, counts)])
+    assert got.dtype == np.int64 and got.shape == (sum(counts), 2)
+    assert np.array_equal(got, want.numpy())
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 def test_uniform_and_bernoulli_over_seeds(shape):
     for seed in range(0, 400, 23):
